@@ -1,0 +1,356 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 chip_smoke.py                 # the full run (1M objects)
+    python3 chip_smoke.py --n-objects 20000 --ptxas   # a short first check
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. card: ``nvidia-smi`` name and power limit;
+2. build: every CUDA source of the port, ``nvcc`` runs in parallel;
+3. fma: ``torch.addcmul`` (the port's spelling of a fused multiply-add) held
+   against an exact round-to-odd emulation on the card;
+4. kernel: ``fused_scan_merge`` on the card against its plain PyTorch version
+   on the same inputs (Q=8192, W=256, k=32 with edge rows), bitwise, and
+   timed beside its memory bound and the ``dense_topk`` merge;
+5. main path: a ``KnnSession`` with ``backend="fused_bucket"`` and the spec
+   defaults over 1,000,000 uniform objects, one query per object: tick 0,
+   two ticks where 1% of the objects move up to 200 u, then a snapshot of the
+   gaussian (25 hotspots) family at the same N and one more tick after its
+   drift rebuild.  Every tick must launch the kernel, and 1,024 sampled
+   queries per tick must equal a brute-force oracle on the card bit for bit.
+
+The next-to-last line is the kernels' JSON record; the last line is
+``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+FP32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()
+    return out[torch.cuda.current_device()] if len(out) > 1 else out[0]
+
+
+def fma_exact(a, b, c):
+    """Correctly rounded f32 fma: f64 product (exact) + round-to-odd sum."""
+    p = a.double() * b.double()
+    cd = c.double()
+    s = p + cd
+    bb = s - p
+    err = (p - (s - bb)) + (cd - bb)  # exact: s + err == p + cd
+    toward0 = (err != 0) & ((err > 0) != (s > 0))
+    si = s.view(torch.int64)
+    si = torch.where(toward0, si - 1, si)
+    si = torch.where(err != 0, si | 1, si)
+    return si.view(torch.float64).float()
+
+
+def check_fma(dev):
+    g = np.random.default_rng(1)
+    a, b = (torch.tensor(g.uniform(-2e3, 2e3, 1 << 22), dtype=torch.float32,
+                         device=dev) for _ in range(2))
+    c = torch.tensor(g.uniform(0, 1e6, 1 << 22), dtype=torch.float32,
+                     device=dev)
+    from repro_torch.runtime import fma
+
+    if not torch.equal(fma(a, b, c), fma_exact(a, b, c)):
+        raise AssertionError("torch.addcmul is not a fused multiply-add here")
+    print("fma: torch.addcmul == exact fma on 4,194,304 samples")
+
+
+def time_ms(fn, reps: int, warmup: int = 3) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+        enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def edge_lists(n_rows: int, k: int, seed: int = 0) -> np.ndarray:
+    """(n_rows, k) ascending full lists whose last bucket edge of the first
+    refinement round, ``fma(31, width, lo)``, is itself a list entry that the
+    division ``(x - lo) / width`` bins one bucket lower.  Merged with an
+    empty window, the reference's fused kernel loses the k-th entry of every
+    such row (its histogram rank counts the edge entry below the bucket)."""
+    from repro_torch.kernels import fused_scan as fs
+    from repro_torch.runtime import fma
+
+    g = np.random.default_rng(seed)
+    t = lambda v: torch.tensor([v], dtype=torch.float32)
+    rows = []
+    while len(rows) < n_rows:
+        lo = np.float32(g.uniform(1, 1000))
+        hi0 = np.float32(lo + g.uniform(100, 6000))
+        width = (fma(t(hi0), t(fs.HI_MUL), t(fs.HI_ADD)) - t(lo)) / 32
+        x = fma(t(31.0), width, t(lo))
+        if torch.floor((x - t(lo)) / width).item() != 30 or x.item() >= hi0:
+            continue
+        x = np.float32(x.item())
+        row = np.concatenate([
+            [lo], np.sort(g.uniform(lo, x, k - 5)), [x],
+            np.sort(g.uniform(x, hi0, 2)), [hi0]]).astype(np.float32)
+        if np.all(np.diff(row) > 0):
+            rows.append(row)
+    return np.stack(rows)
+
+
+def kernel_inputs(q: int, w: int, k: int, dev, seed: int = 0):
+    """Main-path shapes with edge rows: coincident points, distance ties,
+    all-invalid rows, rows with fewer than k valid entries, full lists
+    merged with an empty window whose k-th entry sits in the bucket of an
+    edge entry (:func:`edge_lists`), partly filled and full current lists."""
+    from repro_torch.kernels.fused_scan import fused_scan_merge_ref
+
+    g = np.random.default_rng(seed)
+    qx = g.uniform(0, 22_500, q).astype(np.float32)
+    qy = g.uniform(0, 22_500, q).astype(np.float32)
+    cx = (qx[:, None] + g.normal(0, 300, (q, w))).astype(np.float32)
+    cy = (qy[:, None] + g.normal(0, 300, (q, w))).astype(np.float32)
+    cids = g.integers(0, 1 << 30, (q, w)).astype(np.int32)
+    valid = g.random((q, w)) < 0.9
+    e = q // 16  # edge-row band height
+    # coincident points: d2 == 0
+    cx[:e, ::7] = qx[:e, None]
+    cy[:e, ::7] = qy[:e, None]
+    # equal distances, distinct ids: mirrored integer offsets
+    off = g.integers(1, 4, (e, w)).astype(np.float32)
+    sign = np.where(g.random((e, w)) < 0.5, -1, 1).astype(np.float32)
+    cx[e:2 * e] = qx[e:2 * e, None] + sign * off
+    cy[e:2 * e] = qy[e:2 * e, None]
+    valid[2 * e:3 * e] = False  # all invalid
+    valid[3 * e:4 * e] = False
+    valid[3 * e:4 * e, :5] = True  # n_valid < k
+    t = lambda a: torch.tensor(a, device=dev)
+    inf_d = torch.full((q, k), float("inf"), device=dev)
+    neg_i = torch.full((q, k), -1, dtype=torch.int32, device=dev)
+    # current lists: a first merge of another window, then cut some short
+    px = (qx[:, None] + g.normal(0, 300, (q, w))).astype(np.float32)
+    py = (qy[:, None] + g.normal(0, 300, (q, w))).astype(np.float32)
+    pid = g.integers(0, 1 << 30, (q, w)).astype(np.int32)
+    bd, bi = fused_scan_merge_ref(t(qx), t(qy), t(px), t(py), t(pid),
+                                  t(g.random((q, w)) < 0.9), inf_d, neg_i, k=k)
+    keep = torch.tensor(g.integers(0, k + 1, q), device=dev)
+    cut = torch.arange(k, device=dev)[None, :] >= keep[:, None]
+    cut[:4 * e] = True  # the edge bands start from empty lists
+    bd = torch.where(cut, float("inf"), bd).contiguous()
+    bi = torch.where(cut, -1, bi).to(torch.int32).contiguous()
+    if k >= 5:  # full lists on a bucket edge, merged with an empty window
+        valid[4 * e:5 * e] = False
+        bd[4 * e:5 * e] = t(edge_lists(e, k, seed))
+        bi[4 * e:5 * e] = torch.arange(e * k, device=dev,
+                                       dtype=torch.int32).view(e, k)
+    return (t(qx), t(qy), t(cx), t(cy), t(cids), t(valid), bd, bi)
+
+
+def kernel_phase(dev, q=8192, w=256, k=32):
+    from repro_torch.kernels import fused_scan as fs
+    from repro_torch.kernels.ops import _lex_sort_merge
+
+    args = kernel_inputs(q, w, k, dev)
+    fs.fused_scan_merge.launches = 0
+    out_d, out_i = fs.fused_scan_merge(*args, k=k)
+    torch.cuda.synchronize()
+    if fs.fused_scan_merge.launches != 1:
+        raise AssertionError("fused_scan_merge did not launch its kernel")
+    ref_d, ref_i = fs.fused_scan_merge_ref(*args, k=k)
+    if not (torch.equal(out_d, ref_d) and torch.equal(out_i, ref_i)):
+        bad = (out_d != ref_d) | (out_i != ref_i)
+        raise AssertionError(f"kernel != plain version on {int(bad.sum())} "
+                             f"entries, rows {bad.any(1).nonzero()[:8, 0]}")
+    # the plain version on the card equals it on the CPU (held against JAX
+    # by the CPU tests), on a slice
+    cpu_d, cpu_i = fs.fused_scan_merge_ref(*(a[:512].cpu() for a in args), k=k)
+    if not (torch.equal(cpu_d, ref_d[:512].cpu())
+            and torch.equal(cpu_i, ref_i[:512].cpu())):
+        raise AssertionError("plain version differs between card and CPU")
+    fin = torch.isfinite(ref_d)
+    max_abs_err = float((out_d[fin] - ref_d[fin]).abs().max()) if fin.any() \
+        else 0.0
+
+    ms = time_ms(lambda: fs.fused_scan_merge(*args, k=k), reps=50)
+    plain_ms = time_ms(lambda: fs.fused_scan_merge_ref(*args, k=k), reps=3,
+                       warmup=1)
+    # the kernel is exact: it equals the two-sort merge of the dense_topk
+    # backend, the edge-list band included
+    qpos = torch.stack([args[0], args[1]], 1)
+    cpos = torch.stack([args[2], args[3]], 2)
+    lex_d, lex_i = _lex_sort_merge(qpos, cpos, args[4], args[5], args[6],
+                                   args[7], k)
+    if not (torch.equal(out_d, lex_d) and torch.equal(out_i, lex_i)):
+        bad = ((out_d != lex_d) | (out_i != lex_i)).any(1)
+        raise AssertionError(f"kernel != exact two-sort merge on "
+                             f"{int(bad.sum())} rows")
+    library_ms = time_ms(
+        lambda: _lex_sort_merge(qpos, cpos, args[4], args[5], args[6],
+                                args[7], k), reps=10)
+    # bound: each input read once, each output written once; operations
+    # counted for this data (rounds stop after the last finite entry)
+    n = k + w
+    nbytes = q * (8 + 13 * w + 8 * k) + q * 8 * k
+    rounds = torch.minimum(fin.sum(1) + 1, torch.tensor(k, device=dev))
+    ops = q * (6 * w + 4 * 10 * n) + int(rounds.sum()) * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    rec = {
+        "name": "fused_scan_merge",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fused_scan.cu",
+        "replaces": "src/repro/kernels/fused_scan.py:126",
+        "launches": None,  # filled from the main path
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+        "bitwise": True,
+    }
+    print(f"kernel: fused_scan_merge Q={q} W={w} k={k} bitwise equal to the "
+          f"plain version and the exact merge; {ms:.4f} ms (plain "
+          f"{plain_ms:.3f} ms, dense_topk {library_ms:.3f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}: {nbytes} bytes, "
+          f"{ops} ops)")
+    return rec
+
+
+def oracle_check(pos_t, qrows, nn_idx, nn_dist, k, dev, batch=128):
+    """Brute force on the card: full distance rows, lexicographic (d2, id)
+    order, the query's own object excluded; ids and distances bitwise."""
+    from repro_torch.runtime import fma, sqrt
+
+    px, py = pos_t[:, 0], pos_t[:, 1]
+    ids = torch.arange(pos_t.shape[0], device=dev)
+    for b in range(0, qrows.shape[0], batch):
+        rows = torch.tensor(qrows[b:b + batch], device=dev)
+        dx = px[None, :] - px[rows][:, None]
+        dy = py[None, :] - py[rows][:, None]
+        d2 = fma(dx, dx, dy * dy)
+        d2[ids[None, :] == rows[:, None]] = float("inf")
+        sd, order = torch.sort(d2, dim=1, stable=True)  # ids ascend already
+        want_i = order[:, :k].to(torch.int32).cpu().numpy()
+        want_d = sqrt(sd[:, :k]).cpu().numpy()
+        got_i = nn_idx[qrows[b:b + batch]]
+        got_d = nn_dist[qrows[b:b + batch]]
+        if not (np.array_equal(want_i, got_i)
+                and np.array_equal(want_d.view(np.uint32),
+                                   got_d.view(np.uint32))):
+            raise AssertionError("session result != brute-force oracle")
+
+
+def main_path(dev, n: int, seed: int = 0):
+    from repro_torch.api import KnnSession, ServiceSpec
+    from repro_torch.data.generators import make_workload
+    from repro_torch.kernels import fused_scan as fs
+
+    spec = ServiceSpec(backend="fused_bucket")
+    g = np.random.default_rng(seed + 1)
+    pos = make_workload(n, "uniform", seed=seed, side=spec.side).positions()
+    pos = pos.copy()
+    gauss = make_workload(n, "gaussian", seed=seed, side=spec.side,
+                          hotspots=25).positions()
+
+    session = KnnSession(spec)  # device=None: the card
+    session.ingest_objects(pos)
+    handle = session.register_queries(pos, np.arange(n, dtype=np.int32))
+
+    fs.fused_scan_merge.launches = 0  # the main path's count starts here
+    ticks = []
+    plan = ["uniform", "move 1%", "move 1%", "gaussian", "gaussian"]
+    for t, step in enumerate(plan):
+        if step == "move 1%":
+            ids = g.choice(n, n // 100, replace=False).astype(np.int32)
+            ang = g.uniform(0, 2 * np.pi, ids.size)
+            r = g.uniform(0, 200.0, ids.size)
+            new = pos[ids] + np.stack([np.cos(ang), np.sin(ang)], 1) * r[:, None]
+            new = np.clip(new, 0, spec.side - 1e-3).astype(np.float32)
+            session.update_objects(ids, new)
+            pos[ids] = new
+            session.update_queries(handle, pos)
+        elif step == "gaussian" and t == 3:
+            pos = gauss.copy()
+            session.ingest_objects(pos)
+            session.update_queries(handle, pos)
+        before = fs.fused_scan_merge.launches
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        res = session.submit().result()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = fs.fused_scan_merge.launches - before
+        if launches < 1:
+            raise AssertionError(f"tick {t}: the kernel was not launched")
+        if res.nn_idx.shape != (n, spec.k) or not np.isfinite(
+                res.nn_dist).all():
+            raise AssertionError(f"tick {t}: malformed result")
+        sample = g.choice(n, 1024, replace=False)
+        oracle_check(torch.tensor(pos, device=dev), sample, res.nn_idx,
+                     res.nn_dist, spec.k, dev)
+        rec = {"tick": t, "step": step, "n_objects": n, "wall_ms": wall_ms,
+               "iterations": res.iterations, "candidates": res.candidates,
+               "launches": launches, "rebuilt": res.rebuilt,
+               "maintenance": res.maintenance,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "oracle_rows": 1024, "oracle": "bitwise"}
+        print("tick " + json.dumps(rec))
+        ticks.append(rec)
+    session.finalize_pending()
+    return fs.fused_scan_merge.launches, ticks
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--n-objects", type=int, default=1_000_000)
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print nvcc's register and spill report")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build
+
+    dev = torch.device("cuda")
+    print(card_line())  # as nvidia-smi gives it: name, power limit
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    t0 = time.perf_counter()
+    build.build_all(verbose=args.ptxas)
+    print(f"build: {len(build.SOURCES)} source(s) in "
+          f"{time.perf_counter() - t0:.1f} s")
+    check_fma(dev)
+    rec = kernel_phase(dev)
+    total, _ = main_path(dev, args.n_objects)
+    rec["launches"] = total
+    print(json.dumps({"kernels": [rec]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,328 @@
+"""KnnSession — the session-oriented serving facade, in PyTorch.
+
+Counterpart of ``repro/api/session.py`` for the single plan with
+``maintenance="rebuild"`` and ``collect="full"``: persistent query groups in a
+padded registry, delta object updates scattered on the device, and ticks
+submitted through :func:`repro_torch.core.ticks._tick_step`.  Drift-rebuild
+bookkeeping is finalized per tick, in submit order, at the earlier of that
+tick's ``result()`` and the next ``submit()``, exactly as the reference does,
+so the sequence of rebuild decisions matches the reference tick for tick.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+
+import numpy as np
+import torch
+
+from ..core.executor import resolve_executor
+from ..core.pipeline import default_max_nav
+from ..core.plan import pad_capacity, pad_queries, resolve_plan
+from ..core.quadtree import build_index, rebuild_zmap
+from ..core.ticks import _tick_step, scatter_positions
+from ..runtime import resolve_device
+from .handles import QueryHandle, TickHandle
+from .spec import ServiceSpec
+
+__all__ = ["KnnSession"]
+
+
+class _QueryRegistry:
+    """Host mirror + cached padded device staging of the live query set.
+
+    Rows stay contiguous (drops compact); padding rows clone the last query
+    with qid = -2 (:func:`repro_torch.core.plan.pad_queries`).
+    """
+
+    def __init__(self, multiple: int, device: torch.device):
+        self.multiple = multiple
+        self.device = device
+        self.qpos = np.zeros((0, 2), np.float32)
+        self.qid = np.zeros((0,), np.int32)
+        self.owner = np.zeros((0,), np.int64)
+        self._next_hid = 0
+        self._live: set[int] = set()
+        self._dirty = True
+        self._staged = None
+        # the per-query cost EMA is row-aligned: it resets when rows change
+        self.rows_changed = True
+
+    @property
+    def nq(self) -> int:
+        return int(self.qpos.shape[0])
+
+    def register(self, qpos, qid=None) -> QueryHandle:
+        qpos = np.asarray(qpos, np.float32).reshape(-1, 2)
+        m = qpos.shape[0]
+        if m == 0:
+            raise ValueError("cannot register an empty query group")
+        if qid is None:
+            qid = np.full((m,), -2, np.int32)
+        else:
+            qid = np.asarray(qid, np.int32).reshape(-1)
+            if qid.shape[0] != m:
+                raise ValueError(f"qid has {qid.shape[0]} rows but qpos has {m}")
+        hid = self._next_hid
+        self._next_hid += 1
+        self.qpos = np.concatenate([self.qpos, qpos])
+        self.qid = np.concatenate([self.qid, qid])
+        self.owner = np.concatenate([self.owner, np.full((m,), hid, np.int64)])
+        self._live.add(hid)
+        self._dirty = True
+        self.rows_changed = True
+        return QueryHandle(hid=hid, count=m)
+
+    def rows(self, handle: QueryHandle) -> np.ndarray:
+        if handle.hid not in self._live:
+            raise KeyError(f"{handle} is not live in this registry")
+        return np.nonzero(self.owner == handle.hid)[0]
+
+    def update(self, handle: QueryHandle, qpos):
+        rows = self.rows(handle)
+        qpos = np.asarray(qpos, np.float32).reshape(-1, 2)
+        if qpos.shape[0] != rows.shape[0]:
+            raise ValueError(
+                f"update_queries: {handle} owns {rows.shape[0]} rows, "
+                f"got {qpos.shape[0]} positions"
+            )
+        self.qpos[rows] = qpos
+        self._dirty = True
+
+    def drop(self, handle: QueryHandle):
+        keep = np.ones(self.nq, bool)
+        keep[self.rows(handle)] = False
+        self.qpos = self.qpos[keep]
+        self.qid = self.qid[keep]
+        self.owner = self.owner[keep]
+        self._live.discard(handle.hid)
+        self._dirty = True
+        self.rows_changed = True
+
+    def staged(self):
+        """(qpos_dev, qid_dev, nq, qids, owner), padded, on the device."""
+        if self._dirty or self._staged is None:
+            qpos_p, qid_p = pad_queries(self.qpos, self.qid, self.multiple)
+            self._staged = (
+                torch.tensor(qpos_p, dtype=torch.float32, device=self.device),
+                torch.tensor(qid_p, dtype=torch.int32, device=self.device),
+                self.nq,
+                self.qid.copy(),
+                self.owner.copy(),
+            )
+            self._dirty = False
+        return self._staged
+
+
+class KnnSession:
+    """A live serving session: device-resident object + query state, ticked.
+
+    ``device=None`` runs on the card (and raises without one); tests pass
+    ``device="cpu"`` to run the plain PyTorch path.
+    """
+
+    def __init__(self, spec: ServiceSpec, device=None):
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.executor = resolve_executor(spec.backend, spec.precision)
+        self.plan = resolve_plan(spec.plan)
+        self._registry = _QueryRegistry(self.plan.pad_multiple(spec.chunk),
+                                        self.device)
+        self._positions = None  # (N, 2) f32 on the device, by object id
+        self._index = None
+        self._work_at_build: float | None = None
+        self._tick = 0
+        self._pending: deque[TickHandle] = deque()
+        self._qcost = None
+        # True iff the positions buffer changed since the index was refreshed
+        self._positions_dirty = True
+
+    # ------------------------------------------------------------ state views
+    @property
+    def tick(self) -> int:
+        return self._tick
+
+    @property
+    def index(self):
+        return self._index
+
+    @property
+    def num_objects(self) -> int:
+        return 0 if self._positions is None else int(self._positions.shape[0])
+
+    @property
+    def query_count(self) -> int:
+        return self._registry.nq
+
+    # ------------------------------------------------------------ object state
+    def ingest_objects(self, positions):
+        """Full-snapshot ingest: replace all object positions ((N, 2), by id)."""
+        positions = np.asarray(positions, np.float32)
+        if positions.ndim != 2 or positions.shape[1] != 2:
+            raise ValueError(f"positions must be (N, 2), got {positions.shape}")
+        self._positions = torch.tensor(positions, dtype=torch.float32,
+                                       device=self.device)
+        self._positions_dirty = True
+
+    def update_objects(self, ids, positions):
+        """Delta ingest: scatter ``positions[i]`` to object ``ids[i]`` on device.
+
+        Duplicate ids in one batch resolve to the last observation; batches
+        are padded to ``spec.delta_pad`` rows with the sentinel id ``N``.
+        """
+        if self._positions is None:
+            raise RuntimeError("update_objects before ingest_objects: the "
+                               "session has no object state to update")
+        ids = np.asarray(ids, np.int32).reshape(-1)
+        positions = np.asarray(positions, np.float32).reshape(-1, 2)
+        if ids.shape[0] != positions.shape[0]:
+            raise ValueError(f"update_objects: {ids.shape[0]} ids vs "
+                             f"{positions.shape[0]} positions")
+        m = ids.shape[0]
+        if m == 0:
+            return
+        n = self.num_objects
+        if (ids < 0).any() or (ids >= n).any():
+            bad = ids[(ids < 0) | (ids >= n)]
+            raise ValueError(f"update_objects: ids out of range [0, {n}): "
+                             f"{bad[:8]}")
+        if np.unique(ids).shape[0] != m:
+            _, last_rev = np.unique(ids[::-1], return_index=True)
+            keep = np.sort((m - 1) - last_rev)
+            ids, positions = ids[keep], positions[keep]
+            m = ids.shape[0]
+        pad = pad_capacity(m, self.spec.delta_pad) - m
+        if pad:
+            ids = np.concatenate([ids, np.full((pad,), n, np.int32)])
+            positions = np.concatenate([positions,
+                                        np.zeros((pad, 2), np.float32)])
+        self._positions = scatter_positions(
+            self._positions,
+            torch.tensor(ids, device=self.device),
+            torch.tensor(positions, device=self.device),
+        )
+        self._positions_dirty = True
+
+    # ------------------------------------------------------------ query state
+    def register_queries(self, qpos, qid=None) -> QueryHandle:
+        """Add a persistent query group; ``qid`` is excluded from its result."""
+        return self._registry.register(qpos, qid)
+
+    def update_queries(self, handle: QueryHandle, qpos):
+        """Move a registered group: same row count, new positions."""
+        self._registry.update(handle, qpos)
+
+    def drop_queries(self, handle: QueryHandle):
+        """Remove a group; its rows stop being served from the next submit."""
+        self._registry.drop(handle)
+
+    # ------------------------------------------------------------ serving
+    def _build(self):
+        """(Re)build the space partition from the current device positions.
+
+        A clean buffer (the index was refreshed from this very buffer) only
+        needs the leaf partition re-decided (``rebuild_zmap``); otherwise the
+        full ``build_index``.  Both give the same bits.
+        """
+        if self._index is not None and not self._positions_dirty:
+            self._index = rebuild_zmap(self._index)
+        else:
+            self._index = build_index(
+                self._positions,
+                torch.tensor(self.spec.origin, dtype=torch.float32,
+                             device=self.device),
+                torch.tensor(self.spec.side, dtype=torch.float32,
+                             device=self.device),
+                l_max=self.spec.l_max,
+                th_quad=self.spec.th_quad,
+            )
+        self._work_at_build = None  # set at the next tick's finalize
+        self._positions_dirty = False
+
+    def _finalize_one(self, h: TickHandle):
+        """Read the tick's two bookkeeping scalars and apply the drift policy."""
+        h._work = float(h._aux.stats.candidates)
+        h._iterations = int(h._aux.stats.iterations)
+        if self._work_at_build is None:
+            self._work_at_build = h._work
+        elif bool(h._should_rebuild):
+            self._build()
+            h._rebuilt_post = True
+        h._finalized = True
+
+    def _finalize_through(self, target: TickHandle | None = None):
+        """Finalize pending ticks in submit order, up to ``target`` (or all)."""
+        if target is not None and target._finalized:
+            return
+        while self._pending:
+            h = self._pending.popleft()
+            self._finalize_one(h)
+            if h is target:
+                break
+
+    def finalize_pending(self):
+        """Apply the drift policy of every still-pending tick, now."""
+        self._finalize_through()
+
+    def submit(self) -> TickHandle:
+        """Queue one tick against the current object + query state."""
+        if self._positions is None:
+            raise RuntimeError("submit before ingest_objects: no object state")
+        if self._registry.nq == 0:
+            raise RuntimeError("submit with an empty query registry: "
+                               "register_queries first")
+        self._finalize_through()
+        t0 = time.perf_counter()
+        rebuilt_pre = False
+        if self._index is None:
+            self._build()
+            rebuilt_pre = True
+        if self._registry.rows_changed:
+            self._qcost = None
+            self._registry.rows_changed = False
+        qpos_dev, qid_dev, nq, qids, owner = self._registry.staged()
+        qcost_dev = self._qcost
+        if qcost_dev is None or qcost_dev.shape[0] != qpos_dev.shape[0]:
+            qcost_dev = torch.zeros((qpos_dev.shape[0],), dtype=torch.float32,
+                                    device=self.device)
+        spec = self.spec
+        mode = "rebuild" if self._positions_dirty else "skip"
+        work = np.inf if self._work_at_build is None else self._work_at_build
+        self._index, nn_idx, nn_dist, aux, should_rebuild = _tick_step(
+            self._index,
+            self._positions,
+            qpos_dev,
+            qid_dev,
+            qcost_dev,
+            torch.tensor(work, dtype=torch.float32, device=self.device),
+            torch.tensor(spec.rebuild_factor, dtype=torch.float32,
+                         device=self.device),
+            k=spec.k,
+            window=spec.window,
+            chunk=spec.chunk,
+            max_nav=default_max_nav(spec.l_max),
+            max_iters=spec.max_iters,
+            executor=self.executor,
+            plan=self.plan,
+            maintenance=mode,
+        )
+        self._positions_dirty = False
+        self._qcost = aux.qcost_next
+        h = TickHandle(
+            session=self,
+            tick=self._tick,
+            nn_idx=nn_idx,
+            nn_dist=nn_dist,
+            aux=aux,
+            should_rebuild=should_rebuild,
+            nq=nq,
+            qids=qids,
+            owner=owner,
+            t0=t0,
+            submit_s=time.perf_counter() - t0,
+            rebuilt_pre=rebuilt_pre,
+            maintenance=mode,
+        )
+        self._tick += 1
+        self._pending.append(h)
+        return h

@@ -1,0 +1,75 @@
+"""ServiceSpec — the declarative description of one k-NN serving session.
+
+Same fields and defaults as the reference's ``repro/api/spec.py``, and the
+same eager validation.  Values the port does not run yet raise
+``NotImplementedError`` at construction, naming the ROADMAP item that ports
+them: ``plan`` other than ``"single"`` (A10), ``maintenance="incremental"``
+(A8), ``collect`` other than ``"full"`` and ``precision="mixed"`` (A9).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+from ..core.ticks import validate_engine_params
+
+__all__ = ["ServiceSpec", "COLLECT_MODES"]
+
+SIDE_DEFAULT = 22_500.0  # paper Table 1: squared region of side 22500 u
+
+COLLECT_MODES = ("full", "stats", "none")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServiceSpec:
+    """Everything a :class:`repro_torch.api.KnnSession` needs, declared up front."""
+
+    k: int = 32
+    th_quad: int = 192
+    l_max: int = 8
+    window: int = 256
+    chunk: int = 8192
+    rebuild_factor: float = 2.0
+    region_pad: float = 1e-3
+    backend: str = "dense_topk"
+    plan: str = "single"
+    mesh_shape: int | tuple[int, int] | None = None
+    partitioner: str = "equal"
+    precision: str = "fp32"
+    merge: str = "dense_merge"
+    maintenance: str = "rebuild"
+    churn_budget: float = 0.25
+    max_iters: int = 100_000
+    origin: tuple[float, float] = (0.0, 0.0)
+    side: float = SIDE_DEFAULT
+    delta_pad: int = 1024
+    collect: str = "full"
+
+    def __post_init__(self):
+        validate_engine_params(
+            k=self.k, window=self.window, chunk=self.chunk,
+            backend=self.backend, plan=self.plan, mesh_shape=self.mesh_shape,
+            partitioner=self.partitioner, precision=self.precision,
+            merge=self.merge, maintenance=self.maintenance,
+            churn_budget=self.churn_budget,
+        )
+        if self.collect not in COLLECT_MODES:
+            raise ValueError(
+                f"unknown collect mode {self.collect!r}; one of {COLLECT_MODES}"
+            )
+        if self.side <= 0:
+            raise ValueError(f"side must be > 0, got {self.side}")
+        if len(self.origin) != 2:
+            raise ValueError(f"origin must be an (x, y) pair, got {self.origin!r}")
+        if self.delta_pad < 1:
+            raise ValueError(f"delta_pad must be >= 1, got {self.delta_pad}")
+        unported = [
+            ("plan", self.plan != "single", "A10"),
+            ("maintenance", self.maintenance == "incremental", "A8"),
+            ("collect", self.collect != "full", "A9"),
+            ("precision", self.precision == "mixed", "A9"),
+        ]
+        for field, bad, item in unported:
+            if bad:
+                raise NotImplementedError(
+                    f"{field}={getattr(self, field)!r} is not ported yet "
+                    f"(ROADMAP item {item})")

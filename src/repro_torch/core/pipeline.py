@@ -1,0 +1,289 @@
+"""Iterative k-NN query computation (paper Sec. 4.2), in PyTorch.
+
+Counterpart of ``repro/core/pipeline.py``.  All queries advance in lockstep;
+per iteration each query either SCANs one W-wide window of candidates from its
+current leaf (gather -> the executor's merge) or NAVigates the virtual full
+quadtree with up to ``max_nav`` aligned-block jumps that skip empty or pruned
+blocks.
+
+The reference's ``lax.while_loop`` is a Python loop that reads back, once per
+iteration, which query rows are still live.  The sweep works on those rows
+only: a row that is not live is a fixed point of the loop body (it scans an
+empty window and takes no navigation step), so leaving it out changes no bit.
+The same holds inside the navigation loop for rows that do not navigate.
+
+Chunks: the query batch may be a whole number of ``n_chunks`` chunks that run
+in lockstep, each with its own trip count, exactly as the reference runs its
+``lax.map`` of per-chunk while loops.  A chunk stops counting iterations once
+none of its rows is live, or at ``max_iters``.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from ..runtime import sqrt
+from . import morton
+from .executor import QueryExecutor, resolve_executor
+from .quadtree import QuadtreeIndex
+
+__all__ = [
+    "knn_query_batch",
+    "default_max_nav",
+    "KnnStats",
+]
+
+
+class KnnStats(NamedTuple):
+    iterations: torch.Tensor  # i32 outer-loop trips (per chunk, or summed)
+    candidates: torch.Tensor  # f32 candidate object slots scanned
+    leaves_visited: torch.Tensor  # i32 scheduled leaf scans (incl. own leaf)
+
+
+def _nav_step(index: QuadtreeIndex, qx, qy, kth2, cursor, run, dir_r, levels):
+    """One navigation step; ``dir_r`` is a per-query bool (True = rightwards).
+
+    Returns (found, s, e, new_cursor, exhausted) as the reference does.  The
+    reference's rolled loop over jump levels ``a = 1..l_max`` is evaluated for
+    all levels at once on a (Q, l_max) tensor: the largest admissible level
+    wins, and ``a0`` when none is.
+    """
+    l_max = index.l_max
+    n_fine = 4**l_max
+
+    exhausted = torch.where(dir_r, cursor >= n_fine, cursor <= 0)
+    cprobe = torch.where(dir_r, cursor, cursor - 1).clamp(0, n_fine - 1)
+
+    lvl = index.leaf_level[cprobe]
+    a0 = l_max - lvl
+    span0 = torch.bitwise_left_shift(torch.ones_like(a0), 2 * a0)
+    leaf_key = torch.where(dir_r, cprobe, (cprobe >> (2 * a0)) << (2 * a0))
+    s = index.starts[leaf_key.clamp(0, n_fine - 1)]
+    e = index.starts[(leaf_key + span0).clamp(0, n_fine)]
+    cnt = e - s
+    leaf_d2 = morton.point_to_block_dist2(
+        qx, qy, leaf_key, a0, index.origin, index.side, l_max
+    )
+    # `<=`: leaves exactly at the k-th distance are scanned (canonical ties)
+    found = run & ~exhausted & (cnt > 0) & (leaf_d2 <= kth2)
+
+    # far/empty aligned-block skip, all candidate levels at once: (Q, L)
+    pyr_n = index.pyramid.shape[0]
+    ai = levels[None, :]
+    blk = torch.bitwise_left_shift(torch.ones_like(ai), 2 * ai)
+    cur = cursor[:, None]
+    right = dir_r[:, None]
+    code = torch.where(right, cur, cur - blk)
+    in_dom = torch.where(right, cur + blk <= n_fine, cur - blk >= 0)
+    pidx = torch.where(right, cur >> (2 * ai), (cur >> (2 * ai)) - 1)
+    lvl_off = (torch.bitwise_left_shift(torch.ones_like(ai), 2 * (l_max - ai))
+               - 1) // 3
+    empty = index.pyramid[(lvl_off + pidx).clamp(0, pyr_n - 1)] == 0
+    far = morton.point_to_block_dist2(
+        qx[:, None], qy[:, None], code, ai, index.origin, index.side, l_max
+    ) > kth2[:, None]  # strict: blocks AT the k-th distance still get scanned
+    aligned = (cur & (blk - 1)) == 0
+    ok = aligned & in_dom & (ai >= a0[:, None]) & (empty | far)
+    best_a = torch.where(ok, ai, a0[:, None]).amax(dim=1)
+    jump = torch.bitwise_left_shift(torch.ones_like(best_a), 2 * best_a)
+
+    step = torch.where(found, span0, jump)
+    new_cursor = torch.where(
+        run & ~exhausted,
+        torch.where(dir_r, cursor + step, cursor - step),
+        cursor,
+    )
+    return found, s, e, new_cursor, run & exhausted
+
+
+def _navigate(index, qx, qy, kth2, cl, cr, act_l, act_r, next_right, s_cur,
+              e_cur, max_nav, levels):
+    """The bounded frontier advance of the rows that navigate this iteration."""
+    found_any = torch.zeros_like(act_l)
+    for _ in range(max_nav):
+        pending = ~found_any & (act_l | act_r)
+        go_right = act_r & (next_right | ~act_l)
+        run = pending & (go_right | act_l)
+        cursor = torch.where(go_right, cr, cl)
+        f, s_f, e_f, cur2, ex = _nav_step(
+            index, qx, qy, kth2, cursor, run, go_right, levels
+        )
+        cr = torch.where(run & go_right, cur2, cr)
+        cl = torch.where(run & ~go_right, cur2, cl)
+        act_r = act_r & ~(ex & go_right)
+        act_l = act_l & ~(ex & ~go_right)
+        s_cur = torch.where(f, s_f, s_cur)
+        e_cur = torch.where(f, e_f, e_cur)
+        # alternate directions while both remain active (paper Sec. 4.2.2)
+        next_right = torch.where(f, ~go_right, next_right)
+        found_any = found_any | f
+    return cl, cr, act_l, act_r, next_right, s_cur, e_cur, found_any
+
+
+def _knn_sorted_impl(
+    index: QuadtreeIndex,
+    qpos: torch.Tensor,
+    qid: torch.Tensor,
+    k: int,
+    window: int,
+    max_nav: int,
+    max_iters: int,
+    executor: QueryExecutor,
+    n_chunks: int = 1,
+):
+    """k-NN for Morton-sorted queries laid out as ``n_chunks`` equal chunks.
+
+    Returns ``(best_i, best_d2, stats, cand_q)`` where ``stats`` holds (C,)
+    per-chunk counters: each chunk's own trip count, its f32 sum of
+    ``cand_q``, and its scheduled leaf scans.
+    """
+    dev = qpos.device
+    nq = qpos.shape[0]
+    if nq % n_chunks:
+        raise ValueError(f"{nq} queries do not split into {n_chunks} chunks")
+    chunk = nq // n_chunks
+    n_obj = index.n_objects
+    n_fine = index.n_fine
+    l_max = index.l_max
+    i32 = torch.int32
+
+    # --- first-iteration setup: query indexing (z_map lookup), own-leaf task
+    fine = morton.morton_encode_points(qpos, index.origin, index.side, l_max)
+    lvl = index.leaf_level[fine]
+    shift = 2 * (l_max - lvl)
+    key = (fine >> shift) << shift
+    span = torch.bitwise_left_shift(torch.ones_like(shift), shift)
+    s0 = index.starts[key]
+    e0 = index.starts[(key + span).clamp(0, n_fine)]
+
+    best_d = torch.full((nq, k), float("inf"), dtype=torch.float32, device=dev)
+    best_i = torch.full((nq, k), -1, dtype=i32, device=dev)
+    scanning = e0 > s0
+    s_cur, e_cur = s0, e0
+    off = torch.zeros((nq,), dtype=i32, device=dev)
+    cl, cr = key, key + span
+    act_l = torch.ones((nq,), dtype=torch.bool, device=dev)
+    act_r = torch.ones((nq,), dtype=torch.bool, device=dev)
+    next_right = torch.ones((nq,), dtype=torch.bool, device=dev)
+    cand_q = torch.zeros((nq,), dtype=torch.float32, device=dev)
+    it_c = torch.zeros((n_chunks,), dtype=i32, device=dev)
+    leaves_c = scanning.view(n_chunks, chunk).sum(dim=1, dtype=i32)
+
+    warange = torch.arange(window, dtype=i32, device=dev)
+    levels = torch.arange(1, l_max + 1, dtype=i32, device=dev)
+
+    while True:
+        live = scanning | act_l | act_r
+        chunk_on = live.view(n_chunks, chunk).any(dim=1) & (it_c < max_iters)
+        rows = torch.nonzero(
+            live & chunk_on.repeat_interleave(chunk)
+        ).squeeze(1)
+        if rows.numel() == 0:
+            break
+        it_c += chunk_on.to(i32)
+
+        # ---------------- SCAN: one window of W candidates per scanning row
+        g_qpos = qpos[rows]
+        g_scan = scanning[rows]
+        g_s, g_e, g_off = s_cur[rows], e_cur[rows], off[rows]
+        idx = g_s[:, None] + g_off[:, None] + warange[None, :]
+        in_window = g_scan[:, None] & (idx < g_e[:, None])
+        idxc = idx.clamp(0, n_obj - 1)
+        cpos = index.pos[idxc]  # (R, W, 2)
+        cids = index.ids[idxc]
+        # negative ids are sentinels (-2: external queries)
+        valid = in_window & (cids != qid[rows][:, None]) & (cids >= 0)
+        g_bd, g_bi = executor.scan_merge(
+            g_qpos, cpos, cids, valid, best_d[rows], best_i[rows], k=k
+        )
+        best_d[rows] = g_bd
+        best_i[rows] = g_bi
+        kth2 = g_bd[:, k - 1]
+
+        off2 = g_off + window
+        leaf_done = g_s + off2 >= g_e
+        g_scan_n = g_scan & ~leaf_done
+        g_off = torch.where(g_scan_n, off2, g_off)
+        cand_q[rows] = cand_q[rows] + in_window.sum(dim=1).to(torch.float32)
+
+        # ---------------- NAV: bounded frontier advance for idle active rows
+        g_al, g_ar = act_l[rows], act_r[rows]
+        nav = ~g_scan_n & (g_al | g_ar)
+        found_any = torch.zeros_like(nav)
+        sub = torch.nonzero(nav).squeeze(1)
+        if sub.numel():
+            nrows = rows[sub]
+            (n_cl, n_cr, n_al, n_ar, n_nr, n_s, n_e, n_found) = _navigate(
+                index, g_qpos[sub, 0], g_qpos[sub, 1], kth2[sub],
+                cl[nrows], cr[nrows], g_al[sub], g_ar[sub], next_right[nrows],
+                g_s[sub], g_e[sub], max_nav, levels,
+            )
+            cl[nrows], cr[nrows] = n_cl, n_cr
+            act_l[nrows], act_r[nrows] = n_al, n_ar
+            next_right[nrows] = n_nr
+            g_s[sub], g_e[sub] = n_s, n_e
+            found_any[sub] = n_found
+
+        scanning[rows] = g_scan_n | found_any
+        off[rows] = torch.where(found_any, 0, g_off).to(i32)
+        s_cur[rows], e_cur[rows] = g_s, g_e
+        leaves_c.index_add_(0, torch.div(rows, chunk, rounding_mode="floor"),
+                            found_any.to(i32))
+
+    stats = KnnStats(
+        iterations=it_c,
+        candidates=cand_q.view(n_chunks, chunk).sum(dim=1),
+        leaves_visited=leaves_c,
+    )
+    return best_i, best_d, stats, cand_q
+
+
+def _sort_unsort(index: QuadtreeIndex, qpos: torch.Tensor):
+    """Morton sort permutation of the queries and its inverse."""
+    qcodes = morton.morton_encode_points(qpos, index.origin, index.side,
+                                         index.l_max)
+    order = torch.argsort(qcodes, stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    return order, inv
+
+
+def default_max_nav(l_max: int) -> int:
+    """Navigation steps bundled per iteration: enough to cross the domain."""
+    return 2 * l_max + 4
+
+
+def knn_query_batch(
+    index: QuadtreeIndex,
+    qpos,
+    qid=None,
+    *,
+    k: int = 32,
+    window: int = 128,
+    max_nav: int | None = None,
+    max_iters: int = 100_000,
+    backend: str | QueryExecutor | None = None,
+):
+    """k-NN of a query batch against the index, on the index's device.
+
+    Returns ``(nn_idx (Q, k) i32, nn_dist (Q, k) f32 euclidean, stats)``,
+    rows ascending by ``(distance, id)``, padded with ``(-1, inf)``.
+    """
+    dev = index.device
+    qpos = torch.as_tensor(qpos, dtype=torch.float32).to(dev)
+    nq = qpos.shape[0]
+    if qid is None:
+        qid = torch.full((nq,), -2, dtype=torch.int32, device=dev)
+    else:
+        qid = torch.as_tensor(qid, dtype=torch.int32).to(dev)
+    executor = resolve_executor(backend)
+    order, inv = _sort_unsort(index, qpos)
+    idx_s, d2_s, st, _ = _knn_sorted_impl(
+        index, qpos[order], qid[order], k, window,
+        default_max_nav(index.l_max) if max_nav is None else max_nav,
+        max_iters, executor,
+    )
+    stats = KnnStats(st.iterations.sum(dtype=torch.int32),
+                     st.candidates.sum(), st.leaves_visited.sum(dtype=torch.int32))
+    return idx_s[inv], sqrt(d2_s[inv]), stats

@@ -1,0 +1,167 @@
+"""PR-quadtree spatial index, build side, in PyTorch.
+
+Counterpart of ``repro/core/quadtree.py``: the count pyramid (one bincount at
+the finest level plus ``l_max`` reshape-sums), the leaf levels that form the
+paper's z_map, and the per-cell prefix offsets.  The object order is the
+canonical ``(code, id)`` order: a stable argsort of the id-indexed codes, with
+``ids = order``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import morton
+
+__all__ = [
+    "QuadtreeIndex",
+    "INDEX_FIELDS",
+    "pyramid_offset",
+    "build_index",
+    "rebuild_zmap",
+    "reindex_objects",
+    "leaf_of_points",
+    "starts_from_pyramid",
+]
+
+INDEX_FIELDS = ("origin", "side", "pos", "ids", "codes", "starts",
+                "leaf_level", "pyramid")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadtreeIndex:
+    """The spatial index + Morton-sorted object store.
+
+    origin: (2,) f32; side: () f32; pos: (N, 2) f32 sorted by fine Morton code;
+    ids: (N,) i32 original object ids; codes: (N,) i32 sorted fine codes;
+    starts: (4**l_max + 1,) i32 prefix offsets per fine cell; leaf_level:
+    (4**l_max,) i32 (the z_map); pyramid: i32 quadrant populations at every
+    level, level-major.  All tensors live on one device.
+    """
+
+    origin: torch.Tensor
+    side: torch.Tensor
+    pos: torch.Tensor
+    ids: torch.Tensor
+    codes: torch.Tensor
+    starts: torch.Tensor
+    leaf_level: torch.Tensor
+    pyramid: torch.Tensor
+    l_max: int
+    th_quad: int
+
+    @property
+    def n_objects(self) -> int:
+        return self.pos.shape[0]
+
+    @property
+    def n_fine(self) -> int:
+        return 4**self.l_max
+
+    @property
+    def device(self) -> torch.device:
+        return self.pos.device
+
+
+def pyramid_offset(level: int) -> int:
+    """Start of level ``level`` inside the flattened pyramid: (4**l - 1) / 3."""
+    return ((1 << (2 * level)) - 1) // 3
+
+
+def _rollup(fine: torch.Tensor, l_max: int) -> torch.Tensor:
+    levels = [fine]
+    cur = fine
+    for _ in range(l_max):
+        cur = cur.reshape(-1, 4).sum(dim=1, dtype=torch.int32)
+        levels.append(cur)
+    return torch.cat(list(reversed(levels)))
+
+
+def _count_pyramid(codes: torch.Tensor, l_max: int) -> torch.Tensor:
+    """Quadrant populations at every level, flattened level-major (int32)."""
+    counts = torch.bincount(codes.to(torch.int64), minlength=4**l_max)
+    return _rollup(counts.to(torch.int32), l_max)
+
+
+def starts_from_pyramid(pyramid: torch.Tensor, l_max: int) -> torch.Tensor:
+    """Prefix offsets from the pyramid's fine level: ``starts[c] = # codes < c``."""
+    fine_counts = pyramid[pyramid_offset(l_max):]
+    return torch.cat([
+        torch.zeros((1,), dtype=torch.int32, device=pyramid.device),
+        torch.cumsum(fine_counts, 0).to(torch.int32),
+    ])
+
+
+def _leaf_levels(pyramid: torch.Tensor, l_max: int, th_quad: int) -> torch.Tensor:
+    """Leaf level per fine cell = number of split ancestors along its path."""
+    fine = torch.arange(4**l_max, dtype=torch.int64, device=pyramid.device)
+    ll = torch.zeros(4**l_max, dtype=torch.int32, device=pyramid.device)
+    for l in range(l_max):
+        anc = fine >> (2 * (l_max - l))
+        lvl_counts = pyramid[pyramid_offset(l): pyramid_offset(l) + 4**l]
+        ll += (lvl_counts[anc] > th_quad).to(torch.int32)
+    return ll
+
+
+def build_index(points, origin, side, *, l_max: int = 8,
+                th_quad: int = 192) -> QuadtreeIndex:
+    """Build the PR-quadtree and index the objects, on ``points.device``.
+
+    ``origin``/``side`` may be Python numbers or tensors; they are stored as
+    f32 tensors on the points' device.
+    """
+    dev = points.device
+    points = points.to(torch.float32)
+    origin = torch.as_tensor(origin, dtype=torch.float32).to(dev)
+    side = torch.as_tensor(side, dtype=torch.float32).to(dev)
+    codes = morton.morton_encode_points(points, origin, side, l_max)
+    order = torch.argsort(codes, stable=True)
+    pyramid = _count_pyramid(codes, l_max)
+    return QuadtreeIndex(
+        origin=origin,
+        side=side,
+        pos=points[order],
+        ids=order.to(torch.int32),
+        codes=codes[order],
+        starts=starts_from_pyramid(pyramid, l_max),
+        leaf_level=_leaf_levels(pyramid, l_max, th_quad),
+        pyramid=pyramid,
+        l_max=l_max,
+        th_quad=th_quad,
+    )
+
+
+def rebuild_zmap(index: QuadtreeIndex) -> QuadtreeIndex:
+    """Re-derive only the leaf partition (z_map) from the live pyramid."""
+    return dataclasses.replace(
+        index,
+        leaf_level=_leaf_levels(index.pyramid, index.l_max, index.th_quad),
+    )
+
+
+def reindex_objects(index: QuadtreeIndex, points) -> QuadtreeIndex:
+    """Re-sort fresh object positions into the existing partition (stage ii)."""
+    l_max = index.l_max
+    points = points.to(torch.float32)
+    codes = morton.morton_encode_points(points, index.origin, index.side, l_max)
+    order = torch.argsort(codes, stable=True)
+    pyramid = _count_pyramid(codes, l_max)
+    return dataclasses.replace(
+        index,
+        pos=points[order],
+        ids=order.to(torch.int32),
+        codes=codes[order],
+        starts=starts_from_pyramid(pyramid, l_max),
+        pyramid=pyramid,
+    )
+
+
+def leaf_of_points(index: QuadtreeIndex, points):
+    """z_map lookup: points -> (leaf_key, leaf_level), both int32."""
+    fine = morton.morton_encode_points(points, index.origin, index.side,
+                                       index.l_max)
+    lvl = index.leaf_level[fine]
+    shift = 2 * (index.l_max - lvl)
+    key = (fine >> shift) << shift
+    return key, lvl

@@ -1,0 +1,187 @@
+"""Iterated batch processing of k-NN queries over ticks, in PyTorch.
+
+Counterpart of ``repro/core/ticks.py`` for what the main path runs: the
+engine configuration and its eager validation, the per-tick result record,
+the device-side delta scatter and the per-tick step (index refresh, the
+plan's sweep, the drift check).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .executor import QueryExecutor, available_backends, available_precisions
+from .plan import PLAN_NAMES, ExecutionPlan
+from .quadtree import reindex_objects
+
+__all__ = [
+    "TickResult",
+    "EngineConfig",
+    "MAINTENANCE_MODES",
+    "PARTITIONER_NAMES",
+    "MERGE_NAMES",
+    "validate_engine_params",
+    "scatter_positions",
+]
+
+MAINTENANCE_MODES = ("rebuild", "incremental")
+# the reference's registries for the knobs the single plan ignores
+PARTITIONER_NAMES = ("cost_balanced", "equal")
+MERGE_NAMES = ("dense_merge", "fused_merge", "fused_multi")
+
+
+def validate_engine_params(*, k, window, chunk, backend, plan, mesh_shape=None,
+                           partitioner=None, precision=None, merge=None,
+                           maintenance=None, churn_budget=None):
+    """Eager validation shared by ``EngineConfig`` and ``ServiceSpec``.
+
+    The same checks and messages as the reference: unknown names raise
+    ``ValueError`` with the registry listing, and so does geometry the
+    chunked sweep cannot serve.
+    """
+    if isinstance(backend, str) and backend not in available_backends():
+        raise ValueError(
+            f"unknown backend {backend!r}; registered SCAN backends: "
+            f"{available_backends()}"
+        )
+    if isinstance(plan, str) and plan not in PLAN_NAMES:
+        raise ValueError(
+            f"unknown execution plan {plan!r}; registered plans: {PLAN_NAMES}"
+        )
+    if isinstance(partitioner, str) and partitioner not in PARTITIONER_NAMES:
+        raise ValueError(
+            f"unknown partitioner {partitioner!r}; registered partitioners: "
+            f"{PARTITIONER_NAMES}"
+        )
+    if precision is not None and precision not in available_precisions():
+        raise ValueError(
+            f"unknown precision {precision!r}; one of {available_precisions()}"
+        )
+    if isinstance(merge, str) and merge not in MERGE_NAMES:
+        raise ValueError(
+            f"unknown merge backend {merge!r}; registered MERGE backends: "
+            f"{MERGE_NAMES}"
+        )
+    if maintenance is not None and maintenance not in MAINTENANCE_MODES:
+        raise ValueError(
+            f"unknown maintenance mode {maintenance!r}; one of "
+            f"{MAINTENANCE_MODES}"
+        )
+    if churn_budget is not None and not (0.0 < churn_budget <= 1.0):
+        raise ValueError(f"churn_budget must be in (0, 1], got {churn_budget!r}")
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    if window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    if chunk < 1 or chunk % window != 0:
+        raise ValueError(
+            f"chunk ({chunk}) must be a positive multiple of window ({window})"
+        )
+    if k > chunk:
+        raise ValueError(f"k ({k}) must be <= chunk ({chunk})")
+    if mesh_shape is not None:
+        if isinstance(mesh_shape, (tuple, list)):
+            if len(mesh_shape) != 2 or any(
+                not isinstance(d, int) or d < 1 for d in mesh_shape
+            ):
+                raise ValueError(
+                    "mesh_shape tuples must be a (query, object) pair of "
+                    f"positive ints, got {mesh_shape!r}"
+                )
+            if isinstance(plan, str) and plan != "hybrid":
+                raise ValueError(
+                    f"plan {plan!r} lays a 1-D mesh; mesh_shape must be an "
+                    f"int, got {tuple(mesh_shape)!r}"
+                )
+        elif mesh_shape < 1:
+            raise ValueError(f"mesh_shape must be >= 1, got {mesh_shape}")
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    k: int = 32
+    th_quad: int = 192
+    l_max: int = 8
+    window: int = 256
+    chunk: int = 8192
+    rebuild_factor: float = 2.0  # rebuild partition when work grows by this factor
+    region_pad: float = 1e-3
+    backend: str = "dense_topk"
+    plan: str = "single"
+    mesh_shape: int | tuple[int, int] | None = None
+    partitioner: str = "equal"
+    precision: str = "fp32"
+    merge: str = "dense_merge"
+    maintenance: str = "rebuild"
+    churn_budget: float = 0.25
+    max_iters: int = 100_000
+
+    def __post_init__(self):
+        validate_engine_params(
+            k=self.k, window=self.window, chunk=self.chunk,
+            backend=self.backend, plan=self.plan, mesh_shape=self.mesh_shape,
+            partitioner=self.partitioner, precision=self.precision,
+            merge=self.merge, maintenance=self.maintenance,
+            churn_budget=self.churn_budget,
+        )
+
+
+@dataclasses.dataclass
+class TickResult:
+    tick: int
+    nn_idx: np.ndarray | None  # (Q, k); tensors under result(materialize=False)
+    nn_dist: np.ndarray | None  # (Q, k) euclidean
+    rebuilt: bool
+    wall_s: float  # submit -> results materialized
+    candidates: float
+    iterations: int
+    qids: np.ndarray | None = None  # (Q,) registry qids, row-aligned with nn_*
+    shard_candidates: np.ndarray | None = None  # (1,) f32
+    shard_iterations: np.ndarray | None = None  # (1,) i32
+    collect_s: float = 0.0  # device -> host transfer time of this result
+    maintenance: str = "rebuild"  # how this tick's step refreshed the index
+
+
+def _tick_step(index, positions, qpos, qid, qcost, work_at_build,
+               rebuild_factor, *, k: int, window: int, chunk: int,
+               max_nav: int, max_iters: int, executor: QueryExecutor,
+               plan: ExecutionPlan, maintenance: str = "rebuild"):
+    """(index, P_tau, Q_tau) -> (index', nn_idx, nn_dist, aux, should_rebuild).
+
+    ``maintenance``: ``"rebuild"`` re-sorts all positions into the existing
+    partition (``reindex_objects``); ``"skip"`` keeps the index, whose order
+    is already current for this very buffer.  ``work_at_build`` and
+    ``rebuild_factor`` are f32 tensors; the drift rule is the reference's
+    ``candidates > rebuild_factor * work_at_build`` in f32.
+    """
+    if maintenance == "rebuild":
+        index = reindex_objects(index, positions)
+    elif maintenance == "incremental":
+        raise NotImplementedError(
+            "maintenance='incremental' is not ported yet (ROADMAP item A8)")
+    elif maintenance != "skip":
+        raise ValueError(f"unknown step maintenance mode {maintenance!r}")
+    nn_idx, nn_dist, aux = plan.run(
+        index, qpos, qid, qcost, k=k, window=window, chunk=chunk,
+        max_nav=max_nav, max_iters=max_iters, executor=executor,
+    )
+    should_rebuild = aux.stats.candidates > rebuild_factor * work_at_build
+    return index, nn_idx, nn_dist, aux, should_rebuild
+
+
+def scatter_positions(positions: torch.Tensor, ids: torch.Tensor,
+                      new_pos: torch.Tensor) -> torch.Tensor:
+    """Delta object ingest: write ``new_pos`` rows at ``ids``, on the device.
+
+    Rows whose id is out of range (the sentinel ``N`` that pads a batch) are
+    dropped.  The port updates the buffer in place: every tick reads the
+    buffer through work already queued on the same stream (the index refresh
+    copies it into Morton order), so a later scatter cannot change a tick
+    already submitted, and the in-place write saves an (N, 2) copy per batch.
+    ``ids`` must be unique.
+    """
+    keep = (ids >= 0) & (ids < positions.shape[0])
+    positions[ids[keep]] = new_pos[keep].to(positions.dtype)
+    return positions

@@ -1,0 +1,103 @@
+"""Build the port's CUDA sources with ``nvcc`` and load them with ``ctypes``.
+
+Each source under ``csrc/`` becomes one shared library with a plain C
+interface.  A library is built at first use, from the checkout's sources
+only, into ``build/torch_kernels/`` at the repository root, under a name keyed
+by a hash of the source and the flags, so a fresh checkout builds once and an
+edited source rebuilds.  ``build_all`` starts one ``nvcc`` per source at once.
+
+Flags: ``sm_90a`` (Hopper), ``-O3`` and ``--fmad=false`` so that no multiply
+and add is contracted behind the source's back; the kernels spell every fused
+multiply-add they want as ``__fmaf_rn``.  Never ``--use_fast_math`` or
+``-ftz=true``: the kernels are held bit for bit against their plain versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+__all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "library_path", "build_all",
+           "load"]
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+SOURCES = ("fused_scan.cu",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+def build_dir() -> Path:
+    """``build/torch_kernels`` under the repository root (listed in .gitignore)."""
+    return Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build "
+                       "the port's kernels")
+
+
+def library_path(source: str) -> Path:
+    src = (CSRC / source).read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"{Path(source).stem}-{tag}.so"
+
+
+def _start(source: str, verbose: bool):
+    out = library_path(source)
+    if out.exists():
+        return None
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+           "-o", tmp, str(CSRC / source)]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, out
+
+
+def _finish(job, verbose: bool):
+    proc, tmp, out = job
+    log, _ = proc.communicate()
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed building {out.name}:\n{log}")
+    if verbose and log:
+        print(log.rstrip())
+    os.replace(tmp, out)
+
+
+def build_all(verbose: bool = False) -> dict[str, Path]:
+    """Build every source that is not built yet, all ``nvcc`` runs in parallel."""
+    jobs = [_start(s, verbose) for s in SOURCES]
+    for job in jobs:
+        if job is not None:
+            _finish(job, verbose)
+    return {s: library_path(s) for s in SOURCES}
+
+
+def load(source: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed (cached)."""
+    lib = _LOADED.get(source)
+    if lib is None:
+        job = _start(source, False)
+        if job is not None:
+            _finish(job, False)
+        lib = ctypes.CDLL(str(library_path(source)))
+        _LOADED[source] = lib
+    return lib

@@ -1,0 +1,162 @@
+"""Fused SCAN-step merge: distance + bucket prune + top-k, as one CUDA kernel.
+
+Replaces the Pallas TPU kernel ``repro/kernels/fused_scan.py::fused_scan_merge``
+(``pl.pallas_call`` at ``fused_scan.py:126``) with the hand-written Hopper
+kernel ``csrc/fused_scan.cu`` (one warp per query row; see the source's
+header for the design).  Bound on an H100: memory — per row it reads
+``W*13 + k*8 + 8`` bytes and writes ``k*8``, about 31 MB per launch at
+Q=8192, W=256, k=32, so about 9.4 us at 3.35 TB/s.  The kernel keeps the
+(k+W) distance row, the histogram and the selection state on chip, so only
+the window and the lists cross device memory.
+
+:func:`fused_scan_merge` launches the kernel for CUDA tensors (or raises) and
+runs :func:`fused_scan_merge_ref`, the plain PyTorch version, for CPU
+tensors.  ``fused_scan_merge.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from ..runtime import fma
+from .refine import bucket_refine_step, masked_argmin_rounds
+
+__all__ = ["fused_scan_merge", "fused_scan_merge_ref", "Q_TILE"]
+
+Q_TILE = 8
+NUM_BINS = 32  # the kernel maps one bin to one lane
+
+# The reference's f32 constants (Python floats rounded once to f32).
+HI_MUL = float(np.float32(1 + 1e-6))
+HI_ADD = float(np.float32(1e-30))
+SLOP_MUL = float(np.float32(1e-6))
+TINY = float(np.float32(1e-30))
+
+
+def fused_scan_merge_ref(qx, qy, cx, cy, cids, valid, best_d, best_i, *,
+                         k: int, num_bins: int = NUM_BINS, iters: int = 4):
+    """Plain PyTorch version of the kernel, on any device.
+
+    (Q,) queries x (Q, W) windows x (Q, k) ascending lists -> merged (Q, k)
+    lists: the k smallest of the union, ascending ``(d2, id)``, ``(inf, -1)``
+    padded.  The reference's compiled forms: ``d2 = fma(dx, dx, dy*dy)``,
+    ``hi = fma(max(hi0, lo), 1+1e-6, 1e-30)``, ``fma(fhi, 1e-6, 1e-30)``.
+    """
+    q = qx.shape[0]
+    inf = torch.full((), float("inf"), dtype=torch.float32, device=qx.device)
+    dx = cx - qx[:, None]
+    dy = cy - qy[:, None]
+    d2 = torch.where(valid, fma(dx, dx, dy * dy), inf)
+    all_d = torch.cat([best_d, d2], dim=1)
+    all_i = torch.cat([best_i, cids], dim=1)
+    finite = ~torch.isinf(all_d)
+    n_valid = finite.sum(dim=1)
+
+    lo = all_d.amin(dim=1)
+    hi0 = torch.where(finite, all_d, -inf).amax(dim=1)
+    hi = fma(torch.maximum(hi0, lo), torch.full_like(lo, HI_MUL),
+             torch.full_like(lo, HI_ADD))
+    kth = torch.full((q,), k, dtype=torch.int32, device=qx.device)
+    for _ in range(iters):
+        lo, hi, kth = bucket_refine_step(all_d, lo, hi, kth, num_bins)
+    slop = torch.maximum(hi - lo, fma(hi, torch.full_like(hi, SLOP_MUL),
+                                      torch.full_like(hi, TINY)))
+    radius = torch.where(n_valid < k, inf, hi + slop)
+    d_sel = torch.where(all_d < radius[:, None], all_d, inf)
+    return masked_argmin_rounds(d_sel, all_i, k)
+
+
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        from .build import load
+
+        lib = load("fused_scan.cu")
+        lib.fused_scan_merge_f32.restype = ctypes.c_int
+        lib.fused_scan_merge_f32.argtypes = (
+            [ctypes.c_void_p] * 10
+            + [ctypes.c_int] * 4
+            + [ctypes.c_float] * 4
+            + [ctypes.c_void_p]
+        )
+        lib.fused_scan_merge_max_row.restype = ctypes.c_int
+        lib.fused_scan_merge_max_row.argtypes = []
+        _lib = lib
+    return _lib
+
+
+def _check(qx, qy, cx, cy, cids, valid, best_d, best_i, k):
+    q, w = cx.shape
+    dev = qx.device
+    expect = [
+        ("qx", qx, torch.float32, (q,)), ("qy", qy, torch.float32, (q,)),
+        ("cx", cx, torch.float32, (q, w)), ("cy", cy, torch.float32, (q, w)),
+        ("cids", cids, torch.int32, (q, w)), ("valid", valid, torch.bool, (q, w)),
+        ("best_d", best_d, torch.float32, (q, k)),
+        ("best_i", best_i, torch.int32, (q, k)),
+    ]
+    for name, t, dtype, shape in expect:
+        if t.device != dev:
+            raise ValueError(f"fused_scan_merge: {name} is on {t.device}, "
+                             f"qx on {dev}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"fused_scan_merge: {name} must be {dtype} "
+                             f"{shape}, got {t.dtype} {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"fused_scan_merge: {name} must be contiguous")
+    if q % Q_TILE:
+        raise ValueError(f"fused_scan_merge: Q={q} is not a multiple of "
+                         f"Q_TILE={Q_TILE} (fused_scan_merge_op pads)")
+
+
+def fused_scan_merge(qx, qy, cx, cy, cids, valid, best_d, best_i, *, k: int,
+                     num_bins: int = NUM_BINS, iters: int = 4,
+                     precision: str = "fp32"):
+    """(Q,) queries x (Q, W) windows x (Q, k) lists -> merged (Q, k) lists.
+
+    CUDA tensors launch the kernel on the current stream; CPU tensors run
+    :func:`fused_scan_merge_ref`.  ``Q`` must be a multiple of ``Q_TILE``.
+    """
+    if precision != "fp32":
+        raise NotImplementedError(
+            f"precision={precision!r}: the mixed-precision prefilter is not "
+            "ported yet (ROADMAP item A9)")
+    _check(qx, qy, cx, cy, cids, valid, best_d, best_i, k)
+    if qx.device.type == "cpu":
+        return fused_scan_merge_ref(qx, qy, cx, cy, cids, valid, best_d,
+                                    best_i, k=k, num_bins=num_bins,
+                                    iters=iters)
+    if qx.device.type != "cuda":
+        raise ValueError(f"fused_scan_merge: unsupported device {qx.device}")
+    if num_bins != NUM_BINS:
+        raise ValueError(f"fused_scan_merge: the kernel has {NUM_BINS} bins, "
+                         f"got num_bins={num_bins}")
+    q, w = cx.shape
+    lib = _kernel()
+    if k + w > lib.fused_scan_merge_max_row():
+        raise ValueError(f"fused_scan_merge: k + W = {k + w} exceeds the "
+                         f"kernel's row limit {lib.fused_scan_merge_max_row()}")
+    out_d = torch.empty((q, k), dtype=torch.float32, device=qx.device)
+    out_i = torch.empty((q, k), dtype=torch.int32, device=qx.device)
+    if q == 0:
+        return out_d, out_i
+    with torch.cuda.device(qx.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.fused_scan_merge_f32(
+            qx.data_ptr(), qy.data_ptr(), cx.data_ptr(), cy.data_ptr(),
+            cids.data_ptr(), valid.data_ptr(), best_d.data_ptr(),
+            best_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+            q, w, k, iters, HI_MUL, HI_ADD, SLOP_MUL, TINY, stream)
+    if err != 0:
+        raise RuntimeError(f"fused_scan_merge: kernel launch failed with "
+                           f"cudaError {err}")
+    fused_scan_merge.launches += 1
+    return out_d, out_i
+
+
+fused_scan_merge.launches = 0

@@ -63,3 +63,8 @@ def _drop_jax_executable_caches():
 
     jax.clear_caches()
     gc.collect()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card; skips with a reason elsewhere")

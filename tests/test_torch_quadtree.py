@@ -1,0 +1,103 @@
+"""Parity: the PyTorch port's quadtree build against the JAX reference.
+
+Every comparison is bitwise (``np.array_equal``, tolerance 0) on the six
+fields ``tests/test_maintenance.py`` compares, plus origin and side.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quadtree as jq
+from repro_torch import convert
+from repro_torch.core import quadtree as tq
+
+torch.set_num_threads(2)
+
+SIDE = 1000.0
+FIELDS = ("pos", "ids", "codes", "starts", "pyramid", "leaf_level")
+
+
+def _assert_index_equal(jidx, tidx, fields=FIELDS + ("origin", "side")):
+    for f in fields:
+        a = np.asarray(getattr(jidx, f))
+        b = getattr(tidx, f).cpu().numpy()
+        assert a.dtype == b.dtype and a.shape == b.shape, f
+        if a.dtype.kind == "f":
+            a, b = a.view(np.uint32), b.view(np.uint32)
+        np.testing.assert_array_equal(a, b, err_msg=f)
+
+
+def _points(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "uniform":
+        return rng.uniform(0, SIDE, (n, 2)).astype(np.float32)
+    if kind == "clustered":
+        pts = rng.normal(SIDE / 3, SIDE / 40, (n, 2))
+        return np.clip(pts, 0, SIDE - 1e-3).astype(np.float32)
+    # duplicates and points on / past the region's edges
+    pts = rng.uniform(0, SIDE, (n, 2)).astype(np.float32)
+    pts[: n // 4] = pts[0]
+    pts[n // 4: n // 4 + 4] = [[0, 0], [SIDE, SIDE], [-1, 5], [5, SIDE + 1]]
+    return pts
+
+
+@pytest.mark.parametrize("kind", ["uniform", "clustered", "duplicates"])
+@pytest.mark.parametrize("l_max,th", [(5, 8), (7, 64)])
+def test_build_index_matches_jax(kind, l_max, th):
+    pts = _points(kind, 3000, seed=l_max)
+    origin = np.asarray([0.0, 0.0], np.float32)
+    jidx = jq.build_index(jnp.asarray(pts), jnp.asarray(origin), SIDE,
+                          l_max=l_max, th_quad=th)
+    tidx = tq.build_index(torch.tensor(pts), torch.tensor(origin), SIDE,
+                          l_max=l_max, th_quad=th)
+    _assert_index_equal(jidx, tidx)
+
+
+def test_reindex_and_rebuild_zmap_match_jax():
+    """Stage (ii) re-sort into a stale partition, then the z_map re-derive."""
+    pts = _points("uniform", 3000, seed=1)
+    moved = _points("clustered", 3000, seed=2)
+    origin = np.zeros(2, np.float32)
+    jidx = jq.build_index(jnp.asarray(pts), jnp.asarray(origin), SIDE,
+                          l_max=6, th_quad=16)
+    tidx = tq.build_index(torch.tensor(pts), torch.tensor(origin), SIDE,
+                          l_max=6, th_quad=16)
+    jre = jq.reindex_objects(jidx, jnp.asarray(moved))
+    tre = tq.reindex_objects(tidx, torch.tensor(moved))
+    _assert_index_equal(jre, tre)
+    _assert_index_equal(jq.rebuild_zmap(jre), tq.rebuild_zmap(tre))
+    # rebuild_zmap over the re-sorted index == a fresh build of the moved set
+    _assert_index_equal(
+        jq.build_index(jnp.asarray(moved), jnp.asarray(origin), SIDE,
+                       l_max=6, th_quad=16),
+        tq.rebuild_zmap(tre))
+
+
+def test_leaf_of_points_matches_jax():
+    pts = _points("clustered", 2000, seed=3)
+    q = _points("duplicates", 500, seed=4)
+    jidx = jq.build_index(jnp.asarray(pts), jnp.zeros(2), SIDE, l_max=6,
+                          th_quad=12)
+    tidx = tq.build_index(torch.tensor(pts), torch.zeros(2), SIDE, l_max=6,
+                          th_quad=12)
+    for a, b in zip(jq.leaf_of_points(jidx, jnp.asarray(q)),
+                    tq.leaf_of_points(tidx, torch.tensor(q))):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_convert_carries_the_reference_index():
+    """convert.py: JAX fields as numpy -> port index -> numpy, unchanged."""
+    pts = _points("uniform", 1000, seed=5)
+    jidx = jq.build_index(jnp.asarray(pts), jnp.zeros(2), SIDE, l_max=5,
+                          th_quad=8)
+    fields = {f: np.asarray(getattr(jidx, f)) for f in convert.INDEX_FIELDS}
+    tidx = convert.index_from_numpy(fields, l_max=5, th_quad=8, device="cpu")
+    _assert_index_equal(jidx, tidx)
+    back = convert.index_to_numpy(tidx)
+    assert back["l_max"] == 5 and back["th_quad"] == 8
+    for f in convert.INDEX_FIELDS:
+        np.testing.assert_array_equal(back[f], fields[f])
+    with pytest.raises(ValueError, match="ids"):
+        convert.index_from_numpy(dict(fields, ids=fields["ids"].astype(
+            np.int64)), l_max=5, th_quad=8, device="cpu")
