@@ -15,15 +15,29 @@ Phases, in order; any failure raises and the script exits non-zero:
 4. kernel: ``fused_scan_merge`` on the card against its plain PyTorch version
    on the same inputs (Q=8192, W=256, k=32 with edge rows), bitwise, and
    timed beside its memory bound and the ``dense_topk`` merge;
-5. main path: a ``KnnSession`` with ``backend="fused_bucket"`` and the spec
-   defaults over 1,000,000 uniform objects, one query per object: tick 0,
-   two ticks where 1% of the objects move up to 200 u, then a snapshot of the
-   gaussian (25 hotspots) family at the same N and one more tick after its
-   drift rebuild.  Every tick must launch the kernel, and 1,024 sampled
-   queries per tick must equal a brute-force oracle on the card bit for bit.
+5. merge kernels: ``merge_topk_multi`` at Q = 1,007,616, R = 4, k = 32 and
+   ``merge_topk_lists`` at Q = 503,808 (ka = kb = 32, and ka = 20, kb = 32),
+   with edge rows (ties across lists, empty and partly filled lists), each
+   bitwise against its plain version and the two-sort merge of
+   ``dense_merge`` on the card, and timed beside its memory bound and that
+   two-sort merge;
+6. single path: a ``KnnSession`` with ``backend="fused_bucket"`` and the
+   spec defaults over 1,000,000 uniform objects, one query per object: tick
+   0, two ticks where 1% of the objects move up to 200 u, then a snapshot of
+   the gaussian (25 hotspots) family at the same N and one more tick after
+   its drift rebuild.  Every tick must launch the kernel, and 1,024 sampled
+   queries per tick must equal a brute-force oracle on the card bit for bit;
+7. object-axis paths at the same N, each session beside a ``single`` twin
+   fed the same data, whose lists it must equal bit for bit on every row of
+   every tick: (a) ``object_sharded``, 4 shards, ``equal``, ``fused_multi``
+   over uniform, a 1% move and an unchanged (``skip``) tick; (b) ``hybrid``
+   (2, 3), ``cost_balanced``, ``fused_merge`` over the gaussian snapshot, a
+   1% move and a ``skip`` tick.  ``fused_multi`` must launch once per tick
+   in (a), ``fused_merge`` twice per query shard that owns rows in (b).
 
-The next-to-last line is the kernels' JSON record; the last line is
-``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
+Launch counts are zeroed just before each path and read just after, on the
+path's own session only.  The next-to-last line is the kernels' JSON record;
+the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -168,6 +182,34 @@ def kernel_inputs(q: int, w: int, k: int, dev, seed: int = 0):
     return (t(qx), t(qy), t(cx), t(cy), t(cids), t(valid), bd, bi)
 
 
+def merge_inputs(r: int, q: int, k: int, dev, seed: int = 0):
+    """(R, Q, k) per-shard lists as the object-axis plans give them, each
+    ascending by (d2, id) and (inf, -1) padded, with edge bands of rows:
+    equal distances across lists with distinct ids; one list empty;
+    partly filled lists; every list of the row empty; runs of equal
+    distances inside a list."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = torch.rand((r, q, k), generator=g, device=dev) * 4.0e6
+    ids = torch.randint(0, 1 << 30, (r, q, k), generator=g, device=dev,
+                        dtype=torch.int32)
+    e = max(1, q // 16)  # edge-band height
+    d[:, :e] = d[:1, :e]  # ties across lists
+    d[:, 4 * e:5 * e] = torch.floor(d[:, 4 * e:5 * e] / 5.0e5) * 5.0e5
+    by_id = torch.sort(ids, dim=2, stable=True).indices
+    d, ids = torch.gather(d, 2, by_id), torch.gather(ids, 2, by_id)
+    d, by_d = torch.sort(d, dim=2, stable=True)
+    ids = torch.gather(ids, 2, by_d)
+    col = torch.arange(k, device=dev)
+    fill = torch.randint(0, k + 1, (r, q), generator=g, device=dev)
+    empty = torch.zeros((r, q, k), dtype=torch.bool, device=dev)
+    empty[0, e:2 * e] = True  # one list empty
+    empty[:, 2 * e:3 * e] = (col >= fill[:, 2 * e:3 * e, None])
+    empty[:, 3 * e:4 * e] = True  # every list empty
+    d = torch.where(empty, float("inf"), d)
+    ids = torch.where(empty, -1, ids).to(torch.int32)
+    return d.contiguous(), ids.contiguous()
+
+
 def kernel_phase(dev, q=8192, w=256, k=32):
     from repro_torch.kernels import fused_scan as fs
     from repro_torch.kernels.ops import _lex_sort_merge
@@ -239,6 +281,108 @@ def kernel_phase(dev, q=8192, w=256, k=32):
     return rec
 
 
+def _check_merge(name, out, plain, two_sort):
+    """The kernel's (d, i) lists bitwise equal to its plain version and to
+    the two-sort merge; returns the largest distance error (0)."""
+    for what, want in (("plain version", plain), ("two-sort merge", two_sort)):
+        if not (torch.equal(out[0], want[0]) and torch.equal(out[1], want[1])):
+            bad = ((out[0] != want[0]) | (out[1] != want[1])).any(1)
+            raise AssertionError(
+                f"{name} != {what} on {int(bad.sum())} rows, e.g. "
+                f"{bad.nonzero()[:8, 0].tolist()}")
+    fin = torch.isfinite(plain[0])
+    return float((out[0][fin] - plain[0][fin]).abs().max()) if fin.any() \
+        else 0.0
+
+
+def _merge_record(name, source_line, q, row, k, out, plain, two_sort,
+                  run_kernel, run_plain, run_two_sort, reps):
+    """Bitwise checks and times of one merge kernel; row = input columns."""
+    max_abs_err = _check_merge(name, out, plain, two_sort)
+    fin = torch.isfinite(plain[0])
+    ms = time_ms(run_kernel, reps=reps)
+    plain_ms = time_ms(run_plain, reps=3, warmup=1)
+    library_ms = time_ms(run_two_sort, reps=5, warmup=1)
+    # bound: each input read once, each output written once; one comparison
+    # per row entry per round, rounds stopping after the last finite pick
+    nbytes = q * row * 8 + q * k * 8
+    rounds = torch.minimum(fin.sum(1) + 1, torch.tensor(k, device=fin.device))
+    ops = int(rounds.sum()) * row
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    rec = {
+        "name": name,
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/merge_topk.cu",
+        "replaces": f"src/repro/kernels/merge_topk.py:{source_line}",
+        "launches": None,  # filled from its object-axis path
+        "max_abs_err": max_abs_err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms,
+        "bitwise": True,
+    }
+    print(f"kernel: {name} Q={q} row={row} k={k} bitwise equal to the plain "
+          f"version and the two-sort merge; {ms:.4f} ms (plain "
+          f"{plain_ms:.3f} ms, two-sort {library_ms:.3f} ms, bound "
+          f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}: {nbytes} bytes, "
+          f"{ops} ops)")
+    return rec
+
+
+def merge_kernel_phase(dev, q_multi=1_007_616, q_lists=503_808, k=32):
+    """B2 and B3 on the card at the object-axis paths' shapes."""
+    from repro_torch.kernels import merge_topk as mt
+    from repro_torch.kernels.ops import topk_select_ref
+
+    r = 4
+    d, i = merge_inputs(r, q_multi, k, dev, seed=5)
+    d_cat = d.transpose(0, 1).reshape(q_multi, r * k).contiguous()
+    i_cat = i.transpose(0, 1).reshape(q_multi, r * k).contiguous()
+    del d, i
+    mt.merge_topk_multi.launches = 0
+    out = mt.merge_topk_multi(d_cat, i_cat, k=k)
+    torch.cuda.synchronize()
+    if mt.merge_topk_multi.launches != 1:
+        raise AssertionError("merge_topk_multi did not launch its kernel")
+    rec_multi = _merge_record(
+        "merge_topk_multi", 75, q_multi, r * k, k, out,
+        mt.merge_topk_multi_ref(d_cat, i_cat, k=k),
+        topk_select_ref(d_cat, i_cat, k),
+        lambda: mt.merge_topk_multi(d_cat, i_cat, k=k),
+        lambda: mt.merge_topk_multi_ref(d_cat, i_cat, k=k),
+        lambda: topk_select_ref(d_cat, i_cat, k), reps=20)
+    del d_cat, i_cat, out
+
+    d, i = merge_inputs(2, q_lists, k, dev, seed=6)
+    rec_lists = None
+    for ka in (20, k):  # a narrower list, then the path's shape (timed)
+        args = (d[0, :, :ka].contiguous(), i[0, :, :ka].contiguous(),
+                d[1].contiguous(), i[1].contiguous())
+        cat = (torch.cat([args[0], args[2]], 1), torch.cat([args[1], args[3]],
+                                                             1))
+        mt.merge_topk_lists.launches = 0
+        out = mt.merge_topk_lists(*args, k=k)
+        torch.cuda.synchronize()
+        if mt.merge_topk_lists.launches != 1:
+            raise AssertionError("merge_topk_lists did not launch its kernel")
+        plain = mt.merge_topk_lists_ref(*args, k=k)
+        two_sort = topk_select_ref(*cat, k)
+        if ka != k:
+            _check_merge("merge_topk_lists", out, plain, two_sort)
+            print(f"kernel: merge_topk_lists Q={q_lists} ka={ka} kb={k} k={k} "
+                  "bitwise equal to the plain version and the two-sort merge")
+            continue
+        rec_lists = _merge_record(
+            "merge_topk_lists", 119, q_lists, 2 * k, k, out, plain, two_sort,
+            lambda: mt.merge_topk_lists(*args, k=k),
+            lambda: mt.merge_topk_lists_ref(*args, k=k),
+            lambda: topk_select_ref(*cat, k), reps=20)
+    return rec_multi, rec_lists
+
+
 def oracle_check(pos_t, qrows, nn_idx, nn_dist, k, dev, batch=128):
     """Brute force on the card: full distance rows, lexicographic (d2, id)
     order, the query's own object excluded; ids and distances bitwise."""
@@ -279,7 +423,7 @@ def main_path(dev, n: int, seed: int = 0):
     session.ingest_objects(pos)
     handle = session.register_queries(pos, np.arange(n, dtype=np.int32))
 
-    fs.fused_scan_merge.launches = 0  # the main path's count starts here
+    _zero_counts()  # the single path's counts start here
     ticks = []
     plan = ["uniform", "move 1%", "move 1%", "gaussian", "gaussian"]
     for t, step in enumerate(plan):
@@ -322,6 +466,124 @@ def main_path(dev, n: int, seed: int = 0):
     return fs.fused_scan_merge.launches, ticks
 
 
+def _counted_kernels():
+    from repro_torch.kernels import fused_scan as fs
+    from repro_torch.kernels import merge_topk as mt
+
+    return {"fused_scan_merge": fs.fused_scan_merge,
+            "merge_topk_multi": mt.merge_topk_multi,
+            "merge_topk_lists": mt.merge_topk_lists}
+
+
+def _zero_counts():
+    for fn in _counted_kernels().values():
+        fn.launches = 0
+
+
+def _read_counts() -> dict:
+    return {name: fn.launches for name, fn in _counted_kernels().items()}
+
+
+def _fold_f32(values) -> np.float32:
+    """Left fold in shard order: how the plans total the shard counters."""
+    acc = np.float32(values[0])
+    for v in values[1:]:
+        acc = np.float32(acc + np.float32(v))
+    return acc
+
+
+def object_path(dev, n: int, label: str, first: str, seed: int, **plan_kw):
+    """An object-axis session beside a ``single`` twin, over three ticks:
+    ``first`` (uniform or gaussian snapshot), a 1% move, an unchanged tick.
+    Returns the path's kernel launches (its own session only) and ticks."""
+    from repro_torch.api import KnnSession, ServiceSpec
+    from repro_torch.core.balance import straggler_gap
+    from repro_torch.data.generators import make_workload
+
+    spec = ServiceSpec(backend="fused_bucket", **plan_kw)
+    g = np.random.default_rng(seed + 1)
+    kw = {"hotspots": 25} if first == "gaussian" else {}
+    pos = make_workload(n, first, seed=seed, side=spec.side, **kw).positions()
+    pos = pos.copy()
+    session, twin = KnnSession(spec), KnnSession(ServiceSpec(
+        backend="fused_bucket"))
+    handles = []
+    for s in (session, twin):
+        s.ingest_objects(pos)
+        handles.append(s.register_queries(pos, np.arange(n, dtype=np.int32)))
+    plan = session.plan
+    od = plan.object_axis_size
+    qd = getattr(plan, "query_devices", 1)
+    print(f"path {label}: {plan.describe()}, N={n}")
+    totals = {name: 0 for name in _counted_kernels()}
+    ticks = []
+    for t, step in enumerate([first, "move 1%", "unchanged"]):
+        if step == "move 1%":
+            ids = g.choice(n, n // 100, replace=False).astype(np.int32)
+            ang = g.uniform(0, 2 * np.pi, ids.size)
+            r = g.uniform(0, 200.0, ids.size)
+            new = pos[ids] + np.stack([np.cos(ang), np.sin(ang)], 1) * r[:, None]
+            new = np.clip(new, 0, spec.side - 1e-3).astype(np.float32)
+            pos[ids] = new
+            for s, h in zip((session, twin), handles):
+                s.update_objects(ids, new)
+                s.update_queries(h, pos)
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        h = session.submit()
+        bounds = session._obj_bounds.cpu().numpy()  # this tick's partition
+        res = h.result()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        ref = twin.submit().result()
+        for name, c in launches.items():
+            totals[name] += c
+        if not (np.array_equal(res.nn_idx, ref.nn_idx) and np.array_equal(
+                res.nn_dist.view(np.uint32), ref.nn_dist.view(np.uint32))):
+            bad = (res.nn_idx != ref.nn_idx).any(1) | (
+                res.nn_dist.view(np.uint32) != ref.nn_dist.view(np.uint32)
+            ).any(1)
+            raise AssertionError(f"{label} tick {t}: {int(bad.sum())} rows "
+                                 "differ from the single-plan twin")
+        sc = res.shard_candidates
+        if _fold_f32(sc) != np.float32(res.candidates):
+            raise AssertionError(f"{label} tick {t}: shard candidates "
+                                 f"{sc.tolist()} do not sum to "
+                                 f"{res.candidates}")
+        if not (bounds[0] == 0 and bounds[-1] == n
+                and np.all(np.diff(bounds) >= 0) and bounds.size == od + 1):
+            raise AssertionError(f"{label} tick {t}: bad object bounds "
+                                 f"{bounds.tolist()}")
+        owning = int((res.shard_iterations.reshape(qd, od) > 0).any(1).sum())
+        if launches["fused_scan_merge"] < 1:
+            raise AssertionError(f"{label} tick {t}: fused_scan_merge idle")
+        if plan.merge == "fused_multi" and launches["merge_topk_multi"] != qd:
+            raise AssertionError(f"{label} tick {t}: merge_topk_multi "
+                                 f"launched {launches['merge_topk_multi']}")
+        if plan.merge == "fused_merge" and launches["merge_topk_lists"] != (
+                owning * (od - 1)):
+            raise AssertionError(f"{label} tick {t}: merge_topk_lists "
+                                 f"launched {launches['merge_topk_lists']}, "
+                                 f"want {od - 1} per owning query shard "
+                                 f"({owning})")
+        rec = {"path": label, "tick": t, "step": step, "n_objects": n,
+               "wall_ms": wall_ms, "iterations": res.iterations,
+               "candidates": res.candidates,
+               "shard_candidates": sc.tolist(),
+               "shard_iterations": res.shard_iterations.tolist(),
+               "straggler_gap": straggler_gap(sc),
+               "object_bounds": bounds.tolist(), "launches": launches,
+               "maintenance": res.maintenance, "rebuilt": res.rebuilt,
+               "max_memory_allocated": peak, "twin": "bitwise, all rows"}
+        print("tick " + json.dumps(rec))
+        ticks.append(rec)
+    session.finalize_pending()
+    twin.finalize_pending()
+    return totals, ticks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-objects", type=int, default=1_000_000)
@@ -343,12 +605,28 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
     check_fma(dev)
     rec = kernel_phase(dev)
+    rec_multi, rec_lists = merge_kernel_phase(dev)
     total, _ = main_path(dev, args.n_objects)
     rec["launches"] = total
-    print(json.dumps({"kernels": [rec]}))
+    n = args.n_objects
+    counts_a, _ = object_path(dev, n, "a", "uniform", seed=0,
+                              plan="object_sharded", mesh_shape=4,
+                              partitioner="equal", merge="fused_multi")
+    counts_b, _ = object_path(dev, n, "b", "gaussian", seed=0,
+                              plan="hybrid", mesh_shape=(2, 3),
+                              partitioner="cost_balanced", merge="fused_merge")
+    for label, counts, kernel in (("a", counts_a, "merge_topk_multi"),
+                                  ("b", counts_b, "merge_topk_lists")):
+        for name in ("fused_scan_merge", kernel):
+            if counts[name] < 1:
+                raise AssertionError(f"path {label}: {name} never launched")
+    rec_multi["launches"] = counts_a["merge_topk_multi"]
+    rec_lists["launches"] = counts_b["merge_topk_lists"]
+    print(json.dumps({"kernels": [rec, rec_multi, rec_lists]}))
+    # the run used one card, whatever else the machine holds
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+        "count": 1}}))
     return 0
 
 

@@ -1,9 +1,11 @@
 """KnnSession — the session-oriented serving facade, in PyTorch.
 
-Counterpart of ``repro/api/session.py`` for the single plan with
+Counterpart of ``repro/api/session.py`` for every plan, with
 ``maintenance="rebuild"`` and ``collect="full"``: persistent query groups in a
-padded registry, delta object updates scattered on the device, and ticks
-submitted through :func:`repro_torch.core.ticks._tick_step`.  Drift-rebuild
+padded registry, delta object updates scattered on the device (grouped by
+owning object shard under the object-axis plans), per-query boundary-seed
+weights, and ticks submitted through
+:func:`repro_torch.core.ticks._tick_step`.  Drift-rebuild
 bookkeeping is finalized per tick, in submit order, at the earlier of that
 tick's ``result()`` and the next ``submit()``, exactly as the reference does,
 so the sequence of rebuild decisions matches the reference tick for tick.
@@ -20,7 +22,12 @@ from ..core.executor import resolve_executor
 from ..core.pipeline import default_max_nav
 from ..core.plan import pad_capacity, pad_queries, resolve_plan
 from ..core.quadtree import build_index, rebuild_zmap
-from ..core.ticks import _tick_step, scatter_positions
+from ..core.ticks import (
+    _tick_step,
+    object_shard_of,
+    route_delta,
+    scatter_positions,
+)
 from ..runtime import resolve_device
 from .handles import QueryHandle, TickHandle
 from .spec import ServiceSpec
@@ -125,7 +132,10 @@ class KnnSession:
         self.spec = spec
         self.device = resolve_device(device)
         self.executor = resolve_executor(spec.backend, spec.precision)
-        self.plan = resolve_plan(spec.plan)
+        self.plan = resolve_plan(
+            spec.plan, num_devices=spec.mesh_shape,
+            partitioner=spec.partitioner, merge=spec.merge,
+        )
         self._registry = _QueryRegistry(self.plan.pad_multiple(spec.chunk),
                                         self.device)
         self._positions = None  # (N, 2) f32 on the device, by object id
@@ -134,6 +144,13 @@ class KnnSession:
         self._tick = 0
         self._pending: deque[TickHandle] = deque()
         self._qcost = None
+        # object-axis boundaries of the last submitted tick (device); None
+        # until a tick returns them and after a rebuild re-ranks the objects
+        self._obj_bounds = None
+        # per-query boundary-seed weights: host mirror + padded device copy
+        self._qweight_host: np.ndarray | None = None
+        self._qweight_ver = 0
+        self._qweight_staged = None  # (ver, padded_len, device tensor)
         # True iff the positions buffer changed since the index was refreshed
         self._positions_dirty = True
 
@@ -196,12 +213,45 @@ class KnnSession:
             ids = np.concatenate([ids, np.full((pad,), n, np.int32)])
             positions = np.concatenate([positions,
                                         np.zeros((pad, 2), np.float32)])
-        self._positions = scatter_positions(
-            self._positions,
-            torch.tensor(ids, device=self.device),
-            torch.tensor(positions, device=self.device),
-        )
+        ids_dev = torch.tensor(ids, device=self.device)
+        pos_dev = torch.tensor(positions, device=self.device)
+        if self.plan.object_axis_size > 1 and self._index is not None:
+            # grouped by owning object shard: a pure reorder of unique ids
+            ids_dev, pos_dev = route_delta(
+                self._index, ids_dev, pos_dev, self.plan.object_axis_size,
+                self._obj_bounds,
+            )
+        self._positions = scatter_positions(self._positions, ids_dev, pos_dev)
         self._positions_dirty = True
+
+    def object_shards(self, ids) -> np.ndarray:
+        """Owning object shard per object id under the live plan and index.
+
+        Pending ticks are finalized first: one may carry a drift rebuild,
+        after which the Morton ranks, and so the owners, change.  Plans
+        without an object axis own everything on shard 0.
+        """
+        ids = np.asarray(ids, np.int32).reshape(-1)
+        r = self.plan.object_axis_size
+        if r == 1:
+            return np.zeros(ids.shape, np.int32)
+        if self._index is None:
+            raise RuntimeError(
+                "object_shards before the first submit: the index (and with "
+                "it the Morton shard ownership) is built lazily at submit()"
+            )
+        self._finalize_through()
+        n = self._index.n_objects
+        if ids.size and ((ids < 0).any() or (ids >= n).any()):
+            bad = ids[(ids < 0) | (ids >= n)]
+            raise ValueError(
+                f"object_shards: ids outside the live index's [0, {n}): "
+                f"{bad[:8]}"
+            )
+        return object_shard_of(
+            self._index, torch.tensor(ids, device=self.device), r,
+            self._obj_bounds,
+        ).cpu().numpy()
 
     # ------------------------------------------------------------ query state
     def register_queries(self, qpos, qid=None) -> QueryHandle:
@@ -215,6 +265,54 @@ class KnnSession:
     def drop_queries(self, handle: QueryHandle):
         """Remove a group; its rows stop being served from the next submit."""
         self._registry.drop(handle)
+
+    def set_query_cost_weights(self, weights):
+        """Per-query multipliers on the boundary-seeding cost (or None).
+
+        ``weights`` is (query_count,) f32 in the registry's row order, for
+        example ``core.balance.tenant_fair_weights``.  They move query shard
+        boundaries only, never results.  Re-set them after any change of the
+        registry's row set (checked at submit).
+        """
+        if weights is None:
+            self._qweight_host = None
+        else:
+            w = np.asarray(weights, np.float32).reshape(-1)
+            if w.shape[0] != self._registry.nq:
+                raise ValueError(
+                    f"set_query_cost_weights: {w.shape[0]} weights for a "
+                    f"{self._registry.nq}-row registry"
+                )
+            if w.size and not (np.isfinite(w).all() and (w > 0).all()):
+                raise ValueError(
+                    "set_query_cost_weights: weights must be finite and > 0"
+                )
+            self._qweight_host = w.copy()
+        self._qweight_ver += 1
+        self._qweight_staged = None
+
+    def _staged_qweight(self, nq: int, cap: int):
+        """The weights padded to ``cap`` rows on the device, or None.
+
+        Padding rows clone the last query (``pad_queries``), so they clone
+        its weight too.
+        """
+        if self._qweight_host is None:
+            return None
+        if self._qweight_host.shape[0] != nq:
+            raise RuntimeError(
+                "query cost weights are stale: the registry row set "
+                "changed since set_query_cost_weights (re-set or clear)"
+            )
+        st = self._qweight_staged
+        if st is None or st[0] != self._qweight_ver or st[1] != cap:
+            w = self._qweight_host
+            w_p = np.concatenate([w, np.full((cap - nq,), w[-1], np.float32)])
+            self._qweight_staged = (
+                self._qweight_ver, cap,
+                torch.tensor(w_p, dtype=torch.float32, device=self.device),
+            )
+        return self._qweight_staged[2]
 
     # ------------------------------------------------------------ serving
     def _build(self):
@@ -237,6 +335,8 @@ class KnnSession:
                 th_quad=self.spec.th_quad,
             )
         self._work_at_build = None  # set at the next tick's finalize
+        # the boundaries index Morton ranks of the previous partition
+        self._obj_bounds = None
         self._positions_dirty = False
 
     def _finalize_one(self, h: TickHandle):
@@ -285,6 +385,7 @@ class KnnSession:
         if qcost_dev is None or qcost_dev.shape[0] != qpos_dev.shape[0]:
             qcost_dev = torch.zeros((qpos_dev.shape[0],), dtype=torch.float32,
                                     device=self.device)
+        qweight_dev = self._staged_qweight(nq, int(qpos_dev.shape[0]))
         spec = self.spec
         mode = "rebuild" if self._positions_dirty else "skip"
         work = np.inf if self._work_at_build is None else self._work_at_build
@@ -297,6 +398,7 @@ class KnnSession:
             torch.tensor(work, dtype=torch.float32, device=self.device),
             torch.tensor(spec.rebuild_factor, dtype=torch.float32,
                          device=self.device),
+            qweight_dev,
             k=spec.k,
             window=spec.window,
             chunk=spec.chunk,
@@ -308,6 +410,9 @@ class KnnSession:
         )
         self._positions_dirty = False
         self._qcost = aux.qcost_next
+        self._obj_bounds = (
+            aux.object_bounds if self.plan.object_axis_size > 1 else None
+        )
         h = TickHandle(
             session=self,
             tick=self._tick,

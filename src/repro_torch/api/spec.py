@@ -1,10 +1,12 @@
 """ServiceSpec — the declarative description of one k-NN serving session.
 
 Same fields and defaults as the reference's ``repro/api/spec.py``, and the
-same eager validation.  Values the port does not run yet raise
-``NotImplementedError`` at construction, naming the ROADMAP item that ports
-them: ``plan`` other than ``"single"`` (A10), ``maintenance="incremental"``
-(A8), ``collect`` other than ``"full"`` and ``precision="mixed"`` (A9).
+same eager validation.  Every plan, partitioner and merge backend runs; the
+mesh plans lay ``mesh_shape`` logical shards onto the session's one device.
+Values the port does not run yet raise ``NotImplementedError`` at
+construction, naming the ROADMAP item that ports them:
+``maintenance="incremental"`` (A8), ``collect`` other than ``"full"`` and
+``precision="mixed"`` (A9).
 """
 from __future__ import annotations
 
@@ -63,7 +65,6 @@ class ServiceSpec:
         if self.delta_pad < 1:
             raise ValueError(f"delta_pad must be >= 1, got {self.delta_pad}")
         unported = [
-            ("plan", self.plan != "single", "A10"),
             ("maintenance", self.maintenance == "incremental", "A8"),
             ("collect", self.collect != "full", "A9"),
             ("precision", self.precision == "mixed", "A9"),

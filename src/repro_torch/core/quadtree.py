@@ -23,6 +23,7 @@ __all__ = [
     "reindex_objects",
     "leaf_of_points",
     "starts_from_pyramid",
+    "local_pyramid_from_starts",
 ]
 
 INDEX_FIELDS = ("origin", "side", "pos", "ids", "codes", "starts",
@@ -91,6 +92,25 @@ def starts_from_pyramid(pyramid: torch.Tensor, l_max: int) -> torch.Tensor:
         torch.zeros((1,), dtype=torch.int32, device=pyramid.device),
         torch.cumsum(fine_counts, 0).to(torch.int32),
     ])
+
+
+def local_pyramid_from_starts(starts: torch.Tensor, lo: int, own: int,
+                              clone_code, capo: int, l_max: int) -> torch.Tensor:
+    """Count pyramid of one Morton-contiguous slice, from GLOBAL offsets.
+
+    A shard owning global sorted ranks ``[lo, lo + own)``, padded to ``capo``
+    rows whose surplus rows all carry ``clone_code``, counts in fine cell
+    ``c`` the overlap ``max(0, min(starts[c+1], lo + own) - max(starts[c],
+    lo))`` of the cell's rank interval with its window, plus the
+    ``capo - own`` clone rows at ``clone_code``.  All int32, so it equals a
+    ``bincount`` of the slice's codes bit for bit.
+    """
+    s = starts[:-1]
+    e = starts[1:]
+    fine = (e.clamp(max=lo + own) - s.clamp(min=lo)).clamp(min=0)
+    fine = fine.to(torch.int32)
+    fine[clone_code] += capo - own
+    return _rollup(fine, l_max)
 
 
 def _leaf_levels(pyramid: torch.Tensor, l_max: int, th_quad: int) -> torch.Tensor:

@@ -1,9 +1,9 @@
 """Iterated batch processing of k-NN queries over ticks, in PyTorch.
 
-Counterpart of ``repro/core/ticks.py`` for what the main path runs: the
-engine configuration and its eager validation, the per-tick result record,
-the device-side delta scatter and the per-tick step (index refresh, the
-plan's sweep, the drift check).
+Counterpart of ``repro/core/ticks.py``: the engine configuration and its
+eager validation, the per-tick result record, the device-side delta scatter
+and its routing by owning object shard, and the per-tick step (index
+refresh, the plan's sweep, the drift check).
 """
 from __future__ import annotations
 
@@ -12,24 +12,23 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..kernels.ops import merge_backend_names
+from .balance import partitioner_names
 from .executor import QueryExecutor, available_backends, available_precisions
-from .plan import PLAN_NAMES, ExecutionPlan
-from .quadtree import reindex_objects
+from .plan import ExecutionPlan, object_shard_capacity, plan_names
+from .quadtree import QuadtreeIndex, reindex_objects
 
 __all__ = [
     "TickResult",
     "EngineConfig",
     "MAINTENANCE_MODES",
-    "PARTITIONER_NAMES",
-    "MERGE_NAMES",
     "validate_engine_params",
     "scatter_positions",
+    "object_shard_of",
+    "route_delta",
 ]
 
 MAINTENANCE_MODES = ("rebuild", "incremental")
-# the reference's registries for the knobs the single plan ignores
-PARTITIONER_NAMES = ("cost_balanced", "equal")
-MERGE_NAMES = ("dense_merge", "fused_merge", "fused_multi")
 
 
 def validate_engine_params(*, k, window, chunk, backend, plan, mesh_shape=None,
@@ -46,23 +45,24 @@ def validate_engine_params(*, k, window, chunk, backend, plan, mesh_shape=None,
             f"unknown backend {backend!r}; registered SCAN backends: "
             f"{available_backends()}"
         )
-    if isinstance(plan, str) and plan not in PLAN_NAMES:
+    if isinstance(plan, str) and plan not in plan_names():
         raise ValueError(
-            f"unknown execution plan {plan!r}; registered plans: {PLAN_NAMES}"
+            f"unknown execution plan {plan!r}; registered plans: "
+            f"{plan_names()}"
         )
-    if isinstance(partitioner, str) and partitioner not in PARTITIONER_NAMES:
+    if isinstance(partitioner, str) and partitioner not in partitioner_names():
         raise ValueError(
             f"unknown partitioner {partitioner!r}; registered partitioners: "
-            f"{PARTITIONER_NAMES}"
+            f"{partitioner_names()}"
         )
     if precision is not None and precision not in available_precisions():
         raise ValueError(
             f"unknown precision {precision!r}; one of {available_precisions()}"
         )
-    if isinstance(merge, str) and merge not in MERGE_NAMES:
+    if isinstance(merge, str) and merge not in merge_backend_names():
         raise ValueError(
             f"unknown merge backend {merge!r}; registered MERGE backends: "
-            f"{MERGE_NAMES}"
+            f"{merge_backend_names()}"
         )
     if maintenance is not None and maintenance not in MAINTENANCE_MODES:
         raise ValueError(
@@ -138,23 +138,25 @@ class TickResult:
     candidates: float
     iterations: int
     qids: np.ndarray | None = None  # (Q,) registry qids, row-aligned with nn_*
-    shard_candidates: np.ndarray | None = None  # (1,) f32
-    shard_iterations: np.ndarray | None = None  # (1,) i32
+    shard_candidates: np.ndarray | None = None  # (R_total,) f32
+    shard_iterations: np.ndarray | None = None  # (R_total,) i32
     collect_s: float = 0.0  # device -> host transfer time of this result
     maintenance: str = "rebuild"  # how this tick's step refreshed the index
 
 
 def _tick_step(index, positions, qpos, qid, qcost, work_at_build,
-               rebuild_factor, *, k: int, window: int, chunk: int,
-               max_nav: int, max_iters: int, executor: QueryExecutor,
-               plan: ExecutionPlan, maintenance: str = "rebuild"):
+               rebuild_factor, qweight=None, *, k: int, window: int,
+               chunk: int, max_nav: int, max_iters: int,
+               executor: QueryExecutor, plan: ExecutionPlan,
+               maintenance: str = "rebuild"):
     """(index, P_tau, Q_tau) -> (index', nn_idx, nn_dist, aux, should_rebuild).
 
     ``maintenance``: ``"rebuild"`` re-sorts all positions into the existing
     partition (``reindex_objects``); ``"skip"`` keeps the index, whose order
-    is already current for this very buffer.  ``work_at_build`` and
-    ``rebuild_factor`` are f32 tensors; the drift rule is the reference's
-    ``candidates > rebuild_factor * work_at_build`` in f32.
+    is already current for this very buffer.  The mode and ``qweight`` (the
+    optional (Q,) boundary-seed weights) go on to ``plan.run``.
+    ``work_at_build`` and ``rebuild_factor`` are f32 tensors; the drift rule
+    is the reference's ``candidates > rebuild_factor * work_at_build`` in f32.
     """
     if maintenance == "rebuild":
         index = reindex_objects(index, positions)
@@ -166,9 +168,46 @@ def _tick_step(index, positions, qpos, qid, qcost, work_at_build,
     nn_idx, nn_dist, aux = plan.run(
         index, qpos, qid, qcost, k=k, window=window, chunk=chunk,
         max_nav=max_nav, max_iters=max_iters, executor=executor,
+        qweight=qweight, maintenance=maintenance,
     )
     should_rebuild = aux.stats.candidates > rebuild_factor * work_at_build
     return index, nn_idx, nn_dist, aux, should_rebuild
+
+
+def object_shard_of(index: QuadtreeIndex, ids: torch.Tensor, num_shards: int,
+                    bounds: torch.Tensor | None = None) -> torch.Tensor:
+    """Owning object shard of each object id under the live index, (m,) i32.
+
+    An object's owner follows its Morton rank in the index: rank divided by
+    ``ceil(N / num_shards)`` under the equal partition, or the interval of
+    ``bounds`` (a tick's ``PlanAux.object_bounds``) that holds the rank.
+    ``ids`` must lie in ``[0, N)``.
+    """
+    n = index.n_objects
+    rank = torch.empty((n,), dtype=torch.int32, device=index.device)
+    rank[index.ids.long()] = torch.arange(n, dtype=torch.int32,
+                                          device=index.device)
+    r = rank[ids.long()]
+    if bounds is None:
+        return r // object_shard_capacity(n, num_shards)
+    return (torch.searchsorted(bounds, r, right=True) - 1).to(torch.int32)
+
+
+def route_delta(index: QuadtreeIndex, ids: torch.Tensor, new_pos: torch.Tensor,
+                num_shards: int, bounds: torch.Tensor | None = None):
+    """A (sentinel-padded) delta batch grouped by owning shard, on the device.
+
+    Rows stable-sorted by :func:`object_shard_of`; sentinel rows (id >= N)
+    sort last.  A pure reorder of unique ids, so the scattered buffer is the
+    same bits.
+    """
+    n = index.n_objects
+    live = ids < n
+    owner = object_shard_of(index, ids.clamp(0, max(n - 1, 0)), num_shards,
+                            bounds)
+    shard = torch.where(live, owner, num_shards)
+    order = torch.argsort(shard, stable=True)
+    return ids[order], new_pos[order]
 
 
 def scatter_positions(positions: torch.Tensor, ids: torch.Tensor,

@@ -3,8 +3,9 @@
 Each source under ``csrc/`` becomes one shared library with a plain C
 interface.  A library is built at first use, from the checkout's sources
 only, into ``build/torch_kernels/`` at the repository root, under a name keyed
-by a hash of the source and the flags, so a fresh checkout builds once and an
-edited source rebuilds.  ``build_all`` starts one ``nvcc`` per source at once.
+by a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
+so a fresh checkout builds once and an edited source or header rebuilds.
+``build_all`` starts one ``nvcc`` per source at once.
 
 Flags: ``sm_90a`` (Hopper), ``-O3`` and ``--fmad=false`` so that no multiply
 and add is contracted behind the source's back; the kernels spell every fused
@@ -25,7 +26,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "library_path", "build_all",
            "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fused_scan.cu",)
+SOURCES = ("fused_scan.cu", "merge_topk.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
@@ -52,8 +53,13 @@ def _nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    src = (CSRC / source).read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The built library of ``source``, keyed by a hash of the source, every
+    shared header under ``csrc/`` and the flags."""
+    h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:16]
     return build_dir() / f"{Path(source).stem}-{tag}.so"
 
 

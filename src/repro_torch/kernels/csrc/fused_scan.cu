@@ -33,27 +33,14 @@
 // contracts is an explicit __fmaf_rn; every other multiply, add and divide
 // is an explicit round-to-nearest intrinsic, and the build passes
 // --fmad=false.  jnp.maximum propagates NaN, so nan_max does too.
-#include <climits>
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "warp_select.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
-constexpr int kRowsPerBlock = 8;  // Q_TILE
-constexpr int kBins = 32;         // one histogram bin per lane
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kBins = 32;  // one histogram bin per lane
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? CUDART_NAN_F : fmaxf(a, b);
-}
-
-// Lexicographic (d2, id, column) order of the selection rounds.
-__device__ __forceinline__ bool lex_less(float d1, int i1, int c1, float d2,
-                                         int i2, int c2) {
-  if (d1 != d2) return d1 < d2;
-  if (i1 != i2) return i1 < i2;
-  return c1 < c2;
 }
 
 template <int P>
@@ -183,50 +170,8 @@ fused_scan_merge_kernel(const float* __restrict__ qx,
   }
 
   // ---- k rounds of lexicographic warp argmin.
-  int r = 0;
-  for (; r < k; ++r) {
-    float bd = inf;
-    int bi = INT_MAX;
-    int bc = INT_MAX;
-#pragma unroll
-    for (int p = 0; p < P; ++p) {
-      const int col = lane + kWarp * p;
-      if (lex_less(d[p], id[p], col, bd, bi, bc)) {
-        bd = d[p];
-        bi = id[p];
-        bc = col;
-      }
-    }
-#pragma unroll
-    for (int o = kWarp / 2; o > 0; o /= 2) {
-      const float od = __shfl_xor_sync(kFull, bd, o);
-      const int oi = __shfl_xor_sync(kFull, bi, o);
-      const int oc = __shfl_xor_sync(kFull, bc, o);
-      if (lex_less(od, oi, oc, bd, bi, bc)) {
-        bd = od;
-        bi = oi;
-        bc = oc;
-      }
-    }
-    if (isinf(bd)) break;  // only +inf left: the rest pads with (inf, -1)
-    if (lane == 0) {
-      sel_d[r] = bd;
-      sel_i[r] = bi;
-    }
-    if (bc % kWarp == lane) {
-      const int owner = bc / kWarp;
-#pragma unroll
-      for (int p = 0; p < P; ++p) {
-        if (p == owner) d[p] = inf;
-      }
-    }
-  }
-  __syncwarp();
-  for (int j = lane; j < k; j += kWarp) {
-    const bool have = j < r;
-    out_d[brow + j] = have ? sel_d[j] : inf;
-    out_i[brow + j] = have ? sel_i[j] : -1;
-  }
+  const int r = warp_select_rounds<P>(d, id, k, lane, sel_d, sel_i);
+  store_selected(sel_d, sel_i, r, k, lane, out_d + brow, out_i + brow);
 }
 
 template <int P>

@@ -118,8 +118,21 @@ def test_single_plan_matches_jax(backend, max_iters):
 
 
 def test_unported_plans_raise():
-    for name in ("sharded", "object_sharded", "hybrid"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            tplan.resolve_plan(name)
+    """Every plan of the reference resolves now (ROADMAP A10, on one
+    device); unknown names still raise, and so does the unported
+    ``maintenance="incremental"`` (A8) on a mesh plan."""
+    from repro_torch.api import ServiceSpec
+
+    for name, mesh in (("sharded", 3), ("object_sharded", 4),
+                       ("hybrid", (2, 3))):
+        plan = tplan.resolve_plan(name, num_devices=mesh,
+                                  partitioner="cost_balanced",
+                                  merge="fused_multi")
+        assert plan.name == name
+        assert ServiceSpec(plan=name, mesh_shape=mesh).plan == name
+        with pytest.raises(NotImplementedError, match="A8"):
+            ServiceSpec(plan=name, mesh_shape=mesh, maintenance="incremental")
     with pytest.raises(ValueError, match="unknown execution plan"):
         tplan.resolve_plan("nope")
+    with pytest.raises(ValueError, match="unknown execution plan"):
+        ServiceSpec(plan="nope")

@@ -101,3 +101,19 @@ def test_convert_carries_the_reference_index():
     with pytest.raises(ValueError, match="ids"):
         convert.index_from_numpy(dict(fields, ids=fields["ids"].astype(
             np.int64)), l_max=5, th_quad=8, device="cpu")
+
+
+@pytest.mark.parametrize("lo,own,capo", [(0, 750, 750), (750, 750, 750),
+                                         (2250, 746, 750), (1000, 0, 750)])
+def test_local_pyramid_from_starts_matches_jax(lo, own, capo):
+    """One object shard's pyramid, derived from the global offsets, with the
+    window's surplus rows counted at the clone code."""
+    pts = _points("duplicates", 2996, seed=3)
+    idx = tq.build_index(torch.tensor(pts), torch.zeros(2), SIDE, l_max=5,
+                         th_quad=8)
+    codes = np.asarray(idx.codes)
+    clone = int(codes[min(max(lo + own - 1, 0), codes.size - 1)])
+    want = jq.local_pyramid_from_starts(jnp.asarray(idx.starts.numpy()), lo,
+                                        own, clone, capo, 5)
+    got = tq.local_pyramid_from_starts(idx.starts, lo, own, clone, capo, 5)
+    np.testing.assert_array_equal(np.asarray(want), got.numpy())

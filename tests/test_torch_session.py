@@ -126,7 +126,7 @@ def test_session_matches_jax_fused_bucket():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("plan", "sharded", "A10"),
+    ("collect", "none", "A9"),
     ("maintenance", "incremental", "A8"),
     ("collect", "stats", "A9"),
     ("precision", "mixed", "A9"),
