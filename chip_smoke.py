@@ -4,7 +4,7 @@
 Run from the repository root on a machine with a CUDA card:
 
     python3 chip_smoke.py                 # the full run (1M objects)
-    python3 chip_smoke.py --n-objects 20000 --ptxas   # a short first check
+    python3 chip_smoke.py --n-objects 20000 --short-api --ptxas  # first check
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -14,20 +14,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    against an exact round-to-odd emulation on the card;
 4. kernel: ``fused_scan_merge`` on the card against its plain PyTorch version
    on the same inputs (Q=8192, W=256, k=32 with edge rows), bitwise, and
-   timed beside its memory bound and the ``dense_topk`` merge;
+   timed beside its memory bound and the ``dense_topk`` merge; then its
+   ``precision="mixed"`` branch on the same inputs, bitwise equal to its
+   plain mixed version and to the fp32 kernel, timed beside it;
 5. merge kernels: ``merge_topk_multi`` at Q = 1,007,616, R = 4, k = 32 and
    ``merge_topk_lists`` at Q = 503,808 (ka = kb = 32, and ka = 20, kb = 32),
    with edge rows (ties across lists, empty and partly filled lists), each
    bitwise against its plain version and the two-sort merge of
    ``dense_merge`` on the card, and timed beside its memory bound and that
    two-sort merge;
-6. single path: a ``KnnSession`` with ``backend="fused_bucket"`` and the
+6. kernel API path (:func:`kernel_api_path`): ``pairwise_dist_op``,
+   ``topk_select_op`` and ``bucket_kselect_op`` at the S2 / S3 studies'
+   sizes, each bitwise against its kernel's plain version on the card
+   (``topk_select`` also against the two-sort merge, ``bucket_kselect``
+   also against its guarantee on every row) and timed; then the brute-force
+   baseline ``knn_bruteforce_chunked`` over 128 queries of the 1M uniform
+   set, on the card bitwise equal to the same call on the CPU;
+7. single path: a ``KnnSession`` with ``backend="fused_bucket"`` and the
    spec defaults over 1,000,000 uniform objects, one query per object: tick
    0, two ticks where 1% of the objects move up to 200 u, then a snapshot of
    the gaussian (25 hotspots) family at the same N and one more tick after
    its drift rebuild.  Every tick must launch the kernel, and 1,024 sampled
-   queries per tick must equal a brute-force oracle on the card bit for bit;
-7. object-axis paths at the same N, each session beside a ``single`` twin
+   queries per tick must equal a brute-force oracle on the card bit for bit.
+   A ``precision="mixed"`` twin session is fed the same data; on every tick
+   it must launch the mixed kernel (and the fp32 session must not) and
+   equal the fp32 session's lists on every row, its iterations and its
+   candidates;
+8. object-axis paths at the same N, each session beside a ``single`` twin
    fed the same data, whose lists it must equal bit for bit on every row of
    every tick: (a) ``object_sharded``, 4 shards, ``equal``, ``fused_multi``
    over uniform, a 1% move and an unchanged (``skip``) tick; (b) ``hybrid``
@@ -35,8 +48,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    1% move and a ``skip`` tick.  ``fused_multi`` must launch once per tick
    in (a), ``fused_merge`` twice per query shard that owns rows in (b).
 
-Launch counts are zeroed just before each path and read just after, on the
-path's own session only.  The next-to-last line is the kernels' JSON record;
+Launch counts are zeroed just before each path (each tick, in the single
+path) and read just after, on the path's own session only.  The
+next-to-last line is the kernels' JSON record;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -210,6 +224,101 @@ def merge_inputs(r: int, q: int, k: int, dev, seed: int = 0):
     return d.contiguous(), ids.contiguous()
 
 
+def topk_inputs(q: int, c: int, k: int, dev, seed: int = 0):
+    """(Q, C) distances and i32 ids for ``topk_select``, with edge bands of
+    rows: distances on a coarse grid (ties across distinct ids), bf16-rounded
+    distances, +inf entries, fewer than k finite entries, every entry +inf,
+    and exact (d2, id) duplicates."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    d = torch.rand((q, c), generator=g, device=dev) * 4.0e6
+    ids = torch.randint(0, 1 << 30, (q, c), generator=g, device=dev,
+                        dtype=torch.int32)
+    e = max(1, q // 16)  # edge-band height
+    inf = float("inf")
+    d[:e] = torch.floor(d[:e] / 2.0e5) * 2.0e5  # ties across ids
+    d[e:2 * e] = d[e:2 * e].to(torch.bfloat16).to(torch.float32)
+    d[2 * e:3 * e, ::3] = inf  # +inf entries
+    d[3 * e:4 * e, max(1, min(k, c) // 2):] = inf  # fewer than k finite
+    d[4 * e:5 * e] = inf  # nothing finite
+    d[5 * e:6 * e] = torch.floor(d[5 * e:6 * e] / 1.0e6) * 1.0e6
+    ids[5 * e:6 * e] = ids[5 * e:6 * e] % 4  # exact (d2, id) duplicates
+    return d.contiguous(), ids.contiguous()
+
+
+def window_inputs(q: int, c: int, dev, seed: int = 0, side: float = 22_500.0,
+                  invalid: float = 0.1, coincide: int = 40):
+    """(Q, 2) uniform queries and one shared (C, 2) uniform candidate window
+    over the spec's region, a fraction ``invalid`` of the window invalid and
+    its first ``coincide`` points on one spot (equal distances)."""
+    g = np.random.default_rng(seed)
+    qpos = g.uniform(0, side, (q, 2)).astype(np.float32)
+    ppos = g.uniform(0, side, (c, 2)).astype(np.float32)
+    ppos[1:coincide] = ppos[0]
+    valid = g.random(c) >= invalid
+    return (torch.tensor(qpos, device=dev), torch.tensor(ppos, device=dev),
+            torch.tensor(valid, device=dev))
+
+
+def edge_window(k: int, seed: int = 0):
+    """A (1, 2) query at the origin and a (k, 2) window on the x axis whose
+    sorted distances have :func:`edge_lists`' shape: the first refinement
+    round's last bucket edge, ``fma(31, width, lo)``, is itself a distance
+    that the division bins one bucket lower.  With k = C the reference's
+    ``bucket_kselect`` and ``find_kdist`` track the wrong rank here, and
+    their radius leaves the k-th distance outside (numpy, float32)."""
+    from repro_torch.kernels import fused_scan as fs
+    from repro_torch.runtime import fma
+
+    g = np.random.default_rng(seed)
+    t = lambda v: torch.tensor([v], dtype=torch.float32)
+
+    def sq(x):  # the kernels' d2 of an x-axis point: fma(x, x, 0)
+        return np.float32(x) * np.float32(x)
+
+    def root_of(d):  # an f32 x with sq(x) == d, or None
+        r = np.float32(np.sqrt(np.float64(d)))
+        for x in (r, np.nextafter(r, np.float32(0)),
+                  np.nextafter(r, np.float32(np.inf))):
+            if sq(x) == d:
+                return np.float32(x)
+        return None
+
+    while True:
+        x_lo = np.float32(g.uniform(1, 30))
+        x_hi = np.float32(x_lo + g.uniform(10, 80))
+        lo, hi0 = sq(x_lo), sq(x_hi)
+        width = (fma(t(hi0), t(fs.HI_MUL), t(fs.HI_ADD)) - t(lo)) / 32
+        edge = fma(t(31.0), width, t(lo))
+        if torch.floor((edge - t(lo)) / width).item() != 30:
+            continue
+        x_edge = root_of(np.float32(edge.item()))
+        if x_edge is None or not x_lo < x_edge < x_hi:
+            continue
+        xs = np.concatenate([
+            [x_lo], np.sort(g.uniform(x_lo, x_edge, k - 5)), [x_edge],
+            np.sort(g.uniform(x_edge, x_hi, 2)), [x_hi]]).astype(np.float32)
+        if np.all(np.diff(sq(xs)) > 0):
+            ppos = np.stack([xs, np.zeros_like(xs)], 1)
+            return np.zeros((1, 2), np.float32), ppos
+
+
+def _record(name, source, replaces, launches, ms, plain_ms, nbytes, ops,
+            library_ms, max_abs_err=0.0, **extra):
+    """One kernel's record; the bound is the larger of ``nbytes`` over the
+    memory rate and ``ops`` over the f32 rate.  ``launches`` None is filled
+    in from the kernel's path."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / FP32_OPS_PER_S * 1e3
+    return dict({
+        "name": name, "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{source}",
+        "replaces": replaces, "launches": launches,
+        "max_abs_err": max_abs_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": library_ms, "bitwise": True}, **extra)
+
+
 def kernel_phase(dev, q=8192, w=256, k=32):
     from repro_torch.kernels import fused_scan as fs
     from repro_torch.kernels.ops import _lex_sort_merge
@@ -257,28 +366,60 @@ def kernel_phase(dev, q=8192, w=256, k=32):
     nbytes = q * (8 + 13 * w + 8 * k) + q * 8 * k
     rounds = torch.minimum(fin.sum(1) + 1, torch.tensor(k, device=dev))
     ops = q * (6 * w + 4 * 10 * n) + int(rounds.sum()) * n
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    rec = {
-        "name": "fused_scan_merge",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/fused_scan.cu",
-        "replaces": "src/repro/kernels/fused_scan.py:126",
-        "launches": None,  # filled from the main path
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
-        "bitwise": True,
-    }
+    rec = _record("fused_scan_merge", "fused_scan.cu",
+                  "src/repro/kernels/fused_scan.py:126", None, ms, plain_ms,
+                  nbytes, ops, library_ms, max_abs_err)  # launches: main path
     print(f"kernel: fused_scan_merge Q={q} W={w} k={k} bitwise equal to the "
           f"plain version and the exact merge; {ms:.4f} ms (plain "
           f"{plain_ms:.3f} ms, dense_topk {library_ms:.3f} ms, bound "
           f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}: {nbytes} bytes, "
           f"{ops} ops)")
-    return rec
+
+    # B1's mixed branch on the same inputs: bitwise equal to its plain
+    # version, and (the prefilter being conservative) to the fp32 kernel
+    mixed = dict(k=k, precision="mixed")
+    fs.fused_scan_merge.mixed_launches = 0
+    out_md, out_mi = fs.fused_scan_merge(*args, **mixed)
+    torch.cuda.synchronize()
+    if fs.fused_scan_merge.mixed_launches != 1:
+        raise AssertionError("fused_scan_merge did not launch its mixed "
+                             "kernel")
+    ref_md, ref_mi = fs.fused_scan_merge_ref(*args, **mixed)
+    for what, want in (("plain mixed version", (ref_md, ref_mi)),
+                       ("fp32 kernel", (out_d, out_i))):
+        if not (torch.equal(out_md, want[0]) and torch.equal(out_mi, want[1])):
+            bad = ((out_md != want[0]) | (out_mi != want[1])).any(1)
+            raise AssertionError(f"mixed kernel != {what} on "
+                                 f"{int(bad.sum())} rows")
+    cpu_d, cpu_i = fs.fused_scan_merge_ref(*(a[:512].cpu() for a in args),
+                                           **mixed)
+    if not (torch.equal(cpu_d, ref_md[:512].cpu())
+            and torch.equal(cpu_i, ref_mi[:512].cpu())):
+        raise AssertionError("plain mixed version differs between card and "
+                             "CPU")
+    # how much of the window the prefilter drops, on these inputs
+    from repro_torch.kernels.refine import mixed_prune_keep
+
+    keep = mixed_prune_keep(args[2] - args[0][:, None],
+                            args[3] - args[1][:, None], args[6][:, k - 1])
+    pruned = float((args[5] & ~keep).sum()) / max(1, int(args[5].sum()))
+    ms_m = time_ms(lambda: fs.fused_scan_merge(*args, **mixed), reps=50)
+    plain_ms_m = time_ms(lambda: fs.fused_scan_merge_ref(*args, **mixed),
+                         reps=3, warmup=1)
+    library_ms_m = time_ms(
+        lambda: _lex_sort_merge(qpos, cpos, args[4], args[5], args[6],
+                                args[7], k, precision="mixed"), reps=10)
+    rec_m = _record("fused_scan_merge_mixed", "fused_scan.cu",
+                    "src/repro/kernels/fused_scan.py:52", None, ms_m,
+                    plain_ms_m, nbytes, ops + q * w * 6,  # + the prefilter
+                    library_ms_m, max_abs_err, pruned_share=pruned)
+    print(f"kernel: fused_scan_merge precision=mixed Q={q} W={w} k={k} "
+          f"bitwise equal to its plain version and the fp32 kernel "
+          f"(prefilter dropped {pruned:.4f} of the valid window); "
+          f"{ms_m:.4f} ms beside fp32 {ms:.4f} ms (plain {plain_ms_m:.3f} ms, "
+          f"dense_topk mixed {library_ms_m:.3f} ms, bound "
+          f"{rec_m['bound_ms']:.4f} ms by {rec_m['bound_by']})")
+    return rec, rec_m
 
 
 def _check_merge(name, out, plain, two_sort):
@@ -308,22 +449,9 @@ def _merge_record(name, source_line, q, row, k, out, plain, two_sort,
     nbytes = q * row * 8 + q * k * 8
     rounds = torch.minimum(fin.sum(1) + 1, torch.tensor(k, device=fin.device))
     ops = int(rounds.sum()) * row
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / FP32_OPS_PER_S * 1e3
-    rec = {
-        "name": name,
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/merge_topk.cu",
-        "replaces": f"src/repro/kernels/merge_topk.py:{source_line}",
-        "launches": None,  # filled from its object-axis path
-        "max_abs_err": max_abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
-        "bitwise": True,
-    }
+    rec = _record(name, "merge_topk.cu",
+                  f"src/repro/kernels/merge_topk.py:{source_line}", None, ms,
+                  plain_ms, nbytes, ops, library_ms, max_abs_err)
     print(f"kernel: {name} Q={q} row={row} k={k} bitwise equal to the plain "
           f"version and the two-sort merge; {ms:.4f} ms (plain "
           f"{plain_ms:.3f} ms, two-sort {library_ms:.3f} ms, bound "
@@ -383,6 +511,197 @@ def merge_kernel_phase(dev, q_multi=1_007_616, q_lists=503_808, k=32):
     return rec_multi, rec_lists
 
 
+def _add_shape(recs: dict, name: str, rec: dict):
+    """The first shape of a kernel is its record; later shapes' numbers go
+    into the record's ``other_shapes``."""
+    if name not in recs:
+        recs[name] = dict(rec, other_shapes=[])
+        return
+    recs[name]["other_shapes"].append(
+        {key: rec[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
+                                   "bound_by", "library_ms")})
+
+
+def _timed_once(fn) -> float:
+    """Milliseconds of one call of ``fn`` after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def kernel_api_path(dev, full: bool = True, k: int = 32):
+    """The kernel API's entry points at the sizes of the S2 / S3 studies.
+
+    Drives ``pairwise_dist_op`` (one query chunk of the brute-force baseline,
+    Q = 2048, against 1,000,000 candidates, 10% invalid), ``topk_select_op``
+    (Q = 1,000,000 rows of C = 288 = k + W, the SCAN merge row at spec
+    defaults; and Q = 8192 rows of C = 2048, S3's window; edge rows) and
+    ``bucket_kselect_op`` (Q = 1,000,000 queries against one shared window
+    of C = 2048 with 10% invalid and 40 coincident points, k = 32 and 256),
+    with every launch count zeroed just before and read just after.  Then
+    each output is held bit for bit against its kernel's plain version on
+    the card (in row blocks where the plain version's temporaries would be
+    large), B4 also against the two-sort merge and B5 against its
+    guarantee on every row, and each kernel is timed.  ``full=False`` runs
+    the same checks at a few percent of the sizes.
+    """
+    from repro_torch.kernels import bucket_kselect as bk
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pairwise_dist as pd
+    from repro_torch.kernels.refine import masked_argmin_rounds
+
+    n = 1_000_000 if full else 62_500  # the short run also pads Q and C
+    q6, c6 = (2048 if full else 256), n
+    tk_shapes = ((n, 288), (8192 if full else 1000, 2048))
+    q5, c5, k5s = n, 2048, (k, 256)
+    qpos6, ppos6, valid6 = window_inputs(q6, c6, dev, seed=6)
+    tk_in = [topk_inputs(q, c, k, dev, seed=4 + i)
+             for i, (q, c) in enumerate(tk_shapes)]
+    qpos5, ppos5, valid5 = window_inputs(q5, c5, dev, seed=5)
+
+    _zero_counts()  # the kernel API path's counts start here
+    out6 = ops.pairwise_dist_op(qpos6, ppos6, valid6)
+    out4 = [ops.topk_select_op(d, i, k=k) for d, i in tk_in]
+    out5 = [ops.bucket_kselect_op(qpos5, ppos5, valid5, k=kk) for kk in k5s]
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    for name, want in (("pairwise_dist", 1), ("topk_select", 2),
+                       ("bucket_kselect", 2)):
+        if counts[name] != want:
+            raise AssertionError(f"kernel API path: {name} launched "
+                                 f"{counts[name]} times, want {want}")
+    recs = {}
+
+    # ---- B6: bitwise in blocks of 128 query rows.
+    qx, qy = qpos6[:, 0].contiguous(), qpos6[:, 1].contiguous()
+    px, py = ppos6[:, 0].contiguous(), ppos6[:, 1].contiguous()
+
+    def plain6():
+        return [pd.pairwise_dist_ref(qx[r:r + 128], qy[r:r + 128], px, py,
+                                     valid6) for r in range(0, q6, 128)]
+
+    for b, ref in zip(range(0, q6, 128), plain6()):
+        if not torch.equal(out6[b:b + 128], ref):
+            bad = (out6[b:b + 128] != ref).any(1).nonzero()[:8, 0] + b
+            raise AssertionError(f"pairwise_dist != plain version, rows "
+                                 f"{bad.tolist()}")
+    if out6.shape != (q6, c6) or not torch.isinf(out6[:, ~valid6]).all():
+        raise AssertionError("pairwise_dist: bad shape or invalid entries")
+    del out6
+    cp = -(-c6 // pd.C_TILE) * pd.C_TILE
+    pad = lambda t, fill: torch.cat(
+        [t, torch.full((cp - c6,), fill, dtype=t.dtype, device=dev)])
+    kin = (qx, qy, pad(px, 0.0), pad(py, 0.0), pad(valid6, False))
+    ms = time_ms(lambda: pd.pairwise_dist(*kin), reps=10)
+    plain_ms = time_ms(lambda: plain6(), reps=1, warmup=1)
+    recs["pairwise_dist"] = _record(
+        "pairwise_dist", "pairwise_dist.cu",
+        "src/repro/kernels/pairwise_dist.py:53", counts["pairwise_dist"], ms,
+        plain_ms, q6 * cp * 4 + q6 * 8 + cp * 9, q6 * cp * 5, None,
+        shape=f"Q={q6} C={c6} (padded {cp})")
+    print(f"kernel: pairwise_dist Q={q6} C={c6} (padded to {cp}) bitwise "
+          f"equal to its plain version; {ms:.4f} ms (plain {plain_ms:.3f} "
+          f"ms, bound {recs['pairwise_dist']['bound_ms']:.4f} ms by "
+          f"{recs['pairwise_dist']['bound_by']})")
+    del kin
+
+    # ---- B4: bitwise against masked_argmin_rounds and the two-sort merge.
+    for (q, c), (d, i), out in zip(tk_shapes, tk_in, out4):
+        plain = masked_argmin_rounds(d, i, k)
+        two_sort = ops.topk_select_ref(d, i, k)
+        err = _check_merge(f"topk_select C={c}", out, plain, two_sort)
+        fin = torch.isfinite(plain[0])
+        ms = time_ms(lambda: ops.topk_select_op(d, i, k=k), reps=20)
+        plain_ms = time_ms(lambda: masked_argmin_rounds(d, i, k), reps=2,
+                           warmup=1)
+        lib_ms = time_ms(lambda: torch.topk(d, k, dim=1, largest=False),
+                         reps=10)
+        rounds = torch.minimum(fin.sum(1) + 1, torch.tensor(k, device=dev))
+        rec = _record("topk_select", "topk_select.cu",
+                      "src/repro/kernels/topk_select.py:49",
+                      counts["topk_select"], ms, plain_ms,
+                      q * c * 8 + q * k * 8, int(rounds.sum()) * c, lib_ms,
+                      err, shape=f"Q={q} C={c} k={k}")
+        print(f"kernel: topk_select Q={q} C={c} k={k} bitwise equal to its "
+              f"plain version and the two-sort merge; {ms:.4f} ms (plain "
+              f"{plain_ms:.3f} ms, torch.topk {lib_ms:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})")
+        _add_shape(recs, "topk_select", rec)
+    del tk_in, out4
+
+    # ---- B5: bitwise in blocks of 65536 query rows, and the guarantee.
+    qx, qy = qpos5[:, 0].contiguous(), qpos5[:, 1].contiguous()
+    px, py = ppos5[:, 0].contiguous(), ppos5[:, 1].contiguous()
+    n_valid = int(valid5.sum())
+    blk = 65536
+    for kk, out in zip(k5s, out5):
+        def plain5():
+            return [bk.bucket_kselect_ref(qx[r:r + blk], qy[r:r + blk], px, py,
+                                          valid5, k=kk)
+                    for r in range(0, q5, blk)]
+
+        for r, ref in zip(range(0, q5, blk), plain5()):
+            if not torch.equal(out[r:r + blk], ref):
+                bad = (out[r:r + blk] != ref).nonzero()[:8, 0] + r
+                raise AssertionError(f"bucket_kselect k={kk} != plain "
+                                     f"version, rows {bad.tolist()}")
+            d2 = pd.pairwise_dist_ref(qx[r:r + blk], qy[r:r + blk], px, py,
+                                      valid5)
+            if not ((d2 < out[r:r + blk, None]).sum(1)
+                    >= min(kk, n_valid)).all():
+                raise AssertionError(f"bucket_kselect k={kk}: the guarantee "
+                                     "fails")
+        ms = time_ms(lambda: ops.bucket_kselect_op(qpos5, ppos5, valid5,
+                                                   k=kk), reps=5)
+        plain_ms = time_ms(plain5, reps=1, warmup=1)
+        rec = _record("bucket_kselect", "bucket_kselect.cu",
+                      "src/repro/kernels/bucket_kselect.py:84",
+                      counts["bucket_kselect"], ms, plain_ms,
+                      q5 * 12 + c5 * 9, q5 * c5 * (5 + 3 * 4), None,
+                      shape=f"Q={q5} C={c5} k={kk}")
+        print(f"kernel: bucket_kselect Q={q5} C={c5} k={kk} bitwise equal to "
+              f"its plain version, guarantee held on every row; {ms:.4f} ms "
+              f"(plain {plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms by "
+              f"{rec['bound_by']})")
+        _add_shape(recs, "bucket_kselect", rec)
+    return recs
+
+
+def baseline_check(dev, n: int, sample: int = 128, k: int = 32,
+                   seed: int = 0):
+    """The brute-force baseline (plain PyTorch, no kernel of its own) on the
+    card equals the same call on the CPU, ids and distances bit for bit:
+    ``sample`` queries of the n-object uniform set, each excluding its own
+    object, in chunks of 2048.  Returns the card's milliseconds."""
+    from repro_torch.core.baseline import knn_bruteforce_chunked
+    from repro_torch.data.generators import make_workload
+
+    pos = make_workload(n, "uniform", seed=seed, side=22_500.0).positions()
+    rows = np.sort(np.random.default_rng(seed + 7).choice(n, sample,
+                                                          replace=False))
+    qid = rows.astype(np.int32)
+    run = lambda device: knn_bruteforce_chunked(pos, pos[rows], qid, k=k,
+                                                chunk=2048, device=device)
+    gi, gd = run(None)
+    ci, cd = run("cpu")
+    if not (np.array_equal(gi, ci)
+            and np.array_equal(gd.view(np.uint32), cd.view(np.uint32))):
+        bad = (gi != ci).any(1) | (gd.view(np.uint32)
+                                   != cd.view(np.uint32)).any(1)
+        raise AssertionError(f"baseline: card != CPU on {int(bad.sum())} of "
+                             f"{sample} rows")
+    if (gi == qid[:, None]).any() or gi.shape != (sample, k):
+        raise AssertionError("baseline: a query found itself, or bad shape")
+    ms = _timed_once(lambda: run(None))
+    print(f"baseline: knn_bruteforce_chunked {sample} queries x {n} objects "
+          f"(chunk 2048, k={k}) on the card equals the CPU bit for bit; "
+          f"{ms:.3f} ms on the card")
+    return ms
+
+
 def oracle_check(pos_t, qrows, nn_idx, nn_dist, k, dev, batch=128):
     """Brute force on the card: full distance rows, lexicographic (d2, id)
     order, the query's own object excluded; ids and distances bitwise."""
@@ -407,10 +726,18 @@ def oracle_check(pos_t, qrows, nn_idx, nn_dist, k, dev, batch=128):
             raise AssertionError("session result != brute-force oracle")
 
 
+def _same_lists(res, ref) -> np.ndarray:
+    """Rows where two tick results differ in ids or distance bits."""
+    return (res.nn_idx != ref.nn_idx).any(1) | (
+        res.nn_dist.view(np.uint32) != ref.nn_dist.view(np.uint32)).any(1)
+
+
 def main_path(dev, n: int, seed: int = 0):
+    """The single path, with its ``precision="mixed"`` twin fed the same
+    data; returns the fp32 session's and the twin's B1 launches, and the
+    tick records."""
     from repro_torch.api import KnnSession, ServiceSpec
     from repro_torch.data.generators import make_workload
-    from repro_torch.kernels import fused_scan as fs
 
     spec = ServiceSpec(backend="fused_bucket")
     g = np.random.default_rng(seed + 1)
@@ -420,10 +747,13 @@ def main_path(dev, n: int, seed: int = 0):
                           hotspots=25).positions()
 
     session = KnnSession(spec)  # device=None: the card
-    session.ingest_objects(pos)
-    handle = session.register_queries(pos, np.arange(n, dtype=np.int32))
+    twin = KnnSession(ServiceSpec(backend="fused_bucket", precision="mixed"))
+    handles = []
+    for s in (session, twin):
+        s.ingest_objects(pos)
+        handles.append(s.register_queries(pos, np.arange(n, dtype=np.int32)))
 
-    _zero_counts()  # the single path's counts start here
+    total = {"fused_scan_merge": 0, "fused_scan_merge_mixed": 0}
     ticks = []
     plan = ["uniform", "move 1%", "move 1%", "gaussian", "gaussian"]
     for t, step in enumerate(plan):
@@ -433,24 +763,48 @@ def main_path(dev, n: int, seed: int = 0):
             r = g.uniform(0, 200.0, ids.size)
             new = pos[ids] + np.stack([np.cos(ang), np.sin(ang)], 1) * r[:, None]
             new = np.clip(new, 0, spec.side - 1e-3).astype(np.float32)
-            session.update_objects(ids, new)
             pos[ids] = new
-            session.update_queries(handle, pos)
+            for s, h in zip((session, twin), handles):
+                s.update_objects(ids, new)
+                s.update_queries(h, pos)
         elif step == "gaussian" and t == 3:
             pos = gauss.copy()
-            session.ingest_objects(pos)
-            session.update_queries(handle, pos)
-        before = fs.fused_scan_merge.launches
+            for s, h in zip((session, twin), handles):
+                s.ingest_objects(pos)
+                s.update_queries(h, pos)
+        _zero_counts()  # the fp32 session's counts of this tick
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         res = session.submit().result()
         wall_ms = (time.perf_counter() - t0) * 1e3
-        launches = fs.fused_scan_merge.launches - before
-        if launches < 1:
-            raise AssertionError(f"tick {t}: the kernel was not launched")
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        _zero_counts()  # the mixed twin's counts of this tick
+        t0 = time.perf_counter()
+        res_m = twin.submit().result()
+        wall_ms_m = (time.perf_counter() - t0) * 1e3
+        counts_m = _read_counts()
+        launches = counts["fused_scan_merge"]
+        launches_m = counts_m["fused_scan_merge_mixed"]
+        if launches < 1 or counts["fused_scan_merge_mixed"]:
+            raise AssertionError(f"tick {t}: the fp32 session launched "
+                                 f"{counts}")
+        if launches_m < 1 or counts_m["fused_scan_merge"]:
+            raise AssertionError(f"tick {t}: the mixed twin launched "
+                                 f"{counts_m}")
+        total["fused_scan_merge"] += launches
+        total["fused_scan_merge_mixed"] += launches_m
         if res.nn_idx.shape != (n, spec.k) or not np.isfinite(
                 res.nn_dist).all():
             raise AssertionError(f"tick {t}: malformed result")
+        bad = _same_lists(res_m, res)
+        if bad.any() or (res_m.iterations, res_m.candidates) != (
+                res.iterations, res.candidates):
+            raise AssertionError(
+                f"tick {t}: the mixed twin differs from fp32 on "
+                f"{int(bad.sum())} rows, iterations {res_m.iterations} / "
+                f"{res.iterations}, candidates {res_m.candidates} / "
+                f"{res.candidates}")
         sample = g.choice(n, 1024, replace=False)
         oracle_check(torch.tensor(pos, device=dev), sample, res.nn_idx,
                      res.nn_dist, spec.k, dev)
@@ -458,30 +812,42 @@ def main_path(dev, n: int, seed: int = 0):
                "iterations": res.iterations, "candidates": res.candidates,
                "launches": launches, "rebuilt": res.rebuilt,
                "maintenance": res.maintenance,
-               "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "oracle_rows": 1024, "oracle": "bitwise"}
+               "max_memory_allocated": peak,
+               "oracle_rows": 1024, "oracle": "bitwise",
+               "mixed_wall_ms": wall_ms_m, "mixed_launches": launches_m,
+               "mixed_twin": "bitwise, all rows"}
         print("tick " + json.dumps(rec))
         ticks.append(rec)
     session.finalize_pending()
-    return fs.fused_scan_merge.launches, ticks
+    twin.finalize_pending()
+    return total, ticks
 
 
-def _counted_kernels():
+def _counters():
+    """Each kernel's launch counter: (wrapper, attribute)."""
+    from repro_torch.kernels import bucket_kselect as bk
     from repro_torch.kernels import fused_scan as fs
     from repro_torch.kernels import merge_topk as mt
+    from repro_torch.kernels import pairwise_dist as pd
+    from repro_torch.kernels import topk_select as tk
 
-    return {"fused_scan_merge": fs.fused_scan_merge,
-            "merge_topk_multi": mt.merge_topk_multi,
-            "merge_topk_lists": mt.merge_topk_lists}
+    return {"fused_scan_merge": (fs.fused_scan_merge, "launches"),
+            "fused_scan_merge_mixed": (fs.fused_scan_merge, "mixed_launches"),
+            "merge_topk_multi": (mt.merge_topk_multi, "launches"),
+            "merge_topk_lists": (mt.merge_topk_lists, "launches"),
+            "topk_select": (tk.topk_select, "launches"),
+            "bucket_kselect": (bk.bucket_kselect, "launches"),
+            "pairwise_dist": (pd.pairwise_dist, "launches")}
 
 
 def _zero_counts():
-    for fn in _counted_kernels().values():
-        fn.launches = 0
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
 
 
 def _read_counts() -> dict:
-    return {name: fn.launches for name, fn in _counted_kernels().items()}
+    return {name: getattr(fn, attr)
+            for name, (fn, attr) in _counters().items()}
 
 
 def _fold_f32(values) -> np.float32:
@@ -515,7 +881,7 @@ def object_path(dev, n: int, label: str, first: str, seed: int, **plan_kw):
     od = plan.object_axis_size
     qd = getattr(plan, "query_devices", 1)
     print(f"path {label}: {plan.describe()}, N={n}")
-    totals = {name: 0 for name in _counted_kernels()}
+    totals = {name: 0 for name in _counters()}
     ticks = []
     for t, step in enumerate([first, "move 1%", "unchanged"]):
         if step == "move 1%":
@@ -540,11 +906,8 @@ def object_path(dev, n: int, label: str, first: str, seed: int, **plan_kw):
         ref = twin.submit().result()
         for name, c in launches.items():
             totals[name] += c
-        if not (np.array_equal(res.nn_idx, ref.nn_idx) and np.array_equal(
-                res.nn_dist.view(np.uint32), ref.nn_dist.view(np.uint32))):
-            bad = (res.nn_idx != ref.nn_idx).any(1) | (
-                res.nn_dist.view(np.uint32) != ref.nn_dist.view(np.uint32)
-            ).any(1)
+        bad = _same_lists(res, ref)
+        if bad.any():
             raise AssertionError(f"{label} tick {t}: {int(bad.sum())} rows "
                                  "differ from the single-plan twin")
         sc = res.shard_candidates
@@ -589,6 +952,9 @@ def main() -> int:
     ap.add_argument("--n-objects", type=int, default=1_000_000)
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc's register and spill report")
+    ap.add_argument("--short-api", action="store_true",
+                    help="run the kernel API path at 62,500 rows instead "
+                         "of 1,000,000 (a first check)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -597,18 +963,22 @@ def main() -> int:
     from repro_torch.kernels import build
 
     dev = torch.device("cuda")
-    print(card_line())  # as nvidia-smi gives it: name, power limit
+    card = card_line()
+    print(card)  # as nvidia-smi gives it: name, power limit
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     build.build_all(verbose=args.ptxas)
     print(f"build: {len(build.SOURCES)} source(s) in "
           f"{time.perf_counter() - t0:.1f} s")
     check_fma(dev)
-    rec = kernel_phase(dev)
+    rec, rec_mixed = kernel_phase(dev)
     rec_multi, rec_lists = merge_kernel_phase(dev)
-    total, _ = main_path(dev, args.n_objects)
-    rec["launches"] = total
+    api = kernel_api_path(dev, full=not args.short_api)
     n = args.n_objects
+    baseline_check(dev, n)
+    total, _ = main_path(dev, n)
+    rec["launches"] = total["fused_scan_merge"]
+    rec_mixed["launches"] = total["fused_scan_merge_mixed"]
     counts_a, _ = object_path(dev, n, "a", "uniform", seed=0,
                               plan="object_sharded", mesh_shape=4,
                               partitioner="equal", merge="fused_multi")
@@ -622,11 +992,16 @@ def main() -> int:
                 raise AssertionError(f"path {label}: {name} never launched")
     rec_multi["launches"] = counts_a["merge_topk_multi"]
     rec_lists["launches"] = counts_b["merge_topk_lists"]
-    print(json.dumps({"kernels": [rec, rec_multi, rec_lists]}))
-    # the run used one card, whatever else the machine holds
+    records = [rec, rec_mixed, rec_multi, rec_lists, api["topk_select"],
+               api["bucket_kselect"], api["pairwise_dist"]]
+    for r in records:
+        if not r["launches"] or r["launches"] < 1:
+            raise AssertionError(f"{r['name']}: no launch on its path")
+        r["card"] = card
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": 1}}))
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -5,8 +5,9 @@ same eager validation.  Every plan, partitioner and merge backend runs; the
 mesh plans lay ``mesh_shape`` logical shards onto the session's one device.
 Values the port does not run yet raise ``NotImplementedError`` at
 construction, naming the ROADMAP item that ports them:
-``maintenance="incremental"`` (A8), ``collect`` other than ``"full"`` and
-``precision="mixed"`` (A9).
+``maintenance="incremental"`` (A8) and ``collect`` other than ``"full"``
+(A9b).  Both precisions run: ``"mixed"`` adds the bf16 prefilter to every
+SCAN backend and gives fp32's lists bit for bit.
 """
 from __future__ import annotations
 
@@ -66,8 +67,7 @@ class ServiceSpec:
             raise ValueError(f"delta_pad must be >= 1, got {self.delta_pad}")
         unported = [
             ("maintenance", self.maintenance == "incremental", "A8"),
-            ("collect", self.collect != "full", "A9"),
-            ("precision", self.precision == "mixed", "A9"),
+            ("collect", self.collect != "full", "A9b"),
         ]
         for field, bad, item in unported:
             if bad:

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import dataclasses
 
+from ..kernels.fused_scan import PRECISIONS
 from ..kernels.ops import get_scan_backend, scan_backend_names
 
 __all__ = [
@@ -17,8 +18,6 @@ __all__ = [
     "available_backends",
     "available_precisions",
 ]
-
-PRECISIONS = ("fp32", "mixed")
 
 
 def available_backends() -> tuple[str, ...]:
@@ -42,10 +41,6 @@ class QueryExecutor:
             raise ValueError(
                 f"unknown precision {self.precision!r}; one of {PRECISIONS}"
             )
-        if self.precision != "fp32":
-            raise NotImplementedError(
-                f"precision={self.precision!r} is not ported yet "
-                "(ROADMAP item A9)")
 
     def scan_merge(self, qpos, cpos, cids, valid, best_d, best_i, *, k: int):
         """qpos (Q,2); cpos (Q,W,2); cids/valid (Q,W); best_d/best_i (Q,k)."""

@@ -8,6 +8,14 @@
 // 1e-30) (+inf when fewer than k entries are finite), and emits the k smallest
 // (d2, id) pairs ascending, lowest id on ties, (inf, -1) padded.
 //
+// Under precision="mixed" (the template flag MIXED; the reference's branch at
+// fused_scan.py:52) a valid window entry is first kept only if its bf16
+// distance, each operation rounded once (__hmul, __hadd on __nv_bfloat16
+// from the bf16-rounded f32 deltas), is <= best_d[k-1] * MIXED_WIDEN; a
+// dropped entry is +inf from then on, so it leaves the refinement population
+// and n_valid as well.  The prefilter is conservative, so the merged lists
+// equal fp32's bit for bit.
+//
 // Design: one warp per query row, 8 rows (one Q_TILE) per block of 256
 // threads.  Lane L holds elements L, L+32, L+64, ... of the (k + W) row in
 // registers (P of them, a template parameter).  n_valid is a ballot count;
@@ -33,6 +41,8 @@
 // contracts is an explicit __fmaf_rn; every other multiply, add and divide
 // is an explicit round-to-nearest intrinsic, and the build passes
 // --fmad=false.  jnp.maximum propagates NaN, so nan_max does too.
+#include <cuda_bf16.h>
+
 #include "warp_select.cuh"
 
 namespace {
@@ -43,7 +53,7 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? CUDART_NAN_F : fmaxf(a, b);
 }
 
-template <int P>
+template <int P, bool MIXED>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock)
 fused_scan_merge_kernel(const float* __restrict__ qx,
                         const float* __restrict__ qy,
@@ -55,7 +65,8 @@ fused_scan_merge_kernel(const float* __restrict__ qx,
                         const int* __restrict__ best_i,
                         float* __restrict__ out_d, int* __restrict__ out_i,
                         int q, int w, int k, int iters, float hi_mul,
-                        float hi_add, float slop_mul, float tiny) {
+                        float hi_add, float slop_mul, float tiny,
+                        float widen) {
   extern __shared__ int smem[];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
@@ -71,6 +82,8 @@ fused_scan_merge_kernel(const float* __restrict__ qx,
   const float fy = qy[row];
   const size_t brow = static_cast<size_t>(row) * k;
   const size_t wrow = static_cast<size_t>(row) * w;
+  // the mixed prefilter's widened k-th boundary (+inf keeps every entry)
+  const float kth_wide = MIXED ? __fmul_rn(best_d[brow + k - 1], widen) : inf;
 
   // ---- the (k + W) row: current list, then the window's distances.
   float d[P];
@@ -84,12 +97,19 @@ fused_scan_merge_kernel(const float* __restrict__ qx,
     } else if (j < n) {
       const size_t o = wrow + (j - k);
       id[p] = cids[o];
+      d[p] = inf;
       if (valid[o]) {
         const float dx = __fsub_rn(cx[o], fx);
         const float dy = __fsub_rn(cy[o], fy);
-        d[p] = __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
-      } else {
-        d[p] = inf;
+        bool keep = true;
+        if (MIXED) {
+          const __nv_bfloat16 xb = __float2bfloat16_rn(dx);
+          const __nv_bfloat16 yb = __float2bfloat16_rn(dy);
+          const float d2b =
+              __bfloat162float(__hadd(__hmul(xb, xb), __hmul(yb, yb)));
+          keep = d2b <= kth_wide;
+        }
+        if (keep) d[p] = __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
       }
     } else {
       d[p] = inf;  // past the row's end: never selected as a finite entry
@@ -178,14 +198,16 @@ template <int P>
 cudaError_t launch(const float* qx, const float* qy, const float* cx,
                    const float* cy, const int* cids, const bool* valid,
                    const float* best_d, const int* best_i, float* out_d,
-                   int* out_i, int q, int w, int k, int iters, float hi_mul,
-                   float hi_add, float slop_mul, float tiny,
-                   cudaStream_t stream) {
+                   int* out_i, int q, int w, int k, int iters, bool mixed,
+                   float hi_mul, float hi_add, float slop_mul, float tiny,
+                   float widen, cudaStream_t stream) {
   const int blocks = (q + kRowsPerBlock - 1) / kRowsPerBlock;
   const size_t smem = sizeof(int) * kRowsPerBlock * (kBins + 2 * k);
-  fused_scan_merge_kernel<P><<<blocks, kWarp * kRowsPerBlock, smem, stream>>>(
+  auto kernel = mixed ? fused_scan_merge_kernel<P, true>
+                      : fused_scan_merge_kernel<P, false>;
+  kernel<<<blocks, kWarp * kRowsPerBlock, smem, stream>>>(
       qx, qy, cx, cy, cids, valid, best_d, best_i, out_d, out_i, q, w, k,
-      iters, hi_mul, hi_add, slop_mul, tiny);
+      iters, hi_mul, hi_add, slop_mul, tiny, widen);
   return cudaGetLastError();
 }
 
@@ -197,13 +219,14 @@ extern "C" {
 int fused_scan_merge_max_row() { return kWarp * 16; }
 
 // Returns a cudaError_t (0 = launched).  All pointers are device pointers;
-// q, w, k, iters > 0; k + w <= fused_scan_merge_max_row().
+// q, w, k, iters > 0; k + w <= fused_scan_merge_max_row(); mixed != 0 runs
+// the bf16 prefilter with the widening factor `widen`.
 int fused_scan_merge_f32(const void* qx, const void* qy, const void* cx,
                          const void* cy, const void* cids, const void* valid,
                          const void* best_d, const void* best_i, void* out_d,
                          void* out_i, int q, int w, int k, int iters,
-                         float hi_mul, float hi_add, float slop_mul, float tiny,
-                         void* stream) {
+                         int mixed, float hi_mul, float hi_add, float slop_mul,
+                         float tiny, float widen, void* stream) {
   const int p = (k + w + kWarp - 1) / kWarp;
 #define FSM_CASE(PP)                                                         \
   case PP:                                                                   \
@@ -213,7 +236,7 @@ int fused_scan_merge_f32(const void* qx, const void* qy, const void* cx,
         static_cast<const int*>(cids), static_cast<const bool*>(valid),      \
         static_cast<const float*>(best_d), static_cast<const int*>(best_i),  \
         static_cast<float*>(out_d), static_cast<int*>(out_i), q, w, k,       \
-        iters, hi_mul, hi_add, slop_mul, tiny,                               \
+        iters, mixed != 0, hi_mul, hi_add, slop_mul, tiny, widen,            \
         static_cast<cudaStream_t>(stream)));
   switch (p) {
     FSM_CASE(1) FSM_CASE(2) FSM_CASE(3) FSM_CASE(4)

@@ -11,7 +11,12 @@ the window and the lists cross device memory.
 
 :func:`fused_scan_merge` launches the kernel for CUDA tensors (or raises) and
 runs :func:`fused_scan_merge_ref`, the plain PyTorch version, for CPU
-tensors.  ``fused_scan_merge.launches`` counts kernel launches.
+tensors.  ``precision="mixed"`` first narrows the window by the bf16
+widened-radius prefilter (:func:`~repro_torch.kernels.refine.mixed_prune_keep`,
+the reference's branch at ``fused_scan.py:52``); the pruned entries leave the
+refinement population too, and the merged lists equal fp32's bit for bit.
+``fused_scan_merge.launches`` counts fp32 kernel launches and
+``fused_scan_merge.mixed_launches`` the mixed ones.
 """
 from __future__ import annotations
 
@@ -21,9 +26,10 @@ import numpy as np
 import torch
 
 from ..runtime import fma
-from .refine import bucket_refine_step, masked_argmin_rounds
+from .refine import (MIXED_WIDEN, bucket_refine_step, masked_argmin_rounds,
+                     mixed_prune_keep)
 
-__all__ = ["fused_scan_merge", "fused_scan_merge_ref", "Q_TILE"]
+__all__ = ["fused_scan_merge", "fused_scan_merge_ref", "Q_TILE", "PRECISIONS"]
 
 Q_TILE = 8
 NUM_BINS = 32  # the kernel maps one bin to one lane
@@ -33,21 +39,27 @@ HI_MUL = float(np.float32(1 + 1e-6))
 HI_ADD = float(np.float32(1e-30))
 SLOP_MUL = float(np.float32(1e-6))
 TINY = float(np.float32(1e-30))
+PRECISIONS = ("fp32", "mixed")
 
 
 def fused_scan_merge_ref(qx, qy, cx, cy, cids, valid, best_d, best_i, *,
-                         k: int, num_bins: int = NUM_BINS, iters: int = 4):
+                         k: int, num_bins: int = NUM_BINS, iters: int = 4,
+                         precision: str = "fp32"):
     """Plain PyTorch version of the kernel, on any device.
 
     (Q,) queries x (Q, W) windows x (Q, k) ascending lists -> merged (Q, k)
     lists: the k smallest of the union, ascending ``(d2, id)``, ``(inf, -1)``
     padded.  The reference's compiled forms: ``d2 = fma(dx, dx, dy*dy)``,
     ``hi = fma(max(hi0, lo), 1+1e-6, 1e-30)``, ``fma(fhi, 1e-6, 1e-30)``.
+    Under ``precision="mixed"`` the prefilter first drops window entries
+    beyond the widened current k-th distance ``best_d[:, k-1]``.
     """
     q = qx.shape[0]
     inf = torch.full((), float("inf"), dtype=torch.float32, device=qx.device)
     dx = cx - qx[:, None]
     dy = cy - qy[:, None]
+    if precision == "mixed":
+        valid = valid & mixed_prune_keep(dx, dy, best_d[:, k - 1])
     d2 = torch.where(valid, fma(dx, dx, dy * dy), inf)
     all_d = torch.cat([best_d, d2], dim=1)
     all_i = torch.cat([best_i, cids], dim=1)
@@ -80,8 +92,8 @@ def _kernel():
         lib.fused_scan_merge_f32.restype = ctypes.c_int
         lib.fused_scan_merge_f32.argtypes = (
             [ctypes.c_void_p] * 10
-            + [ctypes.c_int] * 4
-            + [ctypes.c_float] * 4
+            + [ctypes.c_int] * 5
+            + [ctypes.c_float] * 5
             + [ctypes.c_void_p]
         )
         lib.fused_scan_merge_max_row.restype = ctypes.c_int
@@ -122,21 +134,21 @@ def fused_scan_merge(qx, qy, cx, cy, cids, valid, best_d, best_i, *, k: int,
     CUDA tensors launch the kernel on the current stream; CPU tensors run
     :func:`fused_scan_merge_ref`.  ``Q`` must be a multiple of ``Q_TILE``.
     """
-    if precision != "fp32":
-        raise NotImplementedError(
-            f"precision={precision!r}: the mixed-precision prefilter is not "
-            "ported yet (ROADMAP item A9)")
+    if precision not in PRECISIONS:
+        raise ValueError(f"fused_scan_merge: precision must be one of "
+                         f"{PRECISIONS}, got {precision!r}")
     _check(qx, qy, cx, cy, cids, valid, best_d, best_i, k)
     if qx.device.type == "cpu":
         return fused_scan_merge_ref(qx, qy, cx, cy, cids, valid, best_d,
                                     best_i, k=k, num_bins=num_bins,
-                                    iters=iters)
+                                    iters=iters, precision=precision)
     if qx.device.type != "cuda":
         raise ValueError(f"fused_scan_merge: unsupported device {qx.device}")
     if num_bins != NUM_BINS:
         raise ValueError(f"fused_scan_merge: the kernel has {NUM_BINS} bins, "
                          f"got num_bins={num_bins}")
     q, w = cx.shape
+    mixed = precision == "mixed"
     lib = _kernel()
     if k + w > lib.fused_scan_merge_max_row():
         raise ValueError(f"fused_scan_merge: k + W = {k + w} exceeds the "
@@ -151,12 +163,17 @@ def fused_scan_merge(qx, qy, cx, cy, cids, valid, best_d, best_i, *, k: int,
             qx.data_ptr(), qy.data_ptr(), cx.data_ptr(), cy.data_ptr(),
             cids.data_ptr(), valid.data_ptr(), best_d.data_ptr(),
             best_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-            q, w, k, iters, HI_MUL, HI_ADD, SLOP_MUL, TINY, stream)
+            q, w, k, iters, int(mixed), HI_MUL, HI_ADD, SLOP_MUL, TINY,
+            MIXED_WIDEN, stream)
     if err != 0:
         raise RuntimeError(f"fused_scan_merge: kernel launch failed with "
                            f"cudaError {err}")
-    fused_scan_merge.launches += 1
+    if mixed:
+        fused_scan_merge.mixed_launches += 1
+    else:
+        fused_scan_merge.launches += 1
     return out_d, out_i
 
 
 fused_scan_merge.launches = 0
+fused_scan_merge.mixed_launches = 0

@@ -1,10 +1,17 @@
 """Padding wrappers around the kernels + the SCAN and MERGE registries.
 
-Counterpart of ``repro/kernels/ops.py``.  Every SCAN backend implements
+Counterpart of ``repro/kernels/ops.py``.  The kernel API's wrappers pad like
+the reference's: :func:`pairwise_dist_op` (Q to 8, C to 128),
+:func:`bucket_kselect_op` and :func:`topk_select_op` (Q to 8).
+
+Every SCAN backend implements
 ``merge(qpos, cpos, cids, valid, best_d, best_i, k, precision="fp32")``: the
 k smallest of the union of the current list and the window, ascending
 ``(d2, id)``, lowest id on ties, ``(inf, -1)`` padded, so the backends are
-interchangeable bit for bit.
+interchangeable bit for bit.  Under ``precision="mixed"`` each first narrows
+``valid`` by the bf16 prefilter
+(:func:`~repro_torch.kernels.refine.mixed_prune_keep`), which never drops an
+entry that can reach the merged list, so the lists are fp32's.
 
 - ``dense_topk`` / ``brute``: plain PyTorch, a two-key lexicographic sort
   (stable sort by id, then stable sort by d2) of the concatenated row;
@@ -30,10 +37,17 @@ from typing import Callable
 import torch
 
 from ..runtime import fma
+from . import bucket_kselect as _bk
 from . import fused_scan as _fs
 from . import merge_topk as _mt
+from . import pairwise_dist as _pd
+from . import topk_select as _tk
+from .refine import mixed_prune_keep
 
 __all__ = [
+    "pairwise_dist_op",
+    "bucket_kselect_op",
+    "topk_select_op",
     "fused_scan_merge_op",
     "merge_topk_lists_op",
     "multi_merge_lists_op",
@@ -56,11 +70,47 @@ def _pad_to(x, n, fill):
     return torch.cat([x, pad])
 
 
-def _check_precision(precision: str):
-    if precision != "fp32":
-        raise NotImplementedError(
-            f"precision={precision!r}: the mixed-precision prefilter is not "
-            "ported yet (ROADMAP item A9)")
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def pairwise_dist_op(qpos, ppos, valid=None):
+    """(Q,2) x (C,2) [+ (C,) mask] -> (Q, C) masked squared distances."""
+    q, c = qpos.shape[0], ppos.shape[0]
+    qp, cp = _round_up(q, _pd.Q_TILE), _round_up(c, _pd.C_TILE)
+    if valid is None:
+        valid = torch.ones((c,), dtype=torch.bool, device=ppos.device)
+    qx = _pad_to(qpos[:, 0].to(torch.float32), qp, 0)
+    qy = _pad_to(qpos[:, 1].to(torch.float32), qp, 0)
+    px = _pad_to(ppos[:, 0].to(torch.float32), cp, 0)
+    py = _pad_to(ppos[:, 1].to(torch.float32), cp, 0)
+    v = _pad_to(valid, cp, False)
+    return _pd.pairwise_dist(qx, qy, px, py, v)[:q, :c]
+
+
+def bucket_kselect_op(qpos, ppos, valid=None, *, k: int, num_bins: int = 32,
+                      iters: int = 4):
+    """(Q,2) queries x (C,2) shared candidates -> (Q,) k-selection radius."""
+    q, c = qpos.shape[0], ppos.shape[0]
+    qp = _round_up(q, _bk.Q_TILE)
+    if valid is None:
+        valid = torch.ones((c,), dtype=torch.bool, device=ppos.device)
+    qx = _pad_to(qpos[:, 0].to(torch.float32), qp, 0)
+    qy = _pad_to(qpos[:, 1].to(torch.float32), qp, 0)
+    out = _bk.bucket_kselect(
+        qx, qy, ppos[:, 0].to(torch.float32).contiguous(),
+        ppos[:, 1].to(torch.float32).contiguous(), valid.contiguous(), k=k,
+        num_bins=num_bins, iters=iters)
+    return out[:q]
+
+
+def topk_select_op(d2, ids, *, k: int):
+    """(Q, C) distances + ids -> ((Q, k), (Q, k)) ascending top-k smallest."""
+    qp = _round_up(d2.shape[0], _tk.Q_TILE)
+    d2p = _pad_to(d2.to(torch.float32), qp, float("inf"))
+    idsp = _pad_to(ids.to(torch.int32), qp, -1)
+    out_d, out_i = _tk.topk_select(d2p, idsp, k=k)
+    return out_d[:d2.shape[0]], out_i[:d2.shape[0]]
 
 
 def fused_scan_merge_op(qpos, cpos, cids, valid, best_d, best_i, *, k: int,
@@ -70,9 +120,8 @@ def fused_scan_merge_op(qpos, cpos, cids, valid, best_d, best_i, *, k: int,
     qpos (Q,2) x per-query windows cpos (Q,W,2) / cids / valid (Q,W) x
     current lists best_d/best_i (Q,k) -> merged (Q,k) lists.
     """
-    _check_precision(precision)
     q = qpos.shape[0]
-    qp = -(-q // _fs.Q_TILE) * _fs.Q_TILE
+    qp = _round_up(q, _fs.Q_TILE)
     qx = _pad_to(qpos[:, 0].to(torch.float32), qp, 0)
     qy = _pad_to(qpos[:, 1].to(torch.float32), qp, 0)
     cx = _pad_to(cpos[:, :, 0].to(torch.float32), qp, 0)
@@ -81,7 +130,8 @@ def fused_scan_merge_op(qpos, cpos, cids, valid, best_d, best_i, *, k: int,
     v = _pad_to(valid, qp, False)
     bd = _pad_to(best_d.to(torch.float32), qp, float("inf"))
     bi = _pad_to(best_i.to(torch.int32), qp, -1)
-    out_d, out_i = _fs.fused_scan_merge(qx, qy, cx, cy, ci, v, bd, bi, k=k)
+    out_d, out_i = _fs.fused_scan_merge(qx, qy, cx, cy, ci, v, bd, bi, k=k,
+                                        precision=precision)
     return out_d[:q], out_i[:q]
 
 
@@ -92,7 +142,7 @@ def merge_topk_lists_op(d_a, i_a, d_b, i_b, *, k: int):
     each input is sliced to k columns before dispatch; Q pads to ``Q_TILE``.
     """
     q = d_a.shape[0]
-    qp = -(-max(q, 1) // _mt.Q_TILE) * _mt.Q_TILE
+    qp = _round_up(max(q, 1), _mt.Q_TILE)
     da = _pad_to(d_a[:, :k].to(torch.float32), qp, float("inf"))
     ia = _pad_to(i_a[:, :k].to(torch.int32), qp, -1)
     db = _pad_to(d_b[:, :k].to(torch.float32), qp, float("inf"))
@@ -109,7 +159,7 @@ def multi_merge_lists_op(d_all, i_all, *, k: int):
     r, q = d_all.shape[0], d_all.shape[1]
     d_cat = d_all[:, :, :k].transpose(0, 1).reshape(q, r * k)
     i_cat = i_all[:, :, :k].transpose(0, 1).reshape(q, r * k)
-    qp = -(-max(q, 1) // _mt.Q_TILE) * _mt.Q_TILE
+    qp = _round_up(max(q, 1), _mt.Q_TILE)
     d_cat = _pad_to(d_cat.to(torch.float32), qp, float("inf"))
     i_cat = _pad_to(i_cat.to(torch.int32), qp, -1)
     out_d, out_i = _mt.merge_topk_multi(d_cat, i_cat, k=k)
@@ -165,9 +215,10 @@ def _lex_sort_merge(qpos, cpos, cids, valid, best_d, best_i, k: int,
 
     The reference's compiled distance is ``fma(dx, dx, dy * dy)``.
     """
-    _check_precision(precision)
     dx = cpos[:, :, 0] - qpos[:, None, 0]
     dy = cpos[:, :, 1] - qpos[:, None, 1]
+    if precision == "mixed":
+        valid = valid & mixed_prune_keep(dx, dy, best_d[:, k - 1])
     inf = torch.full((), float("inf"), dtype=torch.float32, device=qpos.device)
     d2 = torch.where(valid, fma(dx, dx, dy * dy), inf)
     all_d = torch.cat([best_d, d2], dim=1)

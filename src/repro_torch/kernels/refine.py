@@ -2,8 +2,9 @@
 
 ``bucket_refine_step`` is one round of the Alabi bucket refinement with its
 float-edge guard; ``masked_argmin_rounds`` materializes ascending ``(d2, id)``
-lists, lowest id on distance ties, ``(inf, -1)`` padded.  Both are the plain
-versions the fused kernel's CUDA code is held against, bit for bit.
+lists, lowest id on distance ties, ``(inf, -1)`` padded; ``mixed_prune_keep``
+is the bf16 widened-radius prefilter of ``precision="mixed"``.  They are the
+plain versions the kernels' CUDA code is held against, bit for bit.
 """
 from __future__ import annotations
 
@@ -11,9 +12,37 @@ import torch
 
 from ..runtime import fma
 
-__all__ = ["bucket_refine_step", "masked_argmin_rounds"]
+__all__ = ["MIXED_WIDEN", "bucket_refine_step", "masked_argmin_rounds",
+           "mixed_prune_keep"]
 
 _ID_BIG = torch.iinfo(torch.int32).max
+
+# Widening of the mixed-precision prefilter's k-th boundary, the reference's
+# value: d2 in bf16 takes at most five roundings at 2^-8 (two casts, two
+# squares, one add), so d2_bf16 < d2_f32 * (1 + 6 * 2^-8) < d2_f32 * 1.0625.
+MIXED_WIDEN = 1.0 + 2.0 ** -4
+
+
+def mixed_prune_keep(dx, dy, kth):
+    """bf16 widened-radius prefilter: (T, W) keep-mask over a window.
+
+    ``dx``/``dy`` are the f32 coordinate deltas (cast to bf16 after the
+    subtraction, so the error stays relative to the distance), ``kth`` the
+    (T,) current k-th distance (``best_d[:, k-1]``; +inf keeps the whole
+    window).  Each bf16 operation is rounded once, to nearest even, as the
+    kernel's ``__hmul`` / ``__hadd`` do (a bf16 product is exact in f32, and
+    a bf16 sum rounded through f32 is correctly rounded).  The comparison is
+    inclusive, so an entry at exactly the k-th distance always survives;
+    ``kth`` is widened by a multiply with an f32 tensor.  The reference's
+    CPU program may keep excess precision in the bf16 arithmetic, so this
+    mask need not equal its mask bit for bit: both are conservative, and the
+    merged lists do not depend on which conservative mask is used.
+    """
+    dxb = dx.to(torch.bfloat16)
+    dyb = dy.to(torch.bfloat16)
+    d2b = (dxb * dxb + dyb * dyb).to(torch.float32)
+    widen = torch.full((), MIXED_WIDEN, dtype=torch.float32, device=kth.device)
+    return d2b <= (kth * widen)[:, None]
 
 
 def masked_argmin_rounds(d: torch.Tensor, ids: torch.Tensor, k: int):

@@ -1,0 +1,106 @@
+"""Per-row top-k smallest of a (Q, C) distance tile: the result lists.
+
+Replaces the Pallas TPU kernel ``repro/kernels/topk_select.py::topk_select``
+(``pl.pallas_call`` at ``topk_select.py:49``) with the hand-written Hopper
+kernel ``csrc/topk_select.cu`` (one warp per row, the lexicographic warp
+argmin of ``csrc/warp_select.cuh``; see the source's header).  Its output is
+the k smallest ``(d2, id)`` pairs of each row, ascending, lowest id on
+distance ties, ``(inf, -1)`` padded; the plain version is
+:func:`~repro_torch.kernels.refine.masked_argmin_rounds`.  The kernel takes
+rows up to ``MAX_WIDTH`` = 2048 columns (S3's window is 2048, the kernel
+micro-benchmark's 1024) and raises beyond it.
+
+:func:`topk_select` launches the kernel for CUDA tensors (or raises) and runs
+the plain version for CPU tensors.  ``topk_select.launches`` counts kernel
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .refine import masked_argmin_rounds
+
+__all__ = ["topk_select", "Q_TILE", "MAX_WIDTH"]
+
+Q_TILE = 8
+MAX_WIDTH = 2048  # csrc/topk_select.cu: 64 columns per lane
+
+_lib = None
+
+
+def _kernel():
+    global _lib
+    if _lib is None:
+        from .build import load
+
+        lib = load("topk_select.cu")
+        lib.topk_select_f32.restype = ctypes.c_int
+        lib.topk_select_f32.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.topk_select_max_width.restype = ctypes.c_int
+        lib.topk_select_max_width.argtypes = []
+        if lib.topk_select_max_width() != MAX_WIDTH:
+            raise RuntimeError("topk_select: the kernel's width limit "
+                               f"{lib.topk_select_max_width()} != {MAX_WIDTH}")
+        _lib = lib
+    return _lib
+
+
+def _check(d2, ids, k):
+    dev = d2.device
+    for name, t, dtype in (("d2", d2, torch.float32),
+                           ("ids", ids, torch.int32)):
+        if t.device != dev:
+            raise ValueError(f"topk_select: {name} is on {t.device}, d2 on "
+                             f"{dev}")
+        if t.dtype != dtype or t.dim() != 2 or t.shape != d2.shape:
+            raise ValueError(f"topk_select: {name} must be {dtype} "
+                             f"{tuple(d2.shape)}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"topk_select: {name} must be contiguous")
+    q, c = d2.shape
+    if q % Q_TILE:
+        raise ValueError(f"topk_select: Q={q} is not a multiple of "
+                         f"Q_TILE={Q_TILE} (topk_select_op pads)")
+    if k < 1 or c < 1:
+        raise ValueError(f"topk_select: k and C must be >= 1, got k={k}, "
+                         f"C={c}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"topk_select: unsupported device {dev}")
+    return q, c, dev
+
+
+def topk_select(d2, ids, *, k: int):
+    """(Q, C) f32 distances + (Q, C) i32 ids -> ((Q, k) f32, (Q, k) i32).
+
+    Ascending ``(d2, id)``, lowest id on ties, ``(inf, -1)`` padded; +inf
+    marks an empty entry.  ``Q`` must be a multiple of ``Q_TILE``; on the
+    card ``C`` must be at most ``MAX_WIDTH``.
+    """
+    q, c, dev = _check(d2, ids, k)
+    if dev.type == "cpu":
+        return masked_argmin_rounds(d2, ids, k)
+    if c > MAX_WIDTH:
+        raise ValueError(f"topk_select: C={c} exceeds the kernel's width "
+                         f"limit MAX_WIDTH={MAX_WIDTH}")
+    out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
+    if q == 0:
+        return out_d, out_i
+    lib = _kernel()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.topk_select_f32(d2.data_ptr(), ids.data_ptr(),
+                                  out_d.data_ptr(), out_i.data_ptr(), q, c, k,
+                                  stream)
+    if err != 0:
+        raise RuntimeError(f"topk_select: kernel launch failed with "
+                           f"cudaError {err}")
+    topk_select.launches += 1
+    return out_d, out_i
+
+
+topk_select.launches = 0

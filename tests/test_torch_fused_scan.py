@@ -175,8 +175,6 @@ def test_wrapper_rejects_bad_inputs():
     k = 8
     args = [_t(a) for a in _window(k)]
     before = tfs.fused_scan_merge.launches
-    with pytest.raises(NotImplementedError, match="A9"):
-        tfs.fused_scan_merge(*args, k=k, precision="mixed")
     bad = list(args)
     bad[4] = bad[4].to(torch.int64)
     with pytest.raises(ValueError, match="cids"):

@@ -11,12 +11,18 @@ from pathlib import Path
 import pytest
 import torch
 
+from repro_torch.kernels import bucket_kselect as tbk
 from repro_torch.kernels import fused_scan as tfs
 from repro_torch.kernels import merge_topk as tmt
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import pairwise_dist as tpd
+from repro_torch.kernels import topk_select as ttk
 from repro_torch.kernels.ops import _lex_sort_merge, topk_select_ref
+from repro_torch.kernels.refine import masked_argmin_rounds
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import kernel_inputs, merge_inputs  # noqa: E402
+from chip_smoke import (edge_window, kernel_inputs, merge_inputs,  # noqa: E402
+                        topk_inputs, window_inputs)
 
 
 @pytest.fixture
@@ -80,3 +86,114 @@ def test_merge_topk_lists_kernel_matches_plain_and_two_sort(cuda, ka, kb, k):
                           torch.cat([args[1], args[3]], 1), k)
     # the two-sort merge is as wide as the row when k exceeds it
     assert _same(tuple(o[:, :two[0].shape[1]] for o in out), two)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 8, 32])
+def test_fused_scan_mixed_kernel_matches_plain_and_fp32(cuda, k):
+    """B1's mixed branch, bitwise equal to its plain mixed version and to
+    the fp32 kernel on the same inputs, counted as a mixed launch."""
+    args = kernel_inputs(256, 64, k, cuda, seed=k)
+    before = (tfs.fused_scan_merge.launches,
+              tfs.fused_scan_merge.mixed_launches)
+    out = tfs.fused_scan_merge(*args, k=k, precision="mixed")
+    ref = tfs.fused_scan_merge_ref(*args, k=k, precision="mixed")
+    torch.cuda.synchronize()
+    assert (tfs.fused_scan_merge.launches,
+            tfs.fused_scan_merge.mixed_launches) == (before[0],
+                                                      before[1] + 1)
+    assert _same(out, ref)
+    assert _same(out, tfs.fused_scan_merge(*args, k=k))
+
+
+def _xy(pos):
+    return pos[:, 0].contiguous(), pos[:, 1].contiguous()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,c", [(8, 128), (7, 130), (64, 1024),
+                                 (2048, 100_000)])
+def test_pairwise_dist_kernel_matches_plain(cuda, q, c):
+    """B6 through its op (Q padded to 8, C to 128), bitwise."""
+    qpos, ppos, valid = window_inputs(q, c, cuda, seed=q + c)
+    before = tpd.pairwise_dist.launches
+    out = tops.pairwise_dist_op(qpos, ppos, valid)
+    ref = tpd.pairwise_dist_ref(*_xy(qpos), *_xy(ppos), valid)
+    torch.cuda.synchronize()
+    assert tpd.pairwise_dist.launches == before + 1
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.gpu
+def test_pairwise_dist_kernel_takes_unaligned_inputs(cuda):
+    """Candidate planes that start off a 16-byte boundary are copied to an
+    aligned buffer before the float4 loads."""
+    qpos, ppos, valid = window_inputs(16, 257, cuda, seed=3)
+    qx, qy = _xy(qpos)
+    px, py = _xy(ppos)
+    px, py, v = px[1:129], py[1:129], valid[1:129]
+    out = tpd.pairwise_dist(qx, qy, px, py, v)
+    assert torch.equal(out, tpd.pairwise_dist_ref(qx, qy, px, py, v))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,c,k", [(1024, 288, 32), (256, 2048, 32),
+                                   (64, 40, 1), (64, 100, 64), (61, 33, 8)])
+def test_topk_select_kernel_matches_plain_and_two_sort(cuda, q, c, k):
+    """B4 through its op, ids too, on ``chip_smoke.topk_inputs``' edge rows."""
+    d, i = topk_inputs(q, c, k, cuda, seed=c + k)
+    before = ttk.topk_select.launches
+    out = tops.topk_select_op(d, i, k=k)
+    torch.cuda.synchronize()
+    assert ttk.topk_select.launches == before + 1
+    assert _same(out, masked_argmin_rounds(d, i, k))
+    two = topk_select_ref(d, i, k)
+    assert _same(tuple(o[:, :two[0].shape[1]] for o in out), two)
+
+
+@pytest.mark.gpu
+def test_topk_select_kernel_states_its_width_limit(cuda):
+    d, i = topk_inputs(8, ttk.MAX_WIDTH + 1, 4, cuda)
+    with pytest.raises(ValueError, match="MAX_WIDTH"):
+        ttk.topk_select(d, i, k=4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 32, 256, 3000])
+def test_bucket_kselect_kernel_matches_plain(cuda, k):
+    """B5 through its op (10% invalid, 40 coincident points), bitwise, and
+    the guarantee on every row; k = 3000 is more than the window holds."""
+    qpos, ppos, valid = window_inputs(4099, 2048, cuda, seed=k)
+    before = tbk.bucket_kselect.launches
+    out = tops.bucket_kselect_op(qpos, ppos, valid, k=k)
+    torch.cuda.synchronize()
+    assert tbk.bucket_kselect.launches == before + 1
+    qx, qy = _xy(qpos)
+    px, py = _xy(ppos)
+    assert torch.equal(out, tbk.bucket_kselect_ref(qx, qy, px, py, valid,
+                                                   k=k))
+    d2 = tpd.pairwise_dist_ref(qx, qy, px, py, valid)
+    n_valid = int(valid.sum())
+    assert ((d2 < out[:, None]).sum(1) >= min(k, n_valid)).all()
+    if n_valid < k:
+        assert torch.isinf(out).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8, 32])
+def test_bucket_kselect_kernel_on_a_bucket_edge_window(cuda, k):
+    """The constructed edge window on which the reference loses the k-th
+    distance: the kernel equals the plain version and encloses all k."""
+    qpos, ppos = (torch.tensor(a, device=cuda) for a in edge_window(k, k))
+    valid = torch.ones(k, dtype=torch.bool, device=cuda)
+    out = tops.bucket_kselect_op(qpos, ppos, valid, k=k)
+    ref = tbk.bucket_kselect_ref(*_xy(qpos), *_xy(ppos), valid, k=k)
+    d2 = tpd.pairwise_dist_ref(*_xy(qpos), *_xy(ppos), valid)
+    assert torch.equal(out, ref) and int((d2 < out[:, None]).sum()) == k
+
+
+@pytest.mark.gpu
+def test_bucket_kselect_kernel_states_its_window_limit(cuda):
+    qpos, ppos, valid = window_inputs(8, tbk.MAX_WINDOW + 1, cuda)
+    with pytest.raises(ValueError, match="MAX_WINDOW"):
+        tbk.bucket_kselect(*_xy(qpos), *_xy(ppos), valid, k=4)

@@ -129,7 +129,6 @@ def test_session_matches_jax_fused_bucket():
     ("collect", "none", "A9"),
     ("maintenance", "incremental", "A8"),
     ("collect", "stats", "A9"),
-    ("precision", "mixed", "A9"),
 ])
 def test_spec_rejects_unported_values(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
