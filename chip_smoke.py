@@ -19,17 +19,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    plain mixed version and to the fp32 kernel, timed beside it;
 5. merge kernels: ``merge_topk_multi`` at Q = 1,007,616, R = 4, k = 32 and
    ``merge_topk_lists`` at Q = 503,808 (ka = kb = 32, and ka = 20, kb = 32),
-   with edge rows (ties across lists, empty and partly filled lists), each
-   bitwise against its plain version and the two-sort merge of
-   ``dense_merge`` on the card, and timed beside its memory bound and that
-   two-sort merge;
+   with edge rows (ties across lists, pairs equal across lists, empty,
+   partly filled and (inf, id)-padded lists), each bitwise against its
+   plain version and the two-sort merge of ``dense_merge`` on the card, and
+   timed beside its memory bound and that two-sort merge;
 6. kernel API path (:func:`kernel_api_path`): ``pairwise_dist_op``,
    ``topk_select_op`` and ``bucket_kselect_op`` at the S2 / S3 studies'
    sizes, each bitwise against its kernel's plain version on the card
-   (``topk_select`` also against the two-sort merge, ``bucket_kselect``
-   also against its guarantee on every row) and timed; then the brute-force
-   baseline ``knn_bruteforce_chunked`` over 128 queries of the 1M uniform
-   set, on the card bitwise equal to the same call on the CPU;
+   (``topk_select`` also against the two-sort merge, and again on its worst
+   rows, descending and one-distance, which are timed too;
+   ``bucket_kselect`` also against its guarantee on every row) and timed;
+   then the brute-force baseline ``knn_bruteforce_chunked`` over 128
+   queries of the 1M uniform set, on the card bitwise equal to the same
+   call on the CPU;
 7. single path: a ``KnnSession`` with ``backend="fused_bucket"`` and the
    spec defaults over 1,000,000 uniform objects, one query per object: tick
    0, two ticks where 1% of the objects move up to 200 u, then a snapshot of
@@ -196,12 +198,16 @@ def kernel_inputs(q: int, w: int, k: int, dev, seed: int = 0):
     return (t(qx), t(qy), t(cx), t(cy), t(cids), t(valid), bd, bi)
 
 
-def merge_inputs(r: int, q: int, k: int, dev, seed: int = 0):
+def merge_inputs(r: int, q: int, k: int, dev, seed: int = 0,
+                 inf_ids: bool = False):
     """(R, Q, k) per-shard lists as the object-axis plans give them, each
     ascending by (d2, id) and (inf, -1) padded, with edge bands of rows:
-    equal distances across lists with distinct ids; one list empty;
-    partly filled lists; every list of the row empty; runs of equal
-    distances inside a list."""
+    equal distances across lists with distinct ids; one list empty; partly
+    filled lists; every list of the row empty; runs of equal distances
+    inside a list; exact (d2, id) duplicates across lists (the column
+    decides their order); partly filled lists, padded with (inf, id) for
+    ids other than -1 where ``inf_ids`` (a list that is still ascending for
+    the merge kernels, though no plan pads so)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     d = torch.rand((r, q, k), generator=g, device=dev) * 4.0e6
     ids = torch.randint(0, 1 << 30, (r, q, k), generator=g, device=dev,
@@ -209,6 +215,8 @@ def merge_inputs(r: int, q: int, k: int, dev, seed: int = 0):
     e = max(1, q // 16)  # edge-band height
     d[:, :e] = d[:1, :e]  # ties across lists
     d[:, 4 * e:5 * e] = torch.floor(d[:, 4 * e:5 * e] / 5.0e5) * 5.0e5
+    d[:, 5 * e:6 * e] = d[:1, 5 * e:6 * e]  # the same pairs in every list
+    ids[:, 5 * e:6 * e] = ids[:1, 5 * e:6 * e]
     by_id = torch.sort(ids, dim=2, stable=True).indices
     d, ids = torch.gather(d, 2, by_id), torch.gather(ids, 2, by_id)
     d, by_d = torch.sort(d, dim=2, stable=True)
@@ -219,8 +227,11 @@ def merge_inputs(r: int, q: int, k: int, dev, seed: int = 0):
     empty[0, e:2 * e] = True  # one list empty
     empty[:, 2 * e:3 * e] = (col >= fill[:, 2 * e:3 * e, None])
     empty[:, 3 * e:4 * e] = True  # every list empty
+    empty[:, 6 * e:7 * e] = (col >= fill[:, 6 * e:7 * e, None])
+    keep_id = torch.zeros_like(empty)
+    keep_id[:, 6 * e:7 * e] = inf_ids  # (inf, id) padding
     d = torch.where(empty, float("inf"), d)
-    ids = torch.where(empty, -1, ids).to(torch.int32)
+    ids = torch.where(empty & ~keep_id, -1, ids).to(torch.int32)
     return d.contiguous(), ids.contiguous()
 
 
@@ -228,7 +239,10 @@ def topk_inputs(q: int, c: int, k: int, dev, seed: int = 0):
     """(Q, C) distances and i32 ids for ``topk_select``, with edge bands of
     rows: distances on a coarse grid (ties across distinct ids), bf16-rounded
     distances, +inf entries, fewer than k finite entries, every entry +inf,
-    and exact (d2, id) duplicates."""
+    exact (d2, id) duplicates, rows in descending order (every entry enters
+    a warp-queue select), one d2 for the whole row with descending ids, each
+    32-column slab a copy of the first (duplicates in other slabs), and
+    zeros of both signs (equal distances: the lower id goes first)."""
     g = torch.Generator(device=dev).manual_seed(seed)
     d = torch.rand((q, c), generator=g, device=dev) * 4.0e6
     ids = torch.randint(0, 1 << 30, (q, c), generator=g, device=dev,
@@ -242,6 +256,33 @@ def topk_inputs(q: int, c: int, k: int, dev, seed: int = 0):
     d[4 * e:5 * e] = inf  # nothing finite
     d[5 * e:6 * e] = torch.floor(d[5 * e:6 * e] / 1.0e6) * 1.0e6
     ids[5 * e:6 * e] = ids[5 * e:6 * e] % 4  # exact (d2, id) duplicates
+    d[6 * e:7 * e] = torch.sort(d[6 * e:7 * e], dim=1, descending=True).values
+    d[7 * e:8 * e] = d[7 * e:8 * e, :1]  # one d2, ids descending
+    ids[7 * e:8 * e] = torch.arange(c, 0, -1, device=dev, dtype=torch.int32)
+    slab = torch.arange(c, device=dev) % 32  # every slab repeats the first
+    d[8 * e:9 * e] = d[8 * e:9 * e, slab]
+    ids[8 * e:9 * e] = ids[8 * e:9 * e, slab]
+    d[9 * e:10 * e, ::2] = -0.0  # signed zeros, random ids
+    d[9 * e:10 * e, 1::4] = 0.0
+    return d.contiguous(), ids.contiguous()
+
+
+def worst_rows(q: int, c: int, kind: str, dev, seed: int = 0):
+    """(Q, C) rows on which every entry enters a warp-queue select:
+    ``descending`` (random distances sorted descending, random ids) or
+    ``equal`` (one distance for the whole row, ids descending)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if kind == "descending":
+        d = torch.rand((q, c), generator=g, device=dev) * 4.0e6
+        d = torch.sort(d, dim=1, descending=True).values
+        ids = torch.randint(0, 1 << 30, (q, c), generator=g, device=dev,
+                            dtype=torch.int32)
+    elif kind == "equal":
+        d = (torch.rand((q, 1), generator=g, device=dev) * 4.0e6).expand(q, c)
+        ids = torch.arange(c, 0, -1, device=dev,
+                           dtype=torch.int32).expand(q, c)
+    else:
+        raise ValueError(f"unknown kind {kind!r}")
     return d.contiguous(), ids.contiguous()
 
 
@@ -466,7 +507,7 @@ def merge_kernel_phase(dev, q_multi=1_007_616, q_lists=503_808, k=32):
     from repro_torch.kernels.ops import topk_select_ref
 
     r = 4
-    d, i = merge_inputs(r, q_multi, k, dev, seed=5)
+    d, i = merge_inputs(r, q_multi, k, dev, seed=5, inf_ids=True)
     d_cat = d.transpose(0, 1).reshape(q_multi, r * k).contiguous()
     i_cat = i.transpose(0, 1).reshape(q_multi, r * k).contiguous()
     del d, i
@@ -484,7 +525,7 @@ def merge_kernel_phase(dev, q_multi=1_007_616, q_lists=503_808, k=32):
         lambda: topk_select_ref(d_cat, i_cat, k), reps=20)
     del d_cat, i_cat, out
 
-    d, i = merge_inputs(2, q_lists, k, dev, seed=6)
+    d, i = merge_inputs(2, q_lists, k, dev, seed=6, inf_ids=True)
     rec_lists = None
     for ka in (20, k):  # a narrower list, then the path's shape (timed)
         args = (d[0, :, :ka].contiguous(), i[0, :, :ka].contiguous(),
@@ -519,7 +560,8 @@ def _add_shape(recs: dict, name: str, rec: dict):
         return
     recs[name]["other_shapes"].append(
         {key: rec[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms")})
+                                   "bound_by", "library_ms", "worst_rows")
+         if key in rec})
 
 
 def _timed_once(fn) -> float:
@@ -629,6 +671,21 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
               f"plain version and the two-sort merge; {ms:.4f} ms (plain "
               f"{plain_ms:.3f} ms, torch.topk {lib_ms:.3f} ms, bound "
               f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})")
+        # the worst rows for the warp queue: every entry enters it
+        worst = []
+        for kind in ("descending", "equal"):
+            wd, wi = worst_rows(q, c, kind, dev, seed=c)
+            _check_merge(f"topk_select C={c} {kind} rows",
+                         ops.topk_select_op(wd, wi, k=k),
+                         masked_argmin_rounds(wd, wi, k),
+                         ops.topk_select_ref(wd, wi, k))
+            worst.append({"rows": kind, "ms": time_ms(
+                lambda: ops.topk_select_op(wd, wi, k=k), reps=20)})
+            del wd, wi
+        rec["worst_rows"] = worst
+        print(f"kernel: topk_select Q={q} C={c} k={k} on its worst rows "
+              f"bitwise equal to its plain version and the two-sort merge; "
+              + ", ".join(f"{w['rows']} {w['ms']:.4f} ms" for w in worst))
         _add_shape(recs, "topk_select", rec)
     del tk_in, out4
 

@@ -1,23 +1,35 @@
 """Merge of ascending (d2, id) result lists: the object-axis plans' reduce.
 
-Replaces two Pallas TPU kernels of ``repro/kernels/merge_topk.py`` with one
-hand-written Hopper kernel, ``csrc/merge_topk.cu`` (one warp per row; see the
-source's header for the design):
+Replaces two Pallas TPU kernels of ``repro/kernels/merge_topk.py`` with the
+hand-written Hopper kernels of ``csrc/merge_topk.cu`` (see the source's
+header for the design):
 
 - :func:`merge_topk_multi` (``merge_topk_multi``, ``pl.pallas_call`` at
-  ``merge_topk.py:75``): R per-shard lists of each query laid side by side in
-  one (Q, R*k) row, reduced to (Q, k) in one launch (``merge="fused_multi"``);
+  ``merge_topk.py:75``): R per-shard lists of k for each query laid side by
+  side in one (Q, R*k) row, reduced to (Q, k) in one launch
+  (``merge="fused_multi"``);
 - :func:`merge_topk_lists` (``merge_topk_lists``, ``pl.pallas_call`` at
   ``merge_topk.py:119``): the binary merge of a (Q, ka) and a (Q, kb) list,
   the step of the pairwise tree (``merge="fused_merge"``).
 
 Both give the k smallest pairs of the row, ascending ``(d2, id)``, lowest id
 on distance ties, ``(inf, -1)`` padded: the plain versions ``*_ref`` are
-:func:`~repro_torch.kernels.refine.masked_argmin_rounds` over the row.  Bound
-on an H100: memory, ``(row width + k) * 8`` bytes per row (about 0.385 ms for
-B2 at Q = 1,007,616, R = 4, k = 32 at 3.35 TB/s).
+:func:`~repro_torch.kernels.refine.masked_argmin_rounds` over the row.
 
-CUDA tensors launch the kernel (or raise); CPU tensors run the plain
+The kernels merge, they do not search: they rest on the reference's
+precondition (``merge_topk.py:4``, ``:60``, ``:108``) that every input list
+is ascending under ``(d2, id)`` with its +inf entries at the tail (any ids
+on those), as every caller's lists are.  ``-0`` and ``+0`` count as equal,
+as the plain version compares them, and a zero distance leaves as ``+0``.
+A warp stages its row in shared memory; each output is found by a
+merge-path co-rank binary search, and ``merge_topk_multi`` merges its R
+lists pairwise in ceil(log2 R) levels.  So on the card ``merge_topk_multi``
+needs the row to be R whole lists of k (C % k == 0) and raises otherwise;
+the plain version on the CPU takes any row.  Bound on an H100: memory,
+``(row width + k) * 8`` bytes per row (about 0.385 ms for B2 at
+Q = 1,007,616, R = 4, k = 32 at 3.35 TB/s).
+
+CUDA tensors launch a kernel (or raise); CPU tensors run the plain
 version.  Each wrapper counts its kernel launches in ``.launches``.
 """
 from __future__ import annotations
@@ -59,10 +71,15 @@ def _kernel():
         from .build import load
 
         lib = load("merge_topk.cu")
-        lib.merge_topk_f32.restype = ctypes.c_int
-        lib.merge_topk_f32.argtypes = (
+        lib.merge_topk_lists_f32.restype = ctypes.c_int
+        lib.merge_topk_lists_f32.argtypes = (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] * 2
             + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        )
+        lib.merge_topk_multi_f32.restype = ctypes.c_int
+        lib.merge_topk_multi_f32.argtypes = (
+            [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         )
         lib.merge_topk_max_row.restype = ctypes.c_int
         lib.merge_topk_max_row.argtypes = []
@@ -97,8 +114,8 @@ def _check(fn: str, pairs, k: int):
 
 
 def _launch(wrapper, q: int, dev, k: int, a, b):
-    """One kernel launch over rows ``a ++ b`` (``b`` may be None); counts it
-    on ``wrapper.launches``."""
+    """One kernel launch over the lists ``a`` and ``b`` (``b`` None: the R
+    lists of k side by side in ``a``); counts it on ``wrapper.launches``."""
     fn = wrapper.__name__
     lib = _kernel()
     ca = a[0].shape[1]
@@ -107,17 +124,24 @@ def _launch(wrapper, q: int, dev, k: int, a, b):
     if ca + cb > limit or k > limit:
         raise ValueError(f"{fn}: row width {ca + cb} and k={k} must be <= "
                          f"the kernel's row limit {limit}")
+    if b is None and ca % k:
+        raise ValueError(f"{fn}: the row's {ca} columns are not whole lists "
+                         f"of k={k}; the kernel merges R = C / k ascending "
+                         "lists")
     out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
         return out_d, out_i
-    b = a if b is None else b
+    outs = (out_d.data_ptr(), out_i.data_ptr())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.merge_topk_f32(
-            a[0].data_ptr(), a[1].data_ptr(), ca,
-            b[0].data_ptr(), b[1].data_ptr(), cb,
-            out_d.data_ptr(), out_i.data_ptr(), q, k, stream)
+        if b is None:
+            err = lib.merge_topk_multi_f32(a[0].data_ptr(), a[1].data_ptr(),
+                                           ca // k, *outs, q, k, stream)
+        else:
+            err = lib.merge_topk_lists_f32(
+                a[0].data_ptr(), a[1].data_ptr(), ca,
+                b[0].data_ptr(), b[1].data_ptr(), cb, *outs, q, k, stream)
     if err != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with cudaError {err}")
     wrapper.launches += 1
@@ -128,7 +152,10 @@ def merge_topk_multi(d_cat, i_cat, *, k: int):
     """(Q, R*k) concatenated ascending lists -> (Q, k) merged, one launch.
 
     ``Q`` must be a multiple of ``Q_TILE`` (``ops.multi_merge_lists_op``
-    pads and lays the per-shard lists out).
+    pads and lays the per-shard lists out).  On the card each row must be
+    R whole lists of k, each ascending under ``(d2, id)`` (the reference's
+    precondition, ``repro/kernels/merge_topk.py:60``): ``C % k != 0``
+    raises ``ValueError``.  On the CPU any row is taken.
     """
     q, dev = _check("merge_topk_multi", [(d_cat, i_cat)], k)
     if dev.type == "cpu":
@@ -140,7 +167,9 @@ def merge_topk_lists(d_a, i_a, d_b, i_b, *, k: int):
     """(Q, ka) + (Q, kb) ascending lists -> (Q, k) merged ascending list.
 
     ``Q`` must be a multiple of ``Q_TILE`` (``ops.merge_topk_lists_op``
-    pads and slices each input to k columns).
+    pads and slices each input to k columns).  On the card each list must
+    be ascending under ``(d2, id)``, +inf entries at its tail (the
+    reference's precondition, ``repro/kernels/merge_topk.py:108``).
     """
     q, dev = _check("merge_topk_lists", [(d_a, i_a), (d_b, i_b)], k)
     if dev.type == "cpu":

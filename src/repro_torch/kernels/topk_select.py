@@ -2,12 +2,20 @@
 
 Replaces the Pallas TPU kernel ``repro/kernels/topk_select.py::topk_select``
 (``pl.pallas_call`` at ``topk_select.py:49``) with the hand-written Hopper
-kernel ``csrc/topk_select.cu`` (one warp per row, the lexicographic warp
-argmin of ``csrc/warp_select.cuh``; see the source's header).  Its output is
-the k smallest ``(d2, id)`` pairs of each row, ascending, lowest id on
-distance ties, ``(inf, -1)`` padded; the plain version is
-:func:`~repro_torch.kernels.refine.masked_argmin_rounds`.  The kernel takes
-rows up to ``MAX_WIDTH`` = 2048 columns (S3's window is 2048, the kernel
+kernel ``csrc/topk_select.cu``.  Its output is the k smallest ``(d2, id)``
+pairs of each row, ascending, lowest id on distance ties, ``(inf, -1)``
+padded; the plain version is
+:func:`~repro_torch.kernels.refine.masked_argmin_rounds`.
+
+The kernel is a warp-queue select (WarpSelect): one warp streams a row in
+32-wide slabs and keeps the best ``W`` keys so far in a sorted warp queue
+(``W`` = 32, 64, 128 or 256, the first at or above ``min(k, C)``); entries
+below the queue's k-th key wait in a shared ring and are merged in by a
+warp bitonic merge 32 at a time.  Its key is ``(d2, id)`` with ``-0`` and
+``+0`` equal, as the rounds compare them; a zero distance leaves as
+``+0``.  Where ``min(k, C)`` exceeds 256 it runs k rounds of a
+lexicographic warp argmin instead.  Either way it takes rows up to
+``MAX_WIDTH`` = 2048 columns (S3's window is 2048, the kernel
 micro-benchmark's 1024) and raises beyond it.
 
 :func:`topk_select` launches the kernel for CUDA tensors (or raises) and runs
@@ -25,7 +33,7 @@ from .refine import masked_argmin_rounds
 __all__ = ["topk_select", "Q_TILE", "MAX_WIDTH"]
 
 Q_TILE = 8
-MAX_WIDTH = 2048  # csrc/topk_select.cu: 64 columns per lane
+MAX_WIDTH = 2048  # csrc/topk_select.cu: the rounds template's 64 a lane
 
 _lib = None
 

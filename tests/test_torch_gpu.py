@@ -22,7 +22,7 @@ from repro_torch.kernels.refine import masked_argmin_rounds
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (edge_window, kernel_inputs, merge_inputs,  # noqa: E402
-                        topk_inputs, window_inputs)
+                        topk_inputs, window_inputs, worst_rows)
 
 
 @pytest.fixture
@@ -56,10 +56,13 @@ def _same(a, b):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("r,k", [(1, 8), (3, 20), (4, 32), (8, 32)])
+@pytest.mark.parametrize("r,k", [(1, 8), (2, 20), (3, 20), (4, 32), (5, 12),
+                                 (8, 32), (3, 33), (5, 100), (1, 512)])
 def test_merge_topk_multi_kernel_matches_plain_and_two_sort(cuda, r, k):
-    """B2, bitwise, on ``chip_smoke.merge_inputs``'s edge rows."""
-    d, i = merge_inputs(r, 1024, k, cuda, seed=r)
+    """B2, bitwise, on ``chip_smoke.merge_inputs``'s edge rows (pairs equal
+    across lists, lists of unequal fill, (inf, id) padding); R odd and even,
+    k not a power of two, and a row whose shared memory passes 48 KB."""
+    d, i = merge_inputs(r, 1024, k, cuda, seed=r, inf_ids=True)
     d_cat = d.transpose(0, 1).reshape(1024, r * k).contiguous()
     i_cat = i.transpose(0, 1).reshape(1024, r * k).contiguous()
     before = tmt.merge_topk_multi.launches
@@ -71,10 +74,41 @@ def test_merge_topk_multi_kernel_matches_plain_and_two_sort(cuda, r, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("ka,kb,k", [(32, 32, 32), (20, 32, 32), (8, 8, 12)])
+def test_merge_kernels_take_zeros_of_both_signs(cuda):
+    """B2 and B3 find -0 and +0 equal, as the plain version does: the lower
+    id goes first whatever the signs."""
+    d_a = torch.tensor([[-0.0, -0.0, 1.0, 2.0]] * 8, device=cuda)
+    i_a = torch.tensor([[6, 9, 5, 1]] * 8, device=cuda, dtype=torch.int32)
+    d_b = torch.tensor([[0.0, 0.0, -0.0, 3.0]] * 8, device=cuda)
+    i_b = torch.tensor([[3, 7, 8, 2]] * 8, device=cuda, dtype=torch.int32)
+    d_cat, i_cat = torch.cat([d_a, d_b], 1), torch.cat([i_a, i_b], 1)
+    want = masked_argmin_rounds(d_cat, i_cat, 6)
+    assert want[1][0].tolist() == [3, 6, 7, 8, 9, 5]
+    assert _same(tmt.merge_topk_lists(d_a, i_a, d_b, i_b, k=6), want)
+    assert _same(tmt.merge_topk_multi(d_cat, i_cat, k=4),
+                 masked_argmin_rounds(d_cat, i_cat, 4))
+
+
+@pytest.mark.gpu
+def test_merge_topk_multi_kernel_needs_whole_lists(cuda):
+    """On the card the row must be R whole lists of k."""
+    d, i = merge_inputs(3, 64, 8, cuda)
+    d_cat = d.transpose(0, 1).reshape(64, 24).contiguous()
+    i_cat = i.transpose(0, 1).reshape(64, 24).contiguous()
+    with pytest.raises(ValueError, match="whole lists"):
+        tmt.merge_topk_multi(d_cat, i_cat, k=7)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ka,kb,k", [(32, 32, 32), (20, 32, 32), (8, 8, 12),
+                                     (40, 12, 32), (12, 40, 32), (7, 50, 33),
+                                     (0, 9, 8), (256, 256, 512)])
 def test_merge_topk_lists_kernel_matches_plain_and_two_sort(cuda, ka, kb, k):
-    """B3, bitwise, lists narrower than k and k wider than the row too."""
-    d, i = merge_inputs(2, 1024, max(ka, kb), cuda, seed=ka + kb)
+    """B3, bitwise, lists narrower and wider than k, k wider than the row,
+    an empty list, k = 512 (over 48 KB of shared memory), on
+    ``chip_smoke.merge_inputs``' edge rows."""
+    d, i = merge_inputs(2, 1024, max(ka, kb), cuda, seed=ka + kb,
+                        inf_ids=True)
     args = (d[0, :, :ka].contiguous(), i[0, :, :ka].contiguous(),
             d[1, :, :kb].contiguous(), i[1, :, :kb].contiguous())
     before = tmt.merge_topk_lists.launches
@@ -137,10 +171,17 @@ def test_pairwise_dist_kernel_takes_unaligned_inputs(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("q,c,k", [(1024, 288, 32), (256, 2048, 32),
-                                   (64, 40, 1), (64, 100, 64), (61, 33, 8)])
+@pytest.mark.parametrize("q,c,k", [
+    (1024, 288, 32), (256, 2048, 32), (64, 40, 1), (64, 100, 64), (61, 33, 8),
+    (64, 1, 1), (64, 1, 32), (128, 300, 31), (128, 300, 33),
+    (128, 1000, 64), (64, 2048, 1), (64, 70, 128), (64, 2048, 256),
+    (64, 200, 300), (64, 2000, 300)])
 def test_topk_select_kernel_matches_plain_and_two_sort(cuda, q, c, k):
-    """B4 through its op, ids too, on ``chip_smoke.topk_inputs``' edge rows."""
+    """B4 through its op, ids too, on ``chip_smoke.topk_inputs``' edge rows
+    (descending rows, one d2 with descending ids, duplicates in other
+    slabs, zeros of both signs): every rung of the warp-queue ladder,
+    k > C, C = 1, C not a multiple of 32, and min(k, C) beyond the ladder
+    (the rounds template)."""
     d, i = topk_inputs(q, c, k, cuda, seed=c + k)
     before = ttk.topk_select.launches
     out = tops.topk_select_op(d, i, k=k)
@@ -149,6 +190,19 @@ def test_topk_select_kernel_matches_plain_and_two_sort(cuda, q, c, k):
     assert _same(out, masked_argmin_rounds(d, i, k))
     two = topk_select_ref(d, i, k)
     assert _same(tuple(o[:, :two[0].shape[1]] for o in out), two)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["descending", "equal"])
+@pytest.mark.parametrize("c,k", [(288, 32), (2048, 32), (300, 100)])
+def test_topk_select_kernel_on_worst_rows(cuda, kind, c, k):
+    """B4, bitwise, on rows where every entry enters the warp queue."""
+    d, i = worst_rows(64, c, kind, cuda, seed=c)
+    before = ttk.topk_select.launches
+    out = ttk.topk_select(d, i, k=k)
+    torch.cuda.synchronize()
+    assert ttk.topk_select.launches == before + 1
+    assert _same(out, masked_argmin_rounds(d, i, k))
 
 
 @pytest.mark.gpu

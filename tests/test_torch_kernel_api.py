@@ -33,7 +33,7 @@ from repro_torch.kernels import topk_select as ttk
 from repro_torch.kernels.refine import masked_argmin_rounds
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import edge_window, topk_inputs  # noqa: E402
+from chip_smoke import edge_window, topk_inputs, worst_rows  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -92,7 +92,8 @@ def test_pairwise_dist_matches_jax(q, c):
 def test_topk_select_matches_jax(q, c, k):
     """Ids too, bit for bit: ties across ids, bf16-rounded distances, +inf
     entries, rows with fewer than k finite entries, no finite entry, exact
-    (d2, id) duplicates (the edge bands of ``chip_smoke.topk_inputs``)."""
+    (d2, id) duplicates, zeros of both signs (the edge bands of
+    ``chip_smoke.topk_inputs``)."""
     d, i = topk_inputs(q, c, k, "cpu", seed=q + c + k)
     want = jk.topk_select_op(d.numpy(), i.numpy(), k=k, interpret=True)
     before = ttk.topk_select.launches
@@ -107,6 +108,20 @@ def test_topk_select_matches_jax(q, c, k):
     _bits_equal(ref[0], two[0].numpy())
     _bits_equal(ref[1], two[1].numpy())
     _bits_equal(want[1], two[1].numpy())
+
+
+@pytest.mark.parametrize("k", [1, 32])
+@pytest.mark.parametrize("kind", ["descending", "equal"])
+def test_topk_select_worst_rows_match_jax(kind, k):
+    """``chip_smoke.worst_rows``, on which every entry enters a warp-queue
+    select (each key below all before it), bit for bit against JAX."""
+    d, i = worst_rows(16, 100, kind, "cpu", seed=k)
+    assert ((d[:, 1:] < d[:, :-1])
+            | ((d[:, 1:] == d[:, :-1]) & (i[:, 1:] < i[:, :-1]))).all()
+    want = jk.topk_select_op(d.numpy(), i.numpy(), k=k, interpret=True)
+    got = tk.topk_select_op(d, i, k=k)
+    _bits_equal(want[0], got[0].numpy(), "distances")
+    _bits_equal(want[1], got[1].numpy(), "ids")
 
 
 @pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])

@@ -57,6 +57,37 @@ def test_merge_topk_multi_plain_matches_pallas(r):
     _pair_equal(want, tops.topk_select_ref(d_cat, i_cat, K), "two-sort")
 
 
+@pytest.mark.parametrize("r,k", [(1, 6), (3, 6), (5, 12), (8, 33)])
+def test_merge_inputs_meet_the_kernels_precondition(r, k):
+    """Every list of ``chip_smoke.merge_inputs`` (all its edge bands) is
+    ascending under (d2, id) with its +inf entries, of any id, at the tail:
+    what the card's merge kernels rest on."""
+    d, i = merge_inputs(r, Q, k, "cpu", seed=r + k, inf_ids=True)
+    fin = torch.isfinite(d)
+    assert not (~fin[..., :-1] & fin[..., 1:]).any(), "+inf before a finite"
+    a = (d[..., :-1], i[..., :-1])
+    b = (d[..., 1:], i[..., 1:])
+    ascending = (a[0] < b[0]) | ((a[0] == b[0]) & (a[1] <= b[1]))
+    assert (ascending | ~fin[..., 1:]).all()
+    # the bands the kernels' edge cases need are there
+    e = Q // 16
+    assert (~fin[:, 6 * e:7 * e] & (i[:, 6 * e:7 * e] != -1)).any()
+    if r > 1:
+        assert torch.equal(i[0, 5 * e:6 * e], i[1, 5 * e:6 * e])
+
+
+@pytest.mark.parametrize("c,k", [(10, 4), (13, 6)])
+def test_merge_topk_multi_plain_takes_any_row_on_the_cpu(c, k):
+    """The card's kernel needs R whole lists of k; the plain version on the
+    CPU keeps the reference's general semantics (the k smallest of any
+    row), bit for bit against the Pallas kernel."""
+    d, i = merge_inputs(1, Q, c, "cpu", seed=c, inf_ids=True)
+    d, i = d[0], i[0]
+    want = jmt.merge_topk_multi(jnp.asarray(d.numpy()), jnp.asarray(i.numpy()),
+                                k=k, interpret=True)
+    _pair_equal(want, tmt.merge_topk_multi(d, i, k=k), "wrapper")
+
+
 @pytest.mark.parametrize("ka,kb,k", [(6, 6, 6), (4, 6, 6), (6, 6, 9)])
 def test_merge_topk_lists_plain_matches_pallas(ka, kb, k):
     d, i = merge_inputs(2, Q, 6, "cpu", seed=ka + kb + k)
