@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Times of one source tree's B1, B4 and B5 kernels on this checkout's inputs.
+
+Run from the repository root on a machine with a CUDA card:
+
+    python3 benchmarks_torch/kernel_ab.py [--tree DIR] [--ptxas]
+
+``repro_torch`` is imported from ``DIR/src`` (default: this checkout) and its
+kernels are built into ``DIR/build/torch_kernels``; ``--ptxas`` prints nvcc's
+register and spill report of that build.  The inputs are this checkout's
+``chip_smoke.py`` inputs without the NaN and negative bands (``odd=False``),
+made by the plain versions of the tree under test, so two trees whose plain
+versions agree time the same work:
+
+- B1 ``fused_scan_merge``, fp32 and mixed, W = 256, k = 32, at Q = 8192 and
+  Q = 1,007,616 (the 1M path's first trip);
+- B5 ``bucket_kselect``, Q = 1,000,000 against one window of C = 2048, at
+  k = 32 and 256;
+- B4 ``topk_select``, k = 32, at Q = 1,000,000, C = 288 and Q = 8192,
+  C = 2048.
+
+Each kernel's output is first held bit for bit against its plain version
+(in row blocks), then timed with CUDA events (B1 at Q = 8192 in CUDA
+graphs: its kernel is shorter than the wrapper's Python).  To compare two trees, run
+them in turns in one call on one card (parent, change, change, parent).
+The last line is one JSON object: the tree, the card and the times in ms.
+Imports nothing of JAX.  Exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tree", default=str(ROOT),
+                    help="the source tree whose kernels are timed")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print nvcc's register and spill report")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device is available", file=sys.stderr)
+        return 1
+    tree = Path(args.tree).resolve()
+    sys.path[:0] = [str(tree / "src"), str(ROOT)]
+    import chip_smoke as cs
+    from repro_torch.kernels import build
+    from repro_torch.kernels import bucket_kselect as bk
+    from repro_torch.kernels import fused_scan as fs
+    from repro_torch.kernels import topk_select as tk
+    from repro_torch.kernels.refine import masked_argmin_rounds
+
+    if not fs.__file__.startswith(str(tree)):
+        raise RuntimeError(f"repro_torch came from {fs.__file__}, not {tree}")
+    dev = torch.device("cuda")
+    card = cs.card_line()
+    print(f"tree {tree}\n{card}")
+    build.build_all(verbose=args.ptxas)
+    times = {}
+
+    k, w = 32, 256
+    for q in (8192, 1_007_616):
+        base = cs.kernel_inputs(q, w, k, dev, odd=False)
+        for label, kw in (("fp32", dict(k=k)),
+                          ("mixed", dict(k=k, precision="mixed"))):
+            cs._check_lists(
+                f"B1 {label} Q={q} != plain version",
+                fs.fused_scan_merge(*base, **kw),
+                cs._in_blocks(lambda *b: fs.fused_scan_merge_ref(*b, **kw),
+                              base))
+            run = lambda: fs.fused_scan_merge(*base, **kw)
+            times[f"B1 {label} Q={q}"] = (cs.time_graph_ms(run) if q <= 8192
+                                          else cs.time_ms(run, reps=10))
+        del base
+
+    qpos, ppos, valid = cs.window_inputs(1_000_000, 2048, dev, seed=5,
+                                         odd=False)
+    xy = (qpos[:, 0].contiguous(), qpos[:, 1].contiguous(),
+          ppos[:, 0].contiguous(), ppos[:, 1].contiguous(), valid)
+    for kk in (32, 256):
+        out = bk.bucket_kselect(*xy, k=kk)
+        ref = cs._in_blocks(
+            lambda qx, qy: (bk.bucket_kselect_ref(qx, qy, *xy[2:], k=kk),),
+            xy[:2])[0]
+        if not cs.same_values(out, ref):
+            raise AssertionError(f"B5 k={kk} != plain version")
+        times[f"B5 k={kk}"] = cs.time_ms(lambda: bk.bucket_kselect(*xy, k=kk),
+                                         reps=5)
+    del qpos, ppos, valid, xy
+
+    for i, (q, c) in enumerate(((1_000_000, 288), (8192, 2048))):
+        d, ids = cs.topk_inputs(q, c, k, dev, seed=4 + i)
+        cs._check_lists(f"B4 C={c} != plain version",
+                        tk.topk_select(d, ids, k=k),
+                        cs._in_blocks(lambda a, b: masked_argmin_rounds(a, b,
+                                                                        k),
+                                      (d, ids)))
+        times[f"B4 C={c}"] = cs.time_ms(lambda: tk.topk_select(d, ids, k=k),
+                                        reps=20)
+        del d, ids
+    for name, ms in times.items():
+        print(f"{name}: {ms} ms")
+    print(json.dumps({"tree": str(tree), "card": card, "ms": times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,11 +12,13 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build: every CUDA source of the port, ``nvcc`` runs in parallel;
 3. fma: ``torch.addcmul`` (the port's spelling of a fused multiply-add) held
    against an exact round-to-odd emulation on the card;
-4. kernel: ``fused_scan_merge`` on the card against its plain PyTorch version
-   on the same inputs (Q=8192, W=256, k=32 with edge rows), bitwise, and
-   timed beside its memory bound and the ``dense_topk`` merge; then its
-   ``precision="mixed"`` branch on the same inputs, bitwise equal to its
-   plain mixed version and to the fp32 kernel, timed beside it;
+4. kernel: ``fused_scan_merge``, fp32 and ``precision="mixed"``, on the card
+   against its plain PyTorch version on the same inputs (W=256, k=32 with
+   edge rows, NaN and negative rows, lists in any order; Q = 8192 and
+   Q = 1,007,616, the 1M path's first trip, in row blocks), bitwise; equal
+   to the exact ``dense_topk`` merge, and mixed to fp32, on the rows inside
+   their premise; timed beside its memory bound, that merge and the plain
+   version;
 5. merge kernels: ``merge_topk_multi`` at Q = 1,007,616, R = 4, k = 32 and
    ``merge_topk_lists`` at Q = 503,808 (ka = kb = 32, and ka = 20, kb = 32),
    with edge rows (ties across lists, pairs equal across lists, empty,
@@ -28,7 +30,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    sizes, each bitwise against its kernel's plain version on the card
    (``topk_select`` also against the two-sort merge, and again on its worst
    rows, descending and one-distance, which are timed too;
-   ``bucket_kselect`` also against its guarantee on every row) and timed;
+   ``bucket_kselect`` also against its guarantee on every row without a NaN
+   distance, and NaN where the plain version is) and timed;
    then the brute-force baseline ``knn_bruteforce_chunked`` over 128
    queries of the 1M uniform set, on the card bitwise equal to the same
    call on the CPU;
@@ -122,6 +125,24 @@ def time_ms(fn, reps: int, warmup: int = 3) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def time_graph_ms(fn, reps: int = 20, inner: int = 10) -> float:
+    """Device milliseconds of one call of ``fn``: ``inner`` calls captured
+    in a CUDA graph, the graph replayed ``reps`` times, so that a kernel
+    shorter than its wrapper's Python is not timed at the host's launch
+    rate."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(inner):
+            fn()
+    return time_ms(graph.replay, reps=reps) / inner
+
+
 def edge_lists(n_rows: int, k: int, seed: int = 0) -> np.ndarray:
     """(n_rows, k) ascending full lists whose last bucket edge of the first
     refinement round, ``fma(31, width, lo)``, is itself a list entry that the
@@ -150,52 +171,104 @@ def edge_lists(n_rows: int, k: int, seed: int = 0) -> np.ndarray:
     return np.stack(rows)
 
 
-def kernel_inputs(q: int, w: int, k: int, dev, seed: int = 0):
-    """Main-path shapes with edge rows: coincident points, distance ties,
-    all-invalid rows, rows with fewer than k valid entries, full lists
-    merged with an empty window whose k-th entry sits in the bucket of an
-    edge entry (:func:`edge_lists`), partly filled and full current lists."""
+def kernel_inputs(q: int, w: int, k: int, dev, seed: int = 0,
+                  odd: bool = True):
+    """Main-path shapes with edge rows, in bands of q // 16 rows: coincident
+    points, distance ties, all-invalid rows, rows with fewer than k valid
+    entries, full lists merged with an empty window whose k-th entry sits in
+    the bucket of an edge entry (:func:`edge_lists`); then partly filled and
+    full current lists.  With ``odd`` (see :func:`odd_rows`) also: lists out
+    of order with their largest entry last, lists in any order, a NaN
+    window distance with n_valid >= k and with n_valid < k, a NaN list
+    entry, and lists with negative entries, -inf and -0.  Made on ``dev``
+    from ``seed`` (a generator of that device)."""
     from repro_torch.kernels.fused_scan import fused_scan_merge_ref
 
-    g = np.random.default_rng(seed)
-    qx = g.uniform(0, 22_500, q).astype(np.float32)
-    qy = g.uniform(0, 22_500, q).astype(np.float32)
-    cx = (qx[:, None] + g.normal(0, 300, (q, w))).astype(np.float32)
-    cy = (qy[:, None] + g.normal(0, 300, (q, w))).astype(np.float32)
-    cids = g.integers(0, 1 << 30, (q, w)).astype(np.int32)
-    valid = g.random((q, w)) < 0.9
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rand = lambda *shape: torch.rand(shape, generator=g, device=dev)
+    normal = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    ids = lambda *shape: torch.randint(0, 1 << 30, shape, generator=g,
+                                       device=dev, dtype=torch.int32)
+    qx, qy = rand(q) * 22_500, rand(q) * 22_500
+    cx = qx[:, None] + normal(q, w) * 300
+    cy = qy[:, None] + normal(q, w) * 300
+    cids = ids(q, w)
+    valid = rand(q, w) < 0.9
     e = q // 16  # edge-row band height
     # coincident points: d2 == 0
     cx[:e, ::7] = qx[:e, None]
     cy[:e, ::7] = qy[:e, None]
     # equal distances, distinct ids: mirrored integer offsets
-    off = g.integers(1, 4, (e, w)).astype(np.float32)
-    sign = np.where(g.random((e, w)) < 0.5, -1, 1).astype(np.float32)
+    off = torch.randint(1, 4, (e, w), generator=g, device=dev).float()
+    sign = torch.where(rand(e, w) < 0.5, -1.0, 1.0)
     cx[e:2 * e] = qx[e:2 * e, None] + sign * off
     cy[e:2 * e] = qy[e:2 * e, None]
     valid[2 * e:3 * e] = False  # all invalid
     valid[3 * e:4 * e] = False
     valid[3 * e:4 * e, :5] = True  # n_valid < k
-    t = lambda a: torch.tensor(a, device=dev)
     inf_d = torch.full((q, k), float("inf"), device=dev)
     neg_i = torch.full((q, k), -1, dtype=torch.int32, device=dev)
     # current lists: a first merge of another window, then cut some short
-    px = (qx[:, None] + g.normal(0, 300, (q, w))).astype(np.float32)
-    py = (qy[:, None] + g.normal(0, 300, (q, w))).astype(np.float32)
-    pid = g.integers(0, 1 << 30, (q, w)).astype(np.int32)
-    bd, bi = fused_scan_merge_ref(t(qx), t(qy), t(px), t(py), t(pid),
-                                  t(g.random((q, w)) < 0.9), inf_d, neg_i, k=k)
-    keep = torch.tensor(g.integers(0, k + 1, q), device=dev)
+    px = qx[:, None] + normal(q, w) * 300
+    py = qy[:, None] + normal(q, w) * 300
+    full_d, full_i = fused_scan_merge_ref(qx, qy, px, py, ids(q, w),
+                                          rand(q, w) < 0.9, inf_d, neg_i, k=k)
+    del px, py
+    keep = torch.randint(0, k + 1, (q,), generator=g, device=dev)
     cut = torch.arange(k, device=dev)[None, :] >= keep[:, None]
     cut[:4 * e] = True  # the edge bands start from empty lists
-    bd = torch.where(cut, float("inf"), bd).contiguous()
-    bi = torch.where(cut, -1, bi).to(torch.int32).contiguous()
+    bd = torch.where(cut, float("inf"), full_d).contiguous()
+    bi = torch.where(cut, -1, full_i).to(torch.int32).contiguous()
     if k >= 5:  # full lists on a bucket edge, merged with an empty window
         valid[4 * e:5 * e] = False
-        bd[4 * e:5 * e] = t(edge_lists(e, k, seed))
+        bd[4 * e:5 * e] = torch.tensor(edge_lists(e, k, seed), device=dev)
         bi[4 * e:5 * e] = torch.arange(e * k, device=dev,
                                        dtype=torch.int32).view(e, k)
-    return (t(qx), t(qy), t(cx), t(cy), t(cids), t(valid), bd, bi)
+    if odd:
+        # lists out of order: the largest entry stays last, then any order
+        for band, cols in ((5, k - 1), (6, k)):
+            rows = slice(band * e, (band + 1) * e)
+            perm = torch.argsort(rand(e, k)[:, :cols], dim=1)
+            bd[rows] = full_d[rows]
+            bi[rows] = full_i[rows]
+            bd[rows, :cols] = torch.gather(full_d[rows, :cols], 1, perm)
+            bi[rows, :cols] = torch.gather(full_i[rows, :cols], 1, perm)
+        nan = float("nan")
+        rows = slice(7 * e, 8 * e)  # a NaN distance, n_valid >= k
+        bd[rows], bi[rows] = full_d[rows], full_i[rows]
+        valid[rows, 3] = True
+        cx[rows, 3] = nan
+        rows = slice(8 * e, 9 * e)  # a NaN distance, n_valid < k
+        bd[rows], bi[rows] = inf_d[rows], neg_i[rows]
+        valid[rows] = False
+        valid[rows, :5] = True
+        cy[rows, 2] = nan
+        rows = slice(9 * e, 10 * e)  # a NaN list entry
+        bd[rows], bi[rows] = full_d[rows], full_i[rows]
+        bd[rows, k // 2] = nan
+        rows = slice(10 * e, 11 * e)  # negative entries, -inf and -0
+        bd[rows] = full_d[rows] - 2.0e4  # about the lists' 0.7 quantile
+        bi[rows] = full_i[rows]
+        bd[10 * e:11 * e:2, 0] = -float("inf")
+        if k >= 2:
+            bd[rows, 1] = -0.0
+    return (qx.contiguous(), qy.contiguous(), cx.contiguous(),
+            cy.contiguous(), cids, valid, bd.contiguous(), bi.contiguous())
+
+
+def odd_rows(q: int, dev, mixed: bool = False) -> torch.Tensor:
+    """(q,) mask of :func:`kernel_inputs`' rows outside a premise: the NaN
+    and negative bands, where the fused merge is not the exact k-selection
+    of ``list ++ window d2`` (a NaN makes the reference's radius NaN, and a
+    negative value breaks the refinement's interval); with ``mixed`` also
+    the lists in any order, where ``best_d[:, k-1]`` is not the list's
+    largest entry and the mixed prefilter's premise fails (so
+    ``precision="mixed"`` need not equal fp32 there, as in the
+    reference)."""
+    e = q // 16
+    rows = torch.zeros(q, dtype=torch.bool, device=dev)
+    rows[(6 if mixed else 7) * e:11 * e] = True
+    return rows
 
 
 def merge_inputs(r: int, q: int, k: int, dev, seed: int = 0,
@@ -287,17 +360,40 @@ def worst_rows(q: int, c: int, kind: str, dev, seed: int = 0):
 
 
 def window_inputs(q: int, c: int, dev, seed: int = 0, side: float = 22_500.0,
-                  invalid: float = 0.1, coincide: int = 40):
+                  invalid: float = 0.1, coincide: int = 40, odd: bool = True):
     """(Q, 2) uniform queries and one shared (C, 2) uniform candidate window
     over the spec's region, a fraction ``invalid`` of the window invalid and
-    its first ``coincide`` points on one spot (equal distances)."""
+    its first ``coincide`` points on one spot (equal distances).  With
+    ``odd``: the second band of q // 16 queries has a NaN coordinate (every
+    valid distance of those rows is NaN), the third lies at negative
+    coordinates, and the window's last point has NaN coordinates and is
+    invalid (its distance must stay +inf)."""
     g = np.random.default_rng(seed)
     qpos = g.uniform(0, side, (q, 2)).astype(np.float32)
     ppos = g.uniform(0, side, (c, 2)).astype(np.float32)
     ppos[1:coincide] = ppos[0]
     valid = g.random(c) >= invalid
+    if odd:
+        e = q // 16
+        qpos[e:2 * e, 0] = np.nan
+        qpos[2 * e:3 * e] *= -1
+        if c > 1:
+            ppos[-1] = np.nan
+            valid[-1] = False
     return (torch.tensor(qpos, device=dev), torch.tensor(ppos, device=dev),
             torch.tensor(valid, device=dev))
+
+
+def same_values(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """``torch.equal`` with NaN equal to NaN: equal shapes and types, and
+    per element the same value (so -0 equals +0, as ``torch.equal`` has
+    it) or NaN in both (a NaN's payload is not part of any kernel's
+    contract)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.dtype.is_floating_point:
+        return torch.equal(a, b)
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
 def edge_window(k: int, seed: int = 0):
@@ -360,107 +456,118 @@ def _record(name, source, replaces, launches, ms, plain_ms, nbytes, ops,
         "library_ms": library_ms, "bitwise": True}, **extra)
 
 
+def _in_blocks(fn, args, blk: int = 65536):
+    """``fn`` over row blocks of every argument, outputs concatenated: a
+    plain version at 1M rows without its temporaries at 1M rows."""
+    outs = [fn(*(a[r:r + blk] for a in args))
+            for r in range(0, args[0].shape[0], blk)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _check_lists(what, out, want, rows=None):
+    """(d, i) lists equal bit for bit (on ``rows`` where given)."""
+    if rows is not None:
+        out = (out[0][rows], out[1][rows])
+        want = (want[0][rows], want[1][rows])
+    if not (same_values(out[0], want[0]) and torch.equal(out[1], want[1])):
+        bad = ((out[0] != want[0]) | (out[1] != want[1])).any(1)
+        raise AssertionError(f"{what} on {int(bad.sum())} rows, e.g. "
+                             f"{bad.nonzero()[:8, 0].tolist()}")
+
+
 def kernel_phase(dev, q=8192, w=256, k=32):
+    """B1, fp32 and mixed, at (Q, W, k) on :func:`kernel_inputs`' rows:
+    bitwise against the plain versions (in row blocks) on every row, the
+    NaN and negative bands included; against the exact two-sort merge, and
+    mixed against fp32, on the rows inside their premise (:func:`odd_rows`);
+    then timed on the rows without the odd bands (``ms``) and with them
+    (``odd_rows_ms``), beside the plain version and the two-sort merge."""
     from repro_torch.kernels import fused_scan as fs
     from repro_torch.kernels.ops import _lex_sort_merge
-
-    args = kernel_inputs(q, w, k, dev)
-    fs.fused_scan_merge.launches = 0
-    out_d, out_i = fs.fused_scan_merge(*args, k=k)
-    torch.cuda.synchronize()
-    if fs.fused_scan_merge.launches != 1:
-        raise AssertionError("fused_scan_merge did not launch its kernel")
-    ref_d, ref_i = fs.fused_scan_merge_ref(*args, k=k)
-    if not (torch.equal(out_d, ref_d) and torch.equal(out_i, ref_i)):
-        bad = (out_d != ref_d) | (out_i != ref_i)
-        raise AssertionError(f"kernel != plain version on {int(bad.sum())} "
-                             f"entries, rows {bad.any(1).nonzero()[:8, 0]}")
-    # the plain version on the card equals it on the CPU (held against JAX
-    # by the CPU tests), on a slice
-    cpu_d, cpu_i = fs.fused_scan_merge_ref(*(a[:512].cpu() for a in args), k=k)
-    if not (torch.equal(cpu_d, ref_d[:512].cpu())
-            and torch.equal(cpu_i, ref_i[:512].cpu())):
-        raise AssertionError("plain version differs between card and CPU")
-    fin = torch.isfinite(ref_d)
-    max_abs_err = float((out_d[fin] - ref_d[fin]).abs().max()) if fin.any() \
-        else 0.0
-
-    ms = time_ms(lambda: fs.fused_scan_merge(*args, k=k), reps=50)
-    plain_ms = time_ms(lambda: fs.fused_scan_merge_ref(*args, k=k), reps=3,
-                       warmup=1)
-    # the kernel is exact: it equals the two-sort merge of the dense_topk
-    # backend, the edge-list band included
-    qpos = torch.stack([args[0], args[1]], 1)
-    cpos = torch.stack([args[2], args[3]], 2)
-    lex_d, lex_i = _lex_sort_merge(qpos, cpos, args[4], args[5], args[6],
-                                   args[7], k)
-    if not (torch.equal(out_d, lex_d) and torch.equal(out_i, lex_i)):
-        bad = ((out_d != lex_d) | (out_i != lex_i)).any(1)
-        raise AssertionError(f"kernel != exact two-sort merge on "
-                             f"{int(bad.sum())} rows")
-    library_ms = time_ms(
-        lambda: _lex_sort_merge(qpos, cpos, args[4], args[5], args[6],
-                                args[7], k), reps=10)
-    # bound: each input read once, each output written once; operations
-    # counted for this data (rounds stop after the last finite entry)
-    n = k + w
-    nbytes = q * (8 + 13 * w + 8 * k) + q * 8 * k
-    rounds = torch.minimum(fin.sum(1) + 1, torch.tensor(k, device=dev))
-    ops = q * (6 * w + 4 * 10 * n) + int(rounds.sum()) * n
-    rec = _record("fused_scan_merge", "fused_scan.cu",
-                  "src/repro/kernels/fused_scan.py:126", None, ms, plain_ms,
-                  nbytes, ops, library_ms, max_abs_err)  # launches: main path
-    print(f"kernel: fused_scan_merge Q={q} W={w} k={k} bitwise equal to the "
-          f"plain version and the exact merge; {ms:.4f} ms (plain "
-          f"{plain_ms:.3f} ms, dense_topk {library_ms:.3f} ms, bound "
-          f"{rec['bound_ms']:.4f} ms by {rec['bound_by']}: {nbytes} bytes, "
-          f"{ops} ops)")
-
-    # B1's mixed branch on the same inputs: bitwise equal to its plain
-    # version, and (the prefilter being conservative) to the fp32 kernel
-    mixed = dict(k=k, precision="mixed")
-    fs.fused_scan_merge.mixed_launches = 0
-    out_md, out_mi = fs.fused_scan_merge(*args, **mixed)
-    torch.cuda.synchronize()
-    if fs.fused_scan_merge.mixed_launches != 1:
-        raise AssertionError("fused_scan_merge did not launch its mixed "
-                             "kernel")
-    ref_md, ref_mi = fs.fused_scan_merge_ref(*args, **mixed)
-    for what, want in (("plain mixed version", (ref_md, ref_mi)),
-                       ("fp32 kernel", (out_d, out_i))):
-        if not (torch.equal(out_md, want[0]) and torch.equal(out_mi, want[1])):
-            bad = ((out_md != want[0]) | (out_mi != want[1])).any(1)
-            raise AssertionError(f"mixed kernel != {what} on "
-                                 f"{int(bad.sum())} rows")
-    cpu_d, cpu_i = fs.fused_scan_merge_ref(*(a[:512].cpu() for a in args),
-                                           **mixed)
-    if not (torch.equal(cpu_d, ref_md[:512].cpu())
-            and torch.equal(cpu_i, ref_mi[:512].cpu())):
-        raise AssertionError("plain mixed version differs between card and "
-                             "CPU")
-    # how much of the window the prefilter drops, on these inputs
     from repro_torch.kernels.refine import mixed_prune_keep
 
-    keep = mixed_prune_keep(args[2] - args[0][:, None],
-                            args[3] - args[1][:, None], args[6][:, k - 1])
-    pruned = float((args[5] & ~keep).sum()) / max(1, int(args[5].sum()))
-    ms_m = time_ms(lambda: fs.fused_scan_merge(*args, **mixed), reps=50)
-    plain_ms_m = time_ms(lambda: fs.fused_scan_merge_ref(*args, **mixed),
-                         reps=3, warmup=1)
-    library_ms_m = time_ms(
-        lambda: _lex_sort_merge(qpos, cpos, args[4], args[5], args[6],
-                                args[7], k, precision="mixed"), reps=10)
-    rec_m = _record("fused_scan_merge_mixed", "fused_scan.cu",
-                    "src/repro/kernels/fused_scan.py:52", None, ms_m,
-                    plain_ms_m, nbytes, ops + q * w * 6,  # + the prefilter
-                    library_ms_m, max_abs_err, pruned_share=pruned)
-    print(f"kernel: fused_scan_merge precision=mixed Q={q} W={w} k={k} "
-          f"bitwise equal to its plain version and the fp32 kernel "
-          f"(prefilter dropped {pruned:.4f} of the valid window); "
-          f"{ms_m:.4f} ms beside fp32 {ms:.4f} ms (plain {plain_ms_m:.3f} ms, "
-          f"dense_topk mixed {library_ms_m:.3f} ms, bound "
-          f"{rec_m['bound_ms']:.4f} ms by {rec_m['bound_by']})")
-    return rec, rec_m
+    fp32, mixed = dict(k=k), dict(k=k, precision="mixed")
+    run = lambda a, kw: fs.fused_scan_merge(*a, **kw)
+    plain = lambda a, kw: _in_blocks(
+        lambda *b: fs.fused_scan_merge_ref(*b, **kw), a)
+
+    def two_sort(a, precision="fp32"):
+        return _lex_sort_merge(torch.stack([a[0], a[1]], 1),
+                               torch.stack([a[2], a[3]], 2), *a[4:], k,
+                               precision=precision)
+
+    args = kernel_inputs(q, w, k, dev)
+    fs.fused_scan_merge.launches = fs.fused_scan_merge.mixed_launches = 0
+    out, out_m = run(args, fp32), run(args, mixed)
+    torch.cuda.synchronize()
+    if (fs.fused_scan_merge.launches, fs.fused_scan_merge.mixed_launches) \
+            != (1, 1):
+        raise AssertionError("fused_scan_merge did not launch its kernels")
+    ref, ref_m = plain(args, fp32), plain(args, mixed)
+    _check_lists("kernel != plain version", out, ref)
+    _check_lists("mixed kernel != plain mixed version", out_m, ref_m)
+    _check_lists("kernel != exact two-sort merge",
+                 out, _in_blocks(lambda *b: two_sort(b), args),
+                 ~odd_rows(q, dev))
+    _check_lists("mixed kernel != fp32 kernel", out_m, out,
+                 ~odd_rows(q, dev, mixed=True))
+    # the plain version on the card equals it on the CPU (held against JAX
+    # by the CPU tests), on 512 rows across every band
+    rows = torch.arange(0, q, max(1, q // 512), device=dev)
+    for kw, want in ((fp32, ref), (mixed, ref_m)):
+        cpu = fs.fused_scan_merge_ref(*(a[rows].cpu() for a in args), **kw)
+        _check_lists("plain version differs between card and CPU", cpu,
+                     (want[0][rows].cpu(), want[1][rows].cpu()))
+    fin = torch.isfinite(ref[0])
+    max_abs_err = float((out[0][fin] - ref[0][fin]).abs().max()) \
+        if fin.any() else 0.0
+    del out, out_m, ref, ref_m
+
+    # timed on the rows without the odd bands, checked there too
+    base = kernel_inputs(q, w, k, dev, odd=False)
+    # under 65,536 rows the kernel is shorter than the wrapper's Python:
+    # timed in CUDA graphs
+    small = q <= 65536
+    timed = (lambda fn: time_graph_ms(fn)) if small else (
+        lambda fn: time_ms(fn, reps=5))
+    recs = []
+    for name, kw, line in (("fused_scan_merge", fp32, 126),
+                           ("fused_scan_merge_mixed", mixed, 52)):
+        _check_lists(f"{name} != plain version (base rows)", run(base, kw),
+                     plain(base, kw))
+        ms = timed(lambda: run(base, kw))
+        odd_ms = timed(lambda: run(args, kw))
+        plain_ms = time_ms(lambda: plain(base, kw), reps=3 if small else 1,
+                           warmup=1)
+        library_ms = time_ms(lambda: two_sort(base, kw.get("precision",
+                                                          "fp32")),
+                             reps=10 if small else 3, warmup=1)
+        # bound: each input read once, each output written once; a distance
+        # (6 flops) a window entry and one compare an entry of the row
+        nbytes = q * (8 + 13 * w + 8 * k) + q * 8 * k
+        ops = q * (6 * w + (k + w))
+        extra = {}
+        if kw is mixed:
+            keep = mixed_prune_keep(base[2] - base[0][:, None],
+                                    base[3] - base[1][:, None],
+                                    base[6][:, k - 1])
+            extra["pruned_share"] = float((base[5] & ~keep).sum()) / max(
+                1, int(base[5].sum()))
+            ops += q * w * 6  # the prefilter
+            del keep
+        rec = _record(name, "fused_scan.cu",
+                      f"src/repro/kernels/fused_scan.py:{line}", None, ms,
+                      plain_ms, nbytes, ops, library_ms, max_abs_err,
+                      shape=f"Q={q} W={w} k={k}", odd_rows_ms=odd_ms,
+                      timing="cuda graph" if small else "launches", **extra)
+        print(f"kernel: {name} Q={q} W={w} k={k} bitwise equal to its plain "
+              f"version on every row (NaN and negative bands included), to "
+              f"the exact merge and mixed to fp32 inside their premise; "
+              f"{ms:.4f} ms ({odd_ms:.4f} ms with the odd bands; plain "
+              f"{plain_ms:.3f} ms, two-sort {library_ms:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})")
+        recs.append(rec)
+    return recs
 
 
 def _check_merge(name, out, plain, two_sort):
@@ -560,7 +667,8 @@ def _add_shape(recs: dict, name: str, rec: dict):
         return
     recs[name]["other_shapes"].append(
         {key: rec[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
-                                   "bound_by", "library_ms", "worst_rows")
+                                   "bound_by", "library_ms", "worst_rows",
+                                   "odd_rows_ms", "pruned_share", "timing")
          if key in rec})
 
 
@@ -626,7 +734,7 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
                                      valid6) for r in range(0, q6, 128)]
 
     for b, ref in zip(range(0, q6, 128), plain6()):
-        if not torch.equal(out6[b:b + 128], ref):
+        if not same_values(out6[b:b + 128], ref):
             bad = (out6[b:b + 128] != ref).any(1).nonzero()[:8, 0] + b
             raise AssertionError(f"pairwise_dist != plain version, rows "
                                  f"{bad.tolist()}")
@@ -700,17 +808,18 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
                                           valid5, k=kk)
                     for r in range(0, q5, blk)]
 
+        nan_rows = 0
         for r, ref in zip(range(0, q5, blk), plain5()):
-            if not torch.equal(out[r:r + blk], ref):
+            if not same_values(out[r:r + blk], ref):
                 bad = (out[r:r + blk] != ref).nonzero()[:8, 0] + r
                 raise AssertionError(f"bucket_kselect k={kk} != plain "
                                      f"version, rows {bad.tolist()}")
             d2 = pd.pairwise_dist_ref(qx[r:r + blk], qy[r:r + blk], px, py,
                                       valid5)
-            if not ((d2 < out[r:r + blk, None]).sum(1)
-                    >= min(kk, n_valid)).all():
+            if not _guarantee(d2, out[r:r + blk], kk, n_valid):
                 raise AssertionError(f"bucket_kselect k={kk}: the guarantee "
                                      "fails")
+            nan_rows += int(torch.isnan(d2).any(1).sum())
         ms = time_ms(lambda: ops.bucket_kselect_op(qpos5, ppos5, valid5,
                                                    k=kk), reps=5)
         plain_ms = time_ms(plain5, reps=1, warmup=1)
@@ -720,11 +829,23 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
                       q5 * 12 + c5 * 9, q5 * c5 * (5 + 3 * 4), None,
                       shape=f"Q={q5} C={c5} k={kk}")
         print(f"kernel: bucket_kselect Q={q5} C={c5} k={kk} bitwise equal to "
-              f"its plain version, guarantee held on every row; {ms:.4f} ms "
+              f"its plain version, guarantee held on every row without a NaN "
+              f"distance, NaN on the {nan_rows} with one; {ms:.4f} ms "
               f"(plain {plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms by "
               f"{rec['bound_by']})")
         _add_shape(recs, "bucket_kselect", rec)
     return recs
+
+
+def _guarantee(d2, r, k: int, n_valid: int) -> bool:
+    """B5's guarantee on every row without a NaN distance,
+    ``count(d2 < r) >= min(k, n_valid)`` (invalid entries are +inf), and
+    on a row with one a NaN radius, as the plain version's, unless the
+    window holds fewer than k valid entries (then +inf)."""
+    nan = torch.isnan(d2).any(1)
+    ok = (d2 < r[:, None]).sum(1) >= min(k, n_valid)
+    want_nan = nan & (n_valid >= k)
+    return bool((torch.where(nan, torch.isnan(r) == want_nan, ok)).all())
 
 
 def baseline_check(dev, n: int, sample: int = 128, k: int = 32,
@@ -1028,7 +1149,11 @@ def main() -> int:
     print(f"build: {len(build.SOURCES)} source(s) in "
           f"{time.perf_counter() - t0:.1f} s")
     check_fma(dev)
-    rec, rec_mixed = kernel_phase(dev)
+    b1 = {}
+    for q in (8192, 123 * (512 if args.short_api else 8192)):
+        for r in kernel_phase(dev, q=q):
+            _add_shape(b1, r["name"], r)
+    rec, rec_mixed = b1["fused_scan_merge"], b1["fused_scan_merge_mixed"]
     rec_multi, rec_lists = merge_kernel_phase(dev)
     api = kernel_api_path(dev, full=not args.short_api)
     n = args.n_objects

@@ -3,11 +3,15 @@
 Replaces the Pallas TPU kernel ``repro/kernels/bucket_kselect.py::
 bucket_kselect`` (``pl.pallas_call`` at ``bucket_kselect.py:84``) with the
 hand-written Hopper kernel ``csrc/bucket_kselect.cu`` (a block stages the
-window in shared memory once; one warp per query row; see the source's
-header).  It returns the (Q,) radius ``r`` with
+window in shared memory once; one warp per query row keeps on chip only the
+distances that can decide the refinement's rounds; see the source's
+header).
+It returns the (Q,) radius ``r`` with
 ``count(valid & d2 < r) >= min(k, n_valid)``, or +inf when the whole window
-holds fewer than k valid candidates.  The window may hold up to
-``MAX_WINDOW`` = 4096 candidates on the card; beyond that the wrapper raises.
+holds fewer than k valid candidates, or NaN where a valid distance of the
+row is NaN (the reference's ``jnp.min`` propagates it).  The window may
+hold up to ``MAX_WINDOW`` = 4096 candidates on the card; beyond that the
+wrapper raises.
 
 The refinement counts ranks against the bucket edges, as the port's
 :func:`~repro_torch.kernels.refine.bucket_refine_step` does, so on rows where

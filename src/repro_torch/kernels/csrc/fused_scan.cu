@@ -1,12 +1,12 @@
-// Fused SCAN-step merge for Hopper: distance + bucket radius + top-k rounds.
+// Fused SCAN-step merge for Hopper: distance + bucket radius + top-k.
 //
 // Replaces the Pallas TPU kernel repro/kernels/fused_scan.py::fused_scan_merge
 // (pl.pallas_call at fused_scan.py:126).  Per query row it computes the d2 of
 // a W-wide gathered candidate window (invalid entries +inf), appends it to the
-// row's current ascending (k) list, narrows the k-th distance with `iters`
-// rounds of a 32-bin histogram, prunes at fhi + max(fhi - flo, fhi*1e-6 +
-// 1e-30) (+inf when fewer than k entries are finite), and emits the k smallest
-// (d2, id) pairs ascending, lowest id on ties, (inf, -1) padded.
+// row's current (k) list, narrows the k-th distance with `iters` rounds of a
+// 32-bin histogram, prunes at fhi + max(fhi - flo, fhi*1e-6 + 1e-30) (+inf
+// when fewer than k entries are not +inf), and emits the k smallest (d2, id)
+// pairs ascending, lowest id on ties, (inf, -1) padded.
 //
 // Under precision="mixed" (the template flag MIXED; the reference's branch at
 // fused_scan.py:52) a valid window entry is first kept only if its bf16
@@ -14,103 +14,152 @@
 // from the bf16-rounded f32 deltas), is <= best_d[k-1] * MIXED_WIDEN; a
 // dropped entry is +inf from then on, so it leaves the refinement population
 // and n_valid as well.  The prefilter is conservative, so the merged lists
-// equal fp32's bit for bit.
+// equal fp32's bit for bit wherever the list is ascending.
+//
+// Why a plain select is enough.  The refinement counts ranks against the
+// bucket edges (kernels/refine.py, bucket_refine_step), so on a row whose
+// entries are all +0 or above (+inf included, no NaN) the k-th smallest
+// value stays in [flo, fhi): the first interval holds every finite entry
+// (hi = fma(max, 1 + 1e-6, 1e-30) > max), and a round moves it only after
+// counting that the new one holds the wanted rank.  The prune radius
+// fhi + slop is then >= fhi, so the prune removes only entries above the
+// k-th value, and the k rounds over the pruned row return what they return
+// over the whole row: its k smallest (d2, id) pairs.  With fewer than k
+// entries below +inf nothing finite is pruned.  So on such rows the output
+// is the exact k-selection of `list ++ window d2`, for any order of the list.
 //
 // Design: one warp per query row, 8 rows (one Q_TILE) per block of 256
-// threads.  Lane L holds elements L, L+32, L+64, ... of the (k + W) row in
-// registers (P of them, a template parameter).  n_valid is a ballot count;
-// lo / hi0 are warp reductions; the 32 histogram bins are the 32 lanes (a
-// per-warp shared counter array, then an inclusive shuffle scan); each of the
-// k rounds is a lexicographic (d2, id, column) warp argmin after which the
-// owning lane masks its entry.
+// threads.
+// - The fast path is select_keys.cuh's warp_queue_select, B4's WarpSelect,
+//   fed by a key producer: lanes read the row's columns 32 at a time, the
+//   list's entries keyed as they are, the window's d2 computed in registers
+//   (dx, dy rounded once, __fmaf_rn(dx, dx, dy * dy)) and keyed.  A queue of
+//   W = 32 * N keys, N by k (32, 64, 128, 256), keeps the best entries; lanes
+//   store the output from their queue registers, coalesced.
+// - Rows that break the argument above keep the refinement path: every
+//   entry the producer builds is tested for a NaN or a set sign bit (a
+//   negative value, -inf, or -0, which the rounds emit with its sign where
+//   the queue's key would emit +0); one vote after the stream sends such a
+//   row down the path below, which recomputes it from the inputs.
+// - The refinement path: lane L holds columns L, L+32, ... of the (k + W)
+//   row in registers (P of them, a template parameter on a ladder).
+//   n_valid is a ballot count; lo / hi0 are warp reductions that propagate
+//   NaN as jnp.min / jnp.max do; the 32 histogram bins are the 32 lanes (a
+//   per-warp shared counter array, then an inclusive shuffle scan); the
+//   prune; then k rounds of warp_select.cuh's lexicographic (d2, id, column)
+//   warp argmin.  A NaN lo makes every interval, and the radius, NaN: the
+//   prune then drops every entry, as the plain version's does, or, with
+//   fewer than k entries below +inf, only the NaN ones.
+// - k > 256 runs the refinement path on every row (the rounds template).
 //
 // Bound on an H100: memory.  Per row the kernel reads W*13 + k*8 + 8 bytes
 // and writes k*8 (about 3.6 KB + 0.26 KB at W=256, k=32); its arithmetic is
-// a few thousand simple operations per row, far below the card's rate.  The
+// a key build and a 64-bit compare per entry plus the queue's flushes.  The
 // design reads each input once, with neighbouring lanes on neighbouring
-// addresses, and keeps the distance row, histogram and selection state in
-// registers and shared memory, so only the window in and the lists out cross
-// device memory.
+// addresses, and keeps the distances and the queue in registers and shared
+// memory, so only the window in and the lists out cross device memory.
 //
 // Bitwise contract: equal to the plain PyTorch version
-// (repro_torch/kernels/fused_scan.py::fused_scan_merge_ref).  Its outputs are
-// the exact k smallest, so they equal the JAX reference's wherever that is
-// right; the refinement counts ranks against the bucket edges, where the
-// reference's histogram rank can lose the k-th entry (kernels/refine.py,
-// bucket_refine_step).  Every site the reference's compiled program
-// contracts is an explicit __fmaf_rn; every other multiply, add and divide
-// is an explicit round-to-nearest intrinsic, and the build passes
-// --fmad=false.  jnp.maximum propagates NaN, so nan_max does too.
+// (repro_torch/kernels/fused_scan.py::fused_scan_merge_ref) on every input.
+// Its outputs are the exact k smallest on rows of squared distances, so they
+// equal the JAX reference's wherever that is right; the refinement counts
+// ranks against the bucket edges, where the reference's histogram rank can
+// lose the k-th entry (kernels/refine.py, bucket_refine_step).  Every site
+// the reference's compiled program contracts is an explicit __fmaf_rn;
+// every other multiply, add and divide is an explicit round-to-nearest
+// intrinsic, and the build passes --fmad=false.
 #include <cuda_bf16.h>
 
-#include "warp_select.cuh"
+#include <type_traits>
+
+#include "select_keys.cuh"
 
 namespace {
 
 constexpr int kBins = 32;  // one histogram bin per lane
 
+// jnp.maximum / jnp.minimum (and torch's amax / amin) propagate NaN.
 __device__ __forceinline__ float nan_max(float a, float b) {
   return (a != a || b != b) ? CUDART_NAN_F : fmaxf(a, b);
 }
 
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || b != b) ? CUDART_NAN_F : fminf(a, b);
+}
+
+struct Args {
+  const float* qx;
+  const float* qy;
+  const float* cx;
+  const float* cy;
+  const int* cids;
+  const bool* valid;
+  const float* best_d;
+  const int* best_i;
+  float* out_d;
+  int* out_i;
+  int q, w, k, iters;
+  float hi_mul, hi_add, slop_mul, tiny, widen;
+};
+
+// One row's inputs: column j < k is the list's entry j, column k + i the
+// window's entry i.
+template <bool MIXED>
+struct RowIn {
+  const Args& a;
+  size_t brow, wrow;
+  float fx, fy;
+  float kth_wide;  // the mixed prefilter's widened k-th boundary
+
+  __device__ __forceinline__ RowIn(const Args& args, int row) : a(args) {
+    brow = static_cast<size_t>(row) * a.k;
+    wrow = static_cast<size_t>(row) * a.w;
+    fx = a.qx[row];
+    fy = a.qy[row];
+    kth_wide = MIXED ? __fmul_rn(a.best_d[brow + a.k - 1], a.widen)
+                     : CUDART_INF_F;
+  }
+
+  __device__ __forceinline__ void entry(int j, float& d, int& id) const {
+    if (j < a.k) {
+      d = a.best_d[brow + j];
+      id = a.best_i[brow + j];
+      return;
+    }
+    const size_t o = wrow + (j - a.k);
+    id = a.cids[o];
+    d = CUDART_INF_F;
+    if (a.valid[o]) {
+      const float dx = __fsub_rn(a.cx[o], fx);
+      const float dy = __fsub_rn(a.cy[o], fy);
+      bool keep = true;
+      if (MIXED) {
+        const __nv_bfloat16 xb = __float2bfloat16_rn(dx);
+        const __nv_bfloat16 yb = __float2bfloat16_rn(dy);
+        const float d2b =
+            __bfloat162float(__hadd(__hmul(xb, xb), __hmul(yb, yb)));
+        keep = d2b <= kth_wide;
+      }
+      if (keep) d = __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
+    }
+  }
+};
+
+// The refinement path of one row: bucket refinement, prune, k rounds.
 template <int P, bool MIXED>
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
-fused_scan_merge_kernel(const float* __restrict__ qx,
-                        const float* __restrict__ qy,
-                        const float* __restrict__ cx,
-                        const float* __restrict__ cy,
-                        const int* __restrict__ cids,
-                        const bool* __restrict__ valid,
-                        const float* __restrict__ best_d,
-                        const int* __restrict__ best_i,
-                        float* __restrict__ out_d, int* __restrict__ out_i,
-                        int q, int w, int k, int iters, float hi_mul,
-                        float hi_add, float slop_mul, float tiny,
-                        float widen) {
-  extern __shared__ int smem[];
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const int row = blockIdx.x * kRowsPerBlock + warp;
-  if (row >= q) return;  // the whole warp leaves together
-  int* hist = smem + warp * (kBins + 2 * k);
-  float* sel_d = reinterpret_cast<float*>(hist + kBins);
-  int* sel_i = hist + kBins + k;
-
-  const int n = k + w;
+__device__ __forceinline__ void refine_row(const Args& a, int row, int lane,
+                                           int* hist) {
+  const RowIn<MIXED> in(a, row);
+  const int k = a.k;
+  const int n = k + a.w;
   const float inf = CUDART_INF_F;
-  const float fx = qx[row];
-  const float fy = qy[row];
-  const size_t brow = static_cast<size_t>(row) * k;
-  const size_t wrow = static_cast<size_t>(row) * w;
-  // the mixed prefilter's widened k-th boundary (+inf keeps every entry)
-  const float kth_wide = MIXED ? __fmul_rn(best_d[brow + k - 1], widen) : inf;
-
-  // ---- the (k + W) row: current list, then the window's distances.
   float d[P];
   int id[P];
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     const int j = lane + kWarp * p;
-    if (j < k) {
-      d[p] = best_d[brow + j];
-      id[p] = best_i[brow + j];
-    } else if (j < n) {
-      const size_t o = wrow + (j - k);
-      id[p] = cids[o];
-      d[p] = inf;
-      if (valid[o]) {
-        const float dx = __fsub_rn(cx[o], fx);
-        const float dy = __fsub_rn(cy[o], fy);
-        bool keep = true;
-        if (MIXED) {
-          const __nv_bfloat16 xb = __float2bfloat16_rn(dx);
-          const __nv_bfloat16 yb = __float2bfloat16_rn(dy);
-          const float d2b =
-              __bfloat162float(__hadd(__hmul(xb, xb), __hmul(yb, yb)));
-          keep = d2b <= kth_wide;
-        }
-        if (keep) d[p] = __fmaf_rn(dx, dx, __fmul_rn(dy, dy));
-      }
+    if (j < n) {
+      in.entry(j, d[p], id[p]);
     } else {
       d[p] = inf;  // past the row's end: never selected as a finite entry
       id[p] = INT_MAX;
@@ -125,22 +174,22 @@ fused_scan_merge_kernel(const float* __restrict__ qx,
   for (int p = 0; p < P; ++p) {
     const bool fin = !isinf(d[p]);
     n_valid += __popc(__ballot_sync(kFull, fin));
-    lo = fminf(lo, d[p]);
-    if (fin) hi0 = fmaxf(hi0, d[p]);
+    lo = nan_min(lo, d[p]);
+    if (fin) hi0 = nan_max(hi0, d[p]);
   }
 #pragma unroll
   for (int o = kWarp / 2; o > 0; o /= 2) {
-    lo = fminf(lo, __shfl_xor_sync(kFull, lo, o));
-    hi0 = fmaxf(hi0, __shfl_xor_sync(kFull, hi0, o));
+    lo = nan_min(lo, __shfl_xor_sync(kFull, lo, o));
+    hi0 = nan_max(hi0, __shfl_xor_sync(kFull, hi0, o));
   }
   float flo = lo;
-  float fhi = __fmaf_rn(nan_max(hi0, lo), hi_mul, hi_add);
+  float fhi = __fmaf_rn(nan_max(hi0, lo), a.hi_mul, a.hi_add);
   int kth = k;
 
   // ---- bucket refinement of the k-th distance.
-  for (int it = 0; it < iters; ++it) {
-    const float width =
-        nan_max(__fdiv_rn(__fsub_rn(fhi, flo), static_cast<float>(kBins)), tiny);
+  for (int it = 0; it < a.iters; ++it) {
+    const float width = nan_max(
+        __fdiv_rn(__fsub_rn(fhi, flo), static_cast<float>(kBins)), a.tiny);
     hist[lane] = 0;
     __syncwarp();
 #pragma unroll
@@ -181,34 +230,121 @@ fused_scan_merge_kernel(const float* __restrict__ qx,
     }
   }
 
-  // ---- prune at the conservative radius.
-  const float slop = nan_max(__fsub_rn(fhi, flo), __fmaf_rn(fhi, slop_mul, tiny));
+  // ---- prune at the conservative radius (NaN drops everything).
+  const float slop =
+      nan_max(__fsub_rn(fhi, flo), __fmaf_rn(fhi, a.slop_mul, a.tiny));
   const float radius = n_valid < k ? inf : __fadd_rn(fhi, slop);
 #pragma unroll
   for (int p = 0; p < P; ++p) {
     if (!(d[p] < radius)) d[p] = inf;
   }
 
-  // ---- k rounds of lexicographic warp argmin.
-  const int r = warp_select_rounds<P>(d, id, k, lane, sel_d, sel_i);
-  store_selected(sel_d, sel_i, r, k, lane, out_d + brow, out_i + brow);
+  // ---- k rounds of lexicographic warp argmin, straight to the output.
+  float* out_d = a.out_d + in.brow;
+  int* out_i = a.out_i + in.brow;
+  const int r = warp_select_rounds<P>(d, id, k, lane, out_d, out_i);
+  for (int j = r + lane; j < k; j += kWarp) {
+    out_d[j] = inf;
+    out_i[j] = -1;
+  }
+}
+
+// A NaN, or an entry whose sign bit is set: the row leaves the fast path.
+__device__ __forceinline__ bool odd_entry(float d) {
+  return d != d || (__float_as_uint(d) >> 31) != 0;
+}
+
+// Up to W = 64 the launch bounds hold the queue kernel to 40 registers, so
+// 48 warps fit on an SM: the refinement path's row (2P registers) then
+// spills, but only the rare rows that take it pay for that.
+template <int N, int P, bool MIXED>
+__global__ void __launch_bounds__(kWarp * kRowsPerBlock, N <= 2 ? 6 : 1)
+fused_scan_queue_kernel(const Args a) {
+  __shared__ Key ring[kRowsPerBlock][kRing];
+  __shared__ int hist[kRowsPerBlock][kBins];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int row = blockIdx.x * kRowsPerBlock + warp;
+  if (row >= a.q) return;  // the whole warp leaves together
+  const RowIn<MIXED> in(a, row);
+  bool odd = false;
+  Key wq[N];  // the warp queue
+  warp_queue_select<N>(
+      [&](int j) {
+        float d;
+        int id;
+        in.entry(j, d, id);
+        odd |= odd_entry(d);
+        return make_key(d, id);
+      },
+      a.k + a.w, a.k, ring[warp], lane, wq);
+  if (__any_sync(kFull, odd)) {  // one vote for the row
+    refine_row<P, MIXED>(a, row, lane, hist[warp]);
+    return;
+  }
+  store_queue<N>(wq, a.k, lane, a.out_d + in.brow, a.out_i + in.brow);
+}
+
+// The rounds template, for k beyond the queue ladder: every row refines.
+template <int P, bool MIXED>
+__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
+fused_scan_rounds_kernel(const Args a) {
+  __shared__ int hist[kRowsPerBlock][kBins];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int row = blockIdx.x * kRowsPerBlock + warp;
+  if (row >= a.q) return;
+  refine_row<P, MIXED>(a, row, lane, hist[warp]);
+}
+
+template <int N, int P>
+cudaError_t launch_queue(const Args& a, bool mixed, cudaStream_t stream) {
+  const int blocks = (a.q + kRowsPerBlock - 1) / kRowsPerBlock;
+  auto kernel = mixed ? fused_scan_queue_kernel<N, P, true>
+                      : fused_scan_queue_kernel<N, P, false>;
+  kernel<<<blocks, kWarp * kRowsPerBlock, 0, stream>>>(a);
+  return cudaGetLastError();
 }
 
 template <int P>
-cudaError_t launch(const float* qx, const float* qy, const float* cx,
-                   const float* cy, const int* cids, const bool* valid,
-                   const float* best_d, const int* best_i, float* out_d,
-                   int* out_i, int q, int w, int k, int iters, bool mixed,
-                   float hi_mul, float hi_add, float slop_mul, float tiny,
-                   float widen, cudaStream_t stream) {
-  const int blocks = (q + kRowsPerBlock - 1) / kRowsPerBlock;
-  const size_t smem = sizeof(int) * kRowsPerBlock * (kBins + 2 * k);
-  auto kernel = mixed ? fused_scan_merge_kernel<P, true>
-                      : fused_scan_merge_kernel<P, false>;
-  kernel<<<blocks, kWarp * kRowsPerBlock, smem, stream>>>(
-      qx, qy, cx, cy, cids, valid, best_d, best_i, out_d, out_i, q, w, k,
-      iters, hi_mul, hi_add, slop_mul, tiny, widen);
+cudaError_t launch_rounds(const Args& a, bool mixed, cudaStream_t stream) {
+  const int blocks = (a.q + kRowsPerBlock - 1) / kRowsPerBlock;
+  auto kernel = mixed ? fused_scan_rounds_kernel<P, true>
+                      : fused_scan_rounds_kernel<P, false>;
+  kernel<<<blocks, kWarp * kRowsPerBlock, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+// The refinement path's registers a lane, P, on a ladder: the first rung
+// at or above ceil((k + W) / 32).  N = 0 is the rounds template.
+template <int N>
+cudaError_t launch_ladder(const Args& a, bool mixed, cudaStream_t stream) {
+  const int need = (a.k + a.w + kWarp - 1) / kWarp;
+  auto go = [&](auto p) {
+    constexpr int kP = decltype(p)::value;
+    if constexpr (N == 0) {
+      return launch_rounds<kP>(a, mixed, stream);
+    } else {
+      return launch_queue<N, kP>(a, mixed, stream);
+    }
+  };
+  // k <= 32 N and k + W >= k + 1 set the lowest rung each N can need.
+  if constexpr (N == 1) {
+    if (need <= 1) return go(std::integral_constant<int, 1>());
+  }
+  if constexpr (N >= 1 && N <= 2) {
+    if (need <= 2) return go(std::integral_constant<int, 2>());
+  }
+  if constexpr (N >= 1 && N <= 4) {
+    if (need <= 4) return go(std::integral_constant<int, 4>());
+  }
+  if constexpr (N >= 1) {
+    if (need <= 8) return go(std::integral_constant<int, 8>());
+  }
+  if (need <= 9) return go(std::integral_constant<int, 9>());
+  if (need <= 12) return go(std::integral_constant<int, 12>());
+  if (need <= 16) return go(std::integral_constant<int, 16>());
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -227,26 +363,30 @@ int fused_scan_merge_f32(const void* qx, const void* qy, const void* cx,
                          void* out_i, int q, int w, int k, int iters,
                          int mixed, float hi_mul, float hi_add, float slop_mul,
                          float tiny, float widen, void* stream) {
-  const int p = (k + w + kWarp - 1) / kWarp;
-#define FSM_CASE(PP)                                                         \
-  case PP:                                                                   \
-    return static_cast<int>(launch<PP>(                                      \
-        static_cast<const float*>(qx), static_cast<const float*>(qy),        \
-        static_cast<const float*>(cx), static_cast<const float*>(cy),        \
-        static_cast<const int*>(cids), static_cast<const bool*>(valid),      \
-        static_cast<const float*>(best_d), static_cast<const int*>(best_i),  \
-        static_cast<float*>(out_d), static_cast<int*>(out_i), q, w, k,       \
-        iters, mixed != 0, hi_mul, hi_add, slop_mul, tiny, widen,            \
-        static_cast<cudaStream_t>(stream)));
-  switch (p) {
-    FSM_CASE(1) FSM_CASE(2) FSM_CASE(3) FSM_CASE(4)
-    FSM_CASE(5) FSM_CASE(6) FSM_CASE(7) FSM_CASE(8)
-    FSM_CASE(9) FSM_CASE(10) FSM_CASE(11) FSM_CASE(12)
-    FSM_CASE(13) FSM_CASE(14) FSM_CASE(15) FSM_CASE(16)
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (q <= 0 || w <= 0 || k <= 0 || k + w > fused_scan_merge_max_row())
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{static_cast<const float*>(qx), static_cast<const float*>(qy),
+               static_cast<const float*>(cx), static_cast<const float*>(cy),
+               static_cast<const int*>(cids), static_cast<const bool*>(valid),
+               static_cast<const float*>(best_d),
+               static_cast<const int*>(best_i), static_cast<float*>(out_d),
+               static_cast<int*>(out_i), q, w, k, iters, hi_mul, hi_add,
+               slop_mul, tiny, widen};
+  const bool mx = mixed != 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (k <= 32) {
+    err = launch_ladder<1>(a, mx, s);
+  } else if (k <= 64) {
+    err = launch_ladder<2>(a, mx, s);
+  } else if (k <= 128) {
+    err = launch_ladder<4>(a, mx, s);
+  } else if (k <= 256) {
+    err = launch_ladder<8>(a, mx, s);
+  } else {
+    err = launch_ladder<0>(a, mx, s);
   }
-#undef FSM_CASE
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

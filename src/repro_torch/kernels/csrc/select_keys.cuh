@@ -1,5 +1,6 @@
-// 64-bit selection keys, warp bitonic networks and the merge-path co-rank,
-// shared by topk_select.cu (B4) and merge_topk.cu (B2, B3).
+// 64-bit selection keys, warp bitonic networks, the warp-queue select and
+// the merge-path co-rank, shared by topk_select.cu (B4), fused_scan.cu (B1)
+// and merge_topk.cu (B2, B3).
 //
 // A (d2, id) pair is one unsigned 64-bit key: the f32 distance's bits mapped
 // to an order-preserving u32 in the high word, the i32 id with its sign bit
@@ -22,6 +23,8 @@
 #include <climits>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+#include "warp_select.cuh"
 
 namespace {
 
@@ -131,6 +134,96 @@ __device__ __forceinline__ Key warp_key_at(const Key (&q)[N], int e) {
     v |= q[r] & (0ull - static_cast<Key>(r == e / 32));
   }
   return __shfl_sync(0xffffffffu, v, e % 32);
+}
+
+// ---- The warp-queue select (WarpSelect; Johnson, Douze and Jegou,
+// "Billion-scale similarity search with GPUs", 2017, section 4) of one
+// warp's row of c columns: leaves in q the 32 * N smallest keys of the
+// row, ascending, register-major (kNoKey past the row's end).
+// - The first 32 * N columns fill the queue, and one warp bitonic sort
+//   orders them.
+// - The rest of the row streams in coalesced 32-wide slabs, kSlabs slabs
+//   asked for before any is used.  The queue's min(k, 32 * N)-th key is a
+//   threshold held by every lane; a key enters only if it is below it.  An
+//   equal key is an exact duplicate of a kept pair, so dropping it changes
+//   no output.
+// - Entrants wait in the warp's ring of kRing keys in shared memory, filled
+//   in slab order through a ballot prefix, until 32 of them are there.  A
+//   flush bitonic-sorts those 32 and merges them into the queue
+//   (warp_merge32), then refreshes the threshold; the last flush follows
+//   the last slab.
+// key_at(j), for 0 <= j < c, is column j's key; the lanes ask for
+// neighbouring columns together, so its loads coalesce.
+constexpr int kSlabs = 4;
+constexpr int kRing = 64;
+
+template <int N, class KeyAt>
+__device__ __forceinline__ void warp_queue_select(KeyAt&& key_at, int c,
+                                                  int k, Key* ring, int lane,
+                                                  Key (&q)[N]) {
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const int j = kWarp * r + lane;
+    q[r] = j < c ? key_at(j) : kNoKey;
+  }
+  warp_sort<N>(q, lane);
+  const int kth = min(k, kWarp * N) - 1;
+  Key thr = warp_key_at<N>(q, kth);
+
+  int held = 0;  // keys in the ring
+  int head = 0;  // the ring's first key
+  for (int base = kWarp * N; base < c; base += kWarp * kSlabs) {
+    Key x[kSlabs];
+#pragma unroll
+    for (int u = 0; u < kSlabs; ++u) {
+      const int j = base + kWarp * u + lane;
+      x[u] = j < c ? key_at(j) : kNoKey;
+    }
+#pragma unroll
+    for (int u = 0; u < kSlabs; ++u) {
+      const bool take = x[u] < thr;
+      const unsigned m = __ballot_sync(kFull, take);
+      if (m == 0) continue;
+      if (take) {
+        const int at = head + held + __popc(m & ((1u << lane) - 1u));
+        ring[at & (kRing - 1)] = x[u];
+      }
+      held += __popc(m);
+      if (held < kWarp) continue;
+      __syncwarp();
+      Key col[1] = {ring[(head + lane) & (kRing - 1)]};
+      __syncwarp();  // read before the next slab may refill the slot
+      head = (head + kWarp) & (kRing - 1);
+      held -= kWarp;
+      warp_sort<1>(col, lane);
+      warp_merge32<N>(q, col[0], lane);
+      thr = warp_key_at<N>(q, kth);
+    }
+  }
+  if (held > 0) {  // the last flush
+    __syncwarp();
+    Key col[1] = {lane < held ? ring[(head + lane) & (kRing - 1)] : kNoKey};
+    warp_sort<1>(col, lane);
+    warp_merge32<N>(q, col[0], lane);
+  }
+}
+
+// The row's k output pairs from the queue: lane L writes columns L, L + 32,
+// ... (coalesced), (inf, -1) past the queue and wherever the key's d2 is
+// +inf.
+template <int N>
+__device__ __forceinline__ void store_queue(const Key (&q)[N], int k,
+                                            int lane, float* out_d,
+                                            int* out_i) {
+#pragma unroll
+  for (int r = 0; r < N; ++r) {
+    const int j = kWarp * r + lane;
+    if (j < k) key_pair(q[r], out_d[j], out_i[j]);
+  }
+  for (int j = kWarp * N + lane; j < k; j += kWarp) {
+    out_d[j] = CUDART_INF_F;
+    out_i[j] = -1;
+  }
 }
 
 // ---- Merge path over two ascending runs in shared memory.

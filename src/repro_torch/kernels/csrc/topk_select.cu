@@ -9,22 +9,12 @@
 // "Billion-scale similarity search with GPUs", 2017, section 4) over
 // select_keys.cuh's 64-bit (d2, id) keys.
 //
-// Design: one warp per row, 8 rows (one Q_TILE) per block of 256 threads.
-// - The warp queue holds the best W = 32 * N keys seen so far, ascending,
-//   register-major (N keys a lane); W is the ladder's first rung (32, 64,
-//   128, 256) at or above min(k, C).  The first W columns fill it, and one
-//   warp bitonic sort orders them.
-// - The rest of the row streams in coalesced 32-wide slabs, U slabs loaded
-//   before any is used.  The queue's min(k, W)-th key is a threshold held
-//   by every lane; a key enters only if it is below it.  An equal key is an
-//   exact duplicate of a kept pair, so dropping it changes no output.
-// - Entrants wait in a ring of 64 keys a warp in shared memory, filled in
-//   slab order through a ballot prefix, until 32 of them are there.  A
-//   flush bitonic-sorts those 32 and merges them into the queue
-//   (warp_merge32), then refreshes the threshold; the last flush follows
-//   the last slab.
-// - Lane L writes output columns L, L + 32, ... from its queue registers:
-//   coalesced, (inf, -1) past the queue and wherever the key's d2 is +inf.
+// Design: one warp per row, 8 rows (one Q_TILE) per block of 256 threads,
+// through select_keys.cuh's warp_queue_select: a warp queue of the best
+// W = 32 * N keys, W the ladder's first rung (32, 64, 128, 256) at or above
+// min(k, C), fed by 32-wide slabs of the row through a threshold and a
+// shared ring; lane L then writes output columns L, L + 32, ... from its
+// queue registers (store_queue).  fused_scan.cu (B1) runs the same queue.
 // Beyond the ladder (min(k, C) > 256) the launch keeps the rounds template:
 // lane L holds columns L, L + 32, ... (P a lane, C <= 2048) and runs k
 // rounds of warp_select.cuh's lexicographic (d2, id, column) warp argmin.
@@ -39,82 +29,26 @@
 // slabs' keys; up to W = 64 the launch bounds hold them to 32, so 64 warps
 // fit on an SM.
 #include "select_keys.cuh"
-#include "warp_select.cuh"
 
 namespace {
-
-constexpr int kSlabs = 4;  // U: slabs loaded before any is used
 
 template <int N>
 __global__ void __launch_bounds__(kWarp * kRowsPerBlock, N <= 2 ? 8 : 4)
 topk_queue_kernel(const float* __restrict__ d2, const int* __restrict__ ids,
                   float* __restrict__ out_d, int* __restrict__ out_i, int q,
                   int c, int k) {
-  __shared__ Key ring[kRowsPerBlock][64];
+  __shared__ Key ring[kRowsPerBlock][kRing];
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   const int row = blockIdx.x * kRowsPerBlock + warp;
   if (row >= q) return;  // the whole warp leaves together
   const float* drow = d2 + static_cast<size_t>(row) * c;
   const int* irow = ids + static_cast<size_t>(row) * c;
-
   Key wq[N];  // the warp queue
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-    const int j = kWarp * r + lane;
-    wq[r] = j < c ? make_key(drow[j], irow[j]) : kNoKey;
-  }
-  warp_sort<N>(wq, lane);
-  const int kth = min(k, kWarp * N) - 1;
-  Key thr = warp_key_at<N>(wq, kth);
-
-  int held = 0;  // keys in the ring
-  int head = 0;  // the ring's first key
-  for (int base = kWarp * N; base < c; base += kWarp * kSlabs) {
-    Key x[kSlabs];
-#pragma unroll
-    for (int u = 0; u < kSlabs; ++u) {
-      const int j = base + kWarp * u + lane;
-      x[u] = j < c ? make_key(drow[j], irow[j]) : kNoKey;
-    }
-#pragma unroll
-    for (int u = 0; u < kSlabs; ++u) {
-      const bool take = x[u] < thr;
-      const unsigned m = __ballot_sync(kFull, take);
-      if (m == 0) continue;
-      if (take) {
-        const int at = head + held + __popc(m & ((1u << lane) - 1u));
-        ring[warp][at & 63] = x[u];
-      }
-      held += __popc(m);
-      if (held < kWarp) continue;
-      __syncwarp();
-      Key col[1] = {ring[warp][(head + lane) & 63]};
-      __syncwarp();  // read before the next slab may refill the slot
-      head = (head + kWarp) & 63;
-      held -= kWarp;
-      warp_sort<1>(col, lane);
-      warp_merge32<N>(wq, col[0], lane);
-      thr = warp_key_at<N>(wq, kth);
-    }
-  }
-  if (held > 0) {  // the last flush
-    __syncwarp();
-    Key col[1] = {lane < held ? ring[warp][(head + lane) & 63] : kNoKey};
-    warp_sort<1>(col, lane);
-    warp_merge32<N>(wq, col[0], lane);
-  }
-
+  warp_queue_select<N>([&](int j) { return make_key(drow[j], irow[j]); }, c,
+                       k, ring[warp], lane, wq);
   const size_t orow = static_cast<size_t>(row) * k;
-#pragma unroll
-  for (int r = 0; r < N; ++r) {
-    const int j = kWarp * r + lane;
-    if (j < k) key_pair(wq[r], out_d[orow + j], out_i[orow + j]);
-  }
-  for (int j = kWarp * N + lane; j < k; j += kWarp) {
-    out_d[orow + j] = CUDART_INF_F;
-    out_i[orow + j] = -1;
-  }
+  store_queue<N>(wq, k, lane, out_d + orow, out_i + orow);
 }
 
 // The rounds template, for min(k, C) beyond the queue ladder.

@@ -4,7 +4,8 @@
 // registers (P of them).  Each round takes the lexicographic (d2, id,
 // column) minimum of the row with a 5-step shuffle butterfly, records it,
 // and the owning lane masks its entry to +inf.  Rounds stop at the first
-// +inf minimum: everything after it pads with (inf, -1).  This is the
+// +inf minimum: everything after it pads with (inf, -1); a -inf minimum
+// leaves as (-inf, -1).  This is the
 // reference's masked_argmin_rounds (repro/kernels/refine.py:56-88): lowest
 // id on distance ties, then the lowest column.
 #pragma once
@@ -28,7 +29,7 @@ __device__ __forceinline__ bool lex_less(float d1, int i1, int c1, float d2,
 }
 
 // k selection rounds over the warp's row; lane 0 writes round r's pair to
-// sel_d[r] / sel_i[r].  Returns the number of finite pairs selected.
+// sel_d[r] / sel_i[r] (the output row itself, in B1 and B4).  Returns the number of finite pairs selected.
 template <int P>
 __device__ __forceinline__ int warp_select_rounds(float (&d)[P],
                                                   const int (&id)[P], int k,
@@ -60,10 +61,10 @@ __device__ __forceinline__ int warp_select_rounds(float (&d)[P],
         bc = oc;
       }
     }
-    if (isinf(bd)) break;  // only +inf left: the rest pads with (inf, -1)
+    if (bd == inf) break;  // only +inf left: the rest pads with (inf, -1)
     if (lane == 0) {
       sel_d[r] = bd;
-      sel_i[r] = bi;
+      sel_i[r] = isinf(bd) ? -1 : bi;  // -inf leaves with id -1
     }
     if (bc % kWarp == lane) {
       const int owner = bc / kWarp;
@@ -74,20 +75,6 @@ __device__ __forceinline__ int warp_select_rounds(float (&d)[P],
     }
   }
   return r;
-}
-
-// The row's k output pairs: the r selected ones, then (inf, -1); lanes
-// store neighbouring columns.
-__device__ __forceinline__ void store_selected(const float* sel_d,
-                                               const int* sel_i, int r, int k,
-                                               int lane, float* out_d,
-                                               int* out_i) {
-  __syncwarp();
-  for (int j = lane; j < k; j += kWarp) {
-    const bool have = j < r;
-    out_d[j] = have ? sel_d[j] : CUDART_INF_F;
-    out_i[j] = have ? sel_i[j] : -1;
-  }
 }
 
 }  // namespace

@@ -3,11 +3,15 @@
 Replaces the Pallas TPU kernel ``repro/kernels/fused_scan.py::fused_scan_merge``
 (``pl.pallas_call`` at ``fused_scan.py:126``) with the hand-written Hopper
 kernel ``csrc/fused_scan.cu`` (one warp per query row; see the source's
-header for the design).  Bound on an H100: memory — per row it reads
-``W*13 + k*8 + 8`` bytes and writes ``k*8``, about 31 MB per launch at
-Q=8192, W=256, k=32, so about 9.4 us at 3.35 TB/s.  The kernel keeps the
-(k+W) distance row, the histogram and the selection state on chip, so only
-the window and the lists cross device memory.
+header for the design).  Because the refinement counts ranks against the
+bucket edges, the merge of a row of squared distances is its exact
+k-selection, so the kernel runs B4's warp queue (``csrc/select_keys.cuh``)
+fed by the row's distances, and keeps the refinement, the prune and the
+rounds for rows holding a NaN or a negative entry, and for k > 256.  Bound
+on an H100: memory — per row it reads ``W*13 + k*8 + 8`` bytes and writes
+``k*8``, about 31 MB per launch at Q=8192, W=256, k=32, so about 9.4 us at
+3.35 TB/s.  The kernel keeps the (k+W) distance row and the queue on chip,
+so only the window and the lists cross device memory.
 
 :func:`fused_scan_merge` launches the kernel for CUDA tensors (or raises) and
 runs :func:`fused_scan_merge_ref`, the plain PyTorch version, for CPU

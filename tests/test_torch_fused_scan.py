@@ -21,9 +21,10 @@ from repro.kernels import refine as jref
 from repro_torch.kernels import fused_scan as tfs
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import refine as tref
+from repro_torch.runtime import fma
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import edge_lists  # noqa: E402
+from chip_smoke import edge_lists, kernel_inputs, odd_rows  # noqa: E402
 
 torch.set_num_threads(2)
 
@@ -153,6 +154,98 @@ def test_fused_merge_is_exact_on_bucket_edge_lists():
     _bits_equal(li, ti.numpy())
     jd, _ = jops.fused_scan_merge_op(*args, k=k, interpret=True)
     assert np.isinf(np.asarray(jd)[:, k - 1]).all()  # the reference's fault
+
+
+def _nan_rows(case, k):
+    """``_window``'s inputs with a NaN in rows 32..63: a valid window entry
+    (``window``), the same with three valid entries and empty lists
+    (``window_few``), a list entry (``list``), or a list of a NaN and one
+    finite entry with an empty window (``list_few``)."""
+    qx, qy, cx, cy, cids, valid, bd, bi = _window(k, seed=20 + k)
+    rows = slice(32, 64)
+    if case == "window":
+        valid[rows, 3] = True
+        cx[rows, 3] = np.nan
+    elif case == "window_few":
+        valid[rows] = False
+        valid[rows, :3] = True
+        cy[rows, 1] = np.nan
+        bd[rows], bi[rows] = np.inf, -1
+    elif case == "list":
+        bd[rows, k // 2] = np.nan
+    else:
+        valid[rows] = False
+        bd[rows], bi[rows] = np.inf, -1
+        bd[rows, 0] = np.nan
+        if k > 1:
+            bd[rows, 1], bi[rows, 1] = 5.0, 77
+    return qx, qy, cx, cy, cids, valid, bd, bi
+
+
+@pytest.mark.parametrize("case", ["window", "window_few", "list", "list_few"])
+@pytest.mark.parametrize("k", [1, 8, 32])
+def test_nan_rows_match_jax(case, k):
+    """A NaN distance makes the row's lo, interval and radius NaN, as
+    ``jnp.min`` propagates it: with n_valid >= k (entries not +inf, NaN
+    included) the merge empties the row; with fewer, the radius is +inf and
+    only the NaN entries drop.  The port's plain version gives the
+    reference's bits, through the ops, on both precisions."""
+    qx, qy, cx, cy, cids, valid, bd, bi = _nan_rows(case, k)
+    qpos, cpos = np.stack([qx, qy], 1), np.stack([cx, cy], 2)
+    args = (qpos, cpos, cids, valid, bd, bi)
+    n_valid = (~np.isinf(bd)).sum(1) + (valid & ~np.isinf(cx)).sum(1)
+    for precision in ("mixed", "fp32"):
+        jd, ji = jops.fused_scan_merge_op(*args, k=k, precision=precision,
+                                          interpret=True)
+        td, ti = tops.fused_scan_merge_op(*(_t(a) for a in args), k=k,
+                                          precision=precision)
+        _bits_equal(jd, td.numpy())
+        _bits_equal(ji, ti.numpy())
+        assert not np.isnan(td.numpy()).any()
+    # the fp32 run (the last): NaN rows with n_valid >= k come out empty
+    full = np.zeros(Q, bool)
+    full[32:64] = n_valid[32:64] >= k
+    empty = np.isinf(td.numpy()).all(1) & (ti.numpy() == -1).all(1)
+    if case in ("window", "list") or k == 1:
+        assert full[32:64].all()
+    assert empty[full].all()
+    if case == "list_few" and k > 2:
+        np.testing.assert_array_equal(ti.numpy()[32:64, :2],
+                                      [[77, -1]] * 32)
+
+
+_BANDS = {"coincident": 0, "ties": 1, "all_invalid": 2, "few_valid": 3,
+          "bucket_edge": 4, "unsorted_max_last": 5, "unsorted": 6,
+          "random": 11}
+
+
+@pytest.mark.parametrize("band", list(_BANDS))
+@pytest.mark.parametrize("k", [8, 32])
+def test_fused_merge_is_the_k_selection_of_its_row(band, k):
+    """The fact B1's queue path rests on: on rows of squared distances
+    (entries +0 or above, +inf included, no NaN) the fused merge is the k
+    smallest ``(d2, id)`` pairs of ``list ++ window d2``, whatever the
+    order of the list; ``topk_select_ref`` (the two-key sort) computes that
+    selection.  ``chip_smoke.kernel_inputs``' bands: zero distances, ties,
+    all-invalid rows with empty lists, fewer than k valid, full lists on a
+    bucket edge, lists out of order, random rows."""
+    q, w = 256, 64
+    args = kernel_inputs(q, w, k, "cpu", seed=k)
+    qx, qy, cx, cy, cids, valid, bd, bi = args
+    e = q // 16
+    rows = slice(_BANDS[band] * e, q if band == "random" else
+                 (_BANDS[band] + 1) * e)
+    assert not odd_rows(q, "cpu")[rows].any()
+    dx, dy = cx - qx[:, None], cy - qy[:, None]
+    d2 = torch.where(valid, fma(dx, dx, dy * dy), float("inf"))
+    row_d, row_i = torch.cat([bd, d2], 1), torch.cat([bi, cids], 1)
+    assert (row_d[rows] >= 0).all()  # +0 or above, no NaN
+    got = tfs.fused_scan_merge_ref(*args, k=k)
+    want = tops.topk_select_ref(row_d, row_i, k)
+    _bits_equal(got[0][rows].numpy(), want[0][rows].numpy())
+    _bits_equal(got[1][rows].numpy(), want[1][rows].numpy())
+    if band == "all_invalid":
+        assert torch.isinf(got[0][rows]).all()
 
 
 def test_op_pads_ragged_q():

@@ -19,10 +19,12 @@ from repro_torch.kernels import pairwise_dist as tpd
 from repro_torch.kernels import topk_select as ttk
 from repro_torch.kernels.ops import _lex_sort_merge, topk_select_ref
 from repro_torch.kernels.refine import masked_argmin_rounds
+from repro_torch.runtime import fma
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-from chip_smoke import (edge_window, kernel_inputs, merge_inputs,  # noqa: E402
-                        topk_inputs, window_inputs, worst_rows)
+from chip_smoke import (_guarantee, edge_window, kernel_inputs,  # noqa: E402
+                        merge_inputs, odd_rows, same_values, topk_inputs,
+                        window_inputs, worst_rows)
 
 
 @pytest.fixture
@@ -32,13 +34,21 @@ def cuda():
     return torch.device("cuda")
 
 
+# (k, W): the queue's rungs (N = 1, 2, 4, 8), the rounds template (k > 256),
+# and the main path's row (k = 32, W = 256)
+_B1_SHAPES = [(1, 64), (8, 64), (32, 64), (32, 256), (33, 31), (64, 448),
+              (100, 156), (200, 56), (256, 256), (300, 100), (480, 32)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [1, 8, 32])
-def test_fused_scan_kernel_matches_plain_and_exact(cuda, k):
-    """Bitwise equal to the plain version and to the exact two-sort merge,
-    on the edge rows of ``chip_smoke.kernel_inputs`` (bucket-edge lists
-    included for k >= 5)."""
-    args = kernel_inputs(256, 64, k, cuda, seed=k)
+@pytest.mark.parametrize("k,w", _B1_SHAPES)
+def test_fused_scan_kernel_matches_plain_and_exact(cuda, k, w):
+    """Bitwise equal to the plain version on every row of
+    ``chip_smoke.kernel_inputs`` (bucket-edge lists, lists in any order, NaN
+    window and list entries with n_valid on both sides of k, negative
+    entries, -inf and -0), and to the exact two-sort merge on the rows
+    inside its premise."""
+    args = kernel_inputs(256, w, k, cuda, seed=k + w)
     before = tfs.fused_scan_merge.launches
     out_d, out_i = tfs.fused_scan_merge(*args, k=k)
     ref_d, ref_i = tfs.fused_scan_merge_ref(*args, k=k)
@@ -48,7 +58,31 @@ def test_fused_scan_kernel_matches_plain_and_exact(cuda, k):
     qpos = torch.stack(args[:2], 1)
     cpos = torch.stack(args[2:4], 2)
     lex_d, lex_i = _lex_sort_merge(qpos, cpos, *args[4:], k)
-    assert torch.equal(out_d, lex_d) and torch.equal(out_i, lex_i)
+    ok = ~odd_rows(256, cuda)
+    assert torch.equal(out_d[ok], lex_d[ok]) and torch.equal(out_i[ok],
+                                                             lex_i[ok])
+    # a NaN with n_valid >= k empties the row, as in JAX
+    e = 256 // 16
+    n_valid = (~torch.isinf(args[6])).sum(1) + args[5].sum(1)
+    full = torch.zeros(256, dtype=torch.bool, device=cuda)
+    full[7 * e:8 * e] = n_valid[7 * e:8 * e] >= k
+    assert torch.isinf(out_d[full]).all() and (out_i[full] == -1).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,w", [(8, 64), (32, 256), (100, 156)])
+def test_fused_scan_kernel_equals_topk_select_of_its_row(cuda, k, w):
+    """On rows of squared distances, B1 is B4 over ``list ++ window d2``:
+    the two kernels share one warp queue."""
+    args = kernel_inputs(256, w, k, cuda, seed=k, odd=False)
+    qx, qy, cx, cy, cids, valid, bd, bi = args
+    dx, dy = cx - qx[:, None], cy - qy[:, None]
+    d2 = torch.where(valid, fma(dx, dx, dy * dy),
+                     torch.full_like(dx, float("inf")))
+    row_d = torch.cat([bd, d2], 1).contiguous()
+    row_i = torch.cat([bi, cids], 1).contiguous()
+    assert _same(tfs.fused_scan_merge(*args, k=k),
+                 ttk.topk_select(row_d, row_i, k=k))
 
 
 def _same(a, b):
@@ -123,11 +157,12 @@ def test_merge_topk_lists_kernel_matches_plain_and_two_sort(cuda, ka, kb, k):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [1, 8, 32])
-def test_fused_scan_mixed_kernel_matches_plain_and_fp32(cuda, k):
-    """B1's mixed branch, bitwise equal to its plain mixed version and to
-    the fp32 kernel on the same inputs, counted as a mixed launch."""
-    args = kernel_inputs(256, 64, k, cuda, seed=k)
+@pytest.mark.parametrize("k,w", _B1_SHAPES)
+def test_fused_scan_mixed_kernel_matches_plain_and_fp32(cuda, k, w):
+    """B1's mixed branch, bitwise equal to its plain mixed version on every
+    row and to the fp32 kernel on the rows inside the prefilter's premise
+    (``chip_smoke.odd_rows``), counted as a mixed launch."""
+    args = kernel_inputs(256, w, k, cuda, seed=k + w)
     before = (tfs.fused_scan_merge.launches,
               tfs.fused_scan_merge.mixed_launches)
     out = tfs.fused_scan_merge(*args, k=k, precision="mixed")
@@ -137,7 +172,9 @@ def test_fused_scan_mixed_kernel_matches_plain_and_fp32(cuda, k):
             tfs.fused_scan_merge.mixed_launches) == (before[0],
                                                       before[1] + 1)
     assert _same(out, ref)
-    assert _same(out, tfs.fused_scan_merge(*args, k=k))
+    fp32 = tfs.fused_scan_merge(*args, k=k)
+    ok = ~odd_rows(256, cuda, mixed=True)
+    assert _same((out[0][ok], out[1][ok]), (fp32[0][ok], fp32[1][ok]))
 
 
 def _xy(pos):
@@ -155,7 +192,7 @@ def test_pairwise_dist_kernel_matches_plain(cuda, q, c):
     ref = tpd.pairwise_dist_ref(*_xy(qpos), *_xy(ppos), valid)
     torch.cuda.synchronize()
     assert tpd.pairwise_dist.launches == before + 1
-    assert torch.equal(out, ref)
+    assert same_values(out, ref)
 
 
 @pytest.mark.gpu
@@ -167,7 +204,7 @@ def test_pairwise_dist_kernel_takes_unaligned_inputs(cuda):
     px, py = _xy(ppos)
     px, py, v = px[1:129], py[1:129], valid[1:129]
     out = tpd.pairwise_dist(qx, qy, px, py, v)
-    assert torch.equal(out, tpd.pairwise_dist_ref(qx, qy, px, py, v))
+    assert same_values(out, tpd.pairwise_dist_ref(qx, qy, px, py, v))
 
 
 @pytest.mark.gpu
@@ -214,23 +251,61 @@ def test_topk_select_kernel_states_its_width_limit(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 32, 256, 3000])
-def test_bucket_kselect_kernel_matches_plain(cuda, k):
-    """B5 through its op (10% invalid, 40 coincident points), bitwise, and
-    the guarantee on every row; k = 3000 is more than the window holds."""
-    qpos, ppos, valid = window_inputs(4099, 2048, cuda, seed=k)
+@pytest.mark.parametrize("c", [2048, 100, 4096])
+def test_bucket_kselect_kernel_matches_plain(cuda, k, c):
+    """B5 through its op (10% invalid, 40 coincident points, a band of NaN
+    queries, a band at negative coordinates, an invalid NaN candidate),
+    bitwise, NaN where the plain version is, and the guarantee on every row
+    without a NaN distance; k = 3000 is more than a window of 2048 holds.
+    C = 2048 and 100 hold the distances in registers, 4096 recomputes
+    them."""
+    qpos, ppos, valid = window_inputs(4099, c, cuda, seed=k + c)
     before = tbk.bucket_kselect.launches
     out = tops.bucket_kselect_op(qpos, ppos, valid, k=k)
     torch.cuda.synchronize()
     assert tbk.bucket_kselect.launches == before + 1
     qx, qy = _xy(qpos)
     px, py = _xy(ppos)
-    assert torch.equal(out, tbk.bucket_kselect_ref(qx, qy, px, py, valid,
-                                                   k=k))
+    assert same_values(out, tbk.bucket_kselect_ref(qx, qy, px, py, valid,
+                                                 k=k))
     d2 = tpd.pairwise_dist_ref(qx, qy, px, py, valid)
     n_valid = int(valid.sum())
-    assert ((d2 < out[:, None]).sum(1) >= min(k, n_valid)).all()
+    assert _guarantee(d2, out, k, n_valid)
+    assert torch.isnan(out).any() == (n_valid >= k)  # the NaN band
     if n_valid < k:
         assert torch.isinf(out).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["far", "one_spot", "small", "cluster",
+                                  "huge"])
+@pytest.mark.parametrize("k", [1, 32, 256])
+def test_bucket_kselect_kernel_on_skewed_windows(cuda, kind, k):
+    """B5, bitwise, where its kept buckets do not serve and it takes the
+    pass over every entry: the k-th distance in a high bin (all but a few
+    candidates far away), one spot for the whole window (every entry in
+    bin 0, more than 512 of them), a window that fits whole (C = 300), a
+    cluster far smaller than the query region, and coordinates near 1e19
+    (distances that overflow to +inf, an infinite first interval)."""
+    g = torch.Generator(device=cuda).manual_seed(k)
+    q, c = 1024, 300 if kind == "small" else 2048
+    qpos = torch.rand((q, 2), generator=g, device=cuda) * 1000
+    ppos = torch.rand((c, 2), generator=g, device=cuda) * 1000
+    if kind == "far":
+        ppos[k // 2 + 1:] += 1.0e5
+    elif kind == "one_spot":
+        ppos[:] = ppos[0]
+    elif kind == "cluster":
+        ppos = ppos * 0.05 + 500.0
+    elif kind == "huge":
+        qpos, ppos = qpos * 2.0e16, ppos * 2.0e16
+    valid = torch.rand(c, generator=g, device=cuda) < 0.9
+    out = tops.bucket_kselect_op(qpos, ppos, valid, k=k)
+    ref = tbk.bucket_kselect_ref(*_xy(qpos), *_xy(ppos), valid, k=k)
+    assert same_values(out, ref)
+    if kind != "huge":
+        d2 = tpd.pairwise_dist_ref(*_xy(qpos), *_xy(ppos), valid)
+        assert _guarantee(d2, out, k, int(valid.sum()))
 
 
 @pytest.mark.gpu

@@ -187,6 +187,43 @@ def test_bucket_kselect_matches_jax(q, c, coincide, k):
     _bits_equal(got, ref.numpy())
 
 
+@pytest.mark.parametrize("k", [4, 64])
+@pytest.mark.parametrize("case", ["query", "window", "invalid_window",
+                                  "few_valid"])
+def test_bucket_kselect_nan_rows_match_jax(case, k):
+    """A NaN distance makes the row's radius NaN, as ``jnp.min`` /
+    ``jnp.max`` propagate it, unless the window holds fewer than k valid
+    entries (+inf): NaN queries (some rows), a valid NaN candidate (every
+    row), an invalid one (no row: its distance is +inf), and a NaN among
+    three valid candidates.  The port equals the reference through the ops,
+    NaN where it is NaN (a NaN's payload aside), and elsewhere bit for bit
+    where the reference keeps its guarantee."""
+    qpos, ppos, valid = _data(24, 128, seed=7 + k)
+    if case == "query":
+        qpos[::3, 0] = np.nan
+    elif case in ("window", "invalid_window"):
+        ppos[5] = np.nan
+        valid[5] = case == "window"
+    else:
+        valid[:] = False
+        valid[:3] = True
+        ppos[1, 1] = np.nan
+    want = np.asarray(jk.bucket_kselect_op(qpos, ppos, valid, k=k,
+                                           interpret=True))
+    got = tk.bucket_kselect_op(_t(qpos), _t(ppos), _t(valid), k=k).numpy()
+    d2 = np.asarray(jk.pairwise_dist_op(qpos, ppos, valid, interpret=True))
+    nan_row = np.isnan(d2).any(1)
+    assert nan_row.any() == (case != "invalid_window")
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.isnan(got),
+                                  nan_row & (valid.sum() >= k))
+    fin = ~np.isnan(want)
+    ref_ok = fin & _guarantee(np.where(np.isnan(d2), np.inf, d2), want,
+                              valid, k)
+    _bits_equal(want[ref_ok], got[ref_ok])
+    assert _guarantee(d2, got, valid, k)[~nan_row].all()
+
+
 @pytest.mark.parametrize("k", _KS)
 def test_find_kdist_matches_jax(k):
     """Per-row masks (some rows under k valid, one with none)."""
