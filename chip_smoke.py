@@ -25,37 +25,60 @@ Phases, in order; any failure raises and the script exits non-zero:
    partly filled and (inf, id)-padded lists), each bitwise against its
    plain version and the two-sort merge of ``dense_merge`` on the card, and
    timed beside its memory bound and that two-sort merge;
-6. kernel API path (:func:`kernel_api_path`): ``pairwise_dist_op``,
+6. wide templates (:func:`wide_kernel_phase`), past the narrow templates'
+   widths: B1 fp32 and mixed at Q = 8192 with W = 1024, k = 32 and W = 256,
+   k = 512 on :func:`kernel_inputs`' bands; B2 at R = 8, k = 128 and B3 at
+   ka = kb = k = 384 with NaN, -inf, -0 and negative bands; each bitwise
+   against its plain version and timed;
+7. kernel API path (:func:`kernel_api_path`): ``pairwise_dist_op``,
    ``topk_select_op`` and ``bucket_kselect_op`` at the S2 / S3 studies'
    sizes, each bitwise against its kernel's plain version on the card
    (``topk_select`` also against the two-sort merge, and again on its worst
    rows, descending and one-distance, which are timed too;
    ``bucket_kselect`` also against its guarantee on every row without a NaN
-   distance, and NaN where the plain version is) and timed;
+   distance, and NaN where the plain version is) and timed; with them the
+   wide templates of B4 (C = 8192, staged in shared memory, and C =
+   40,000, read from global memory; NaN, -inf, -0 and negative bands) and
+   B5 (C = 16,384, tiled through shared memory);
    then the brute-force baseline ``knn_bruteforce_chunked`` over 128
    queries of the 1M uniform set, on the card bitwise equal to the same
    call on the CPU;
-7. single path: a ``KnnSession`` with ``backend="fused_bucket"`` and the
+8. single path: a ``KnnSession`` with ``backend="fused_bucket"`` and the
    spec defaults over 1,000,000 uniform objects, one query per object: tick
    0, two ticks where 1% of the objects move up to 200 u, then a snapshot of
-   the gaussian (25 hotspots) family at the same N and one more tick after
-   its drift rebuild.  Every tick must launch the kernel, and 1,024 sampled
-   queries per tick must equal a brute-force oracle on the card bit for bit.
-   A ``precision="mixed"`` twin session is fed the same data; on every tick
-   it must launch the mixed kernel (and the fp32 session must not) and
-   equal the fp32 session's lists on every row, its iterations and its
-   candidates;
-8. object-axis paths at the same N, each session beside a ``single`` twin
+   the gaussian (25 hotspots) family at the same N on the stale partition,
+   whose drift rebuild runs at its ``result()`` on a clean buffer, an
+   unchanged tick, and a uniform snapshot on the gaussian partition with a
+   1% move staged while it is in flight, so that its drift rebuild finds
+   the move pending.  Every tick
+   must launch the kernel, and 1,024 sampled queries per tick must equal a
+   brute-force oracle on the card bit for bit.  Two twins are fed the same
+   data and must equal the fp32 session's lists on every row, its
+   iterations and its candidates on every tick: a ``precision="mixed"``
+   twin, which must launch the mixed kernel (and the fp32 session must
+   not), and a ``maintenance="incremental"`` twin, which must report
+   ``incremental`` on the move ticks, launch B1 as often, hold the same
+   index fields after every tick, and take the splice route in the last
+   tick's drift rebuild;
+9. object-axis paths at the same N, each session beside a ``single`` twin
    fed the same data, whose lists it must equal bit for bit on every row of
    every tick: (a) ``object_sharded``, 4 shards, ``equal``, ``fused_multi``
    over uniform, a 1% move and an unchanged (``skip``) tick; (b) ``hybrid``
    (2, 3), ``cost_balanced``, ``fused_merge`` over the gaussian snapshot, a
    1% move and a ``skip`` tick.  ``fused_multi`` must launch once per tick
-   in (a), ``fused_merge`` twice per query shard that owns rows in (b).
+   in (a), ``fused_merge`` twice per query shard that owns rows in (b);
+10. wide sessions at N = 200,000 (:func:`wide_sessions`): specs that
+   raised on the card before the wide templates, each equal to its oracle
+   or twin and launching the wide template it exists for;
+11. incremental object-axis path at N = 200,000
+   (:func:`incremental_object_path`): ``object_sharded`` 4 under
+   ``maintenance="incremental"``, splicing a 1% move and deferring, by the
+   per-shard and the global churn budget, every row equal to a ``single``
+   twin.
 
 Launch counts are zeroed just before each path (each tick, in the single
 path) and read just after, on the path's own session only.  The
-next-to-last line is the kernels' JSON record;
+next-to-last line is the kernels' JSON record, narrow and wide templates;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -269,6 +292,24 @@ def odd_rows(q: int, dev, mixed: bool = False) -> torch.Tensor:
     rows = torch.zeros(q, dtype=torch.bool, device=dev)
     rows[(6 if mixed else 7) * e:11 * e] = True
     return rows
+
+
+def odd_values(d: torch.Tensor) -> torch.Tensor:
+    """A copy of the (Q, C) distances with bands of q // 16 rows from the
+    tenth on: a NaN in column 0 (even rows) or in column C // 2 (odd rows),
+    a -inf and a -0, and negative entries.  Inputs for the wide templates,
+    which take such rows as the plain version does (``masked_argmin_rounds``
+    emits (NaN, INT_MAX) while a NaN is left)."""
+    d = d.clone()
+    q, c = d.shape
+    e = max(1, q // 16)
+    nan = float("nan")
+    d[10 * e:11 * e:2, 0] = nan
+    d[10 * e + 1:11 * e:2, c // 2] = nan
+    d[11 * e:12 * e, c // 3] = -float("inf")
+    d[11 * e:12 * e, c // 4] = -0.0
+    d[12 * e:13 * e] -= 2.0e6
+    return d.contiguous()
 
 
 def merge_inputs(r: int, q: int, k: int, dev, seed: int = 0,
@@ -588,15 +629,13 @@ def _merge_record(name, source_line, q, row, k, out, plain, two_sort,
                   run_kernel, run_plain, run_two_sort, reps):
     """Bitwise checks and times of one merge kernel; row = input columns."""
     max_abs_err = _check_merge(name, out, plain, two_sort)
-    fin = torch.isfinite(plain[0])
     ms = time_ms(run_kernel, reps=reps)
     plain_ms = time_ms(run_plain, reps=3, warmup=1)
     library_ms = time_ms(run_two_sort, reps=5, warmup=1)
-    # bound: each input read once, each output written once; one comparison
-    # per row entry per round, rounds stopping after the last finite pick
+    # bound: each input read once, each output written once; the k smallest
+    # of sorted lists need one comparison per entry read and per output
     nbytes = q * row * 8 + q * k * 8
-    rounds = torch.minimum(fin.sum(1) + 1, torch.tensor(k, device=fin.device))
-    ops = int(rounds.sum()) * row
+    ops = q * (row + k)
     rec = _record(name, "merge_topk.cu",
                   f"src/repro/kernels/merge_topk.py:{source_line}", None, ms,
                   plain_ms, nbytes, ops, library_ms, max_abs_err)
@@ -659,6 +698,112 @@ def merge_kernel_phase(dev, q_multi=1_007_616, q_lists=503_808, k=32):
     return rec_multi, rec_lists
 
 
+def wide_kernel_phase(dev, q_b1=8192, q_merge=65536):
+    """The wide templates of B1 (fp32 and mixed), B2 and B3, past the
+    narrow templates' 512-entry rows: each launched once (its wide counter
+    read), held bitwise against its plain version on every row, and timed
+    beside its bound, the plain version and the two-sort merge.
+    - B1 at Q = ``q_b1`` on :func:`kernel_inputs`' rows (edge, NaN,
+      negative and unsorted bands) at W = 1024, k = 32 and W = 256, k = 512;
+    - B2 at R = 8, k = 128 (``object_sharded`` 8's merge) and B3 at
+      ka = kb = k = 384 (``fused_merge`` at k = 384), Q = ``q_merge``, on
+      :func:`merge_inputs`' edge rows with :func:`odd_values`' NaN, -inf,
+      -0 and negative bands.
+    Returns the records by name (``launches`` filled in from the wide
+    sessions)."""
+    from repro_torch.kernels import fused_scan as fs
+    from repro_torch.kernels import merge_topk as mt
+    from repro_torch.kernels.ops import _lex_sort_merge, topk_select_ref
+
+    recs = {}
+    for w, k in ((1024, 32), (256, 512)):
+        args = kernel_inputs(q_b1, w, k, dev, seed=w + k)
+        for prefix, precision, line in (("fused_scan_merge", "fp32", 126),
+                                        ("fused_scan_merge_mixed", "mixed",
+                                         52)):
+            kw = dict(k=k, precision=precision)
+            name = f"{prefix}_wide_w{w}_k{k}"
+            fs.fused_scan_merge.wide_launches = 0
+            out = fs.fused_scan_merge(*args, **kw)
+            torch.cuda.synchronize()
+            if fs.fused_scan_merge.wide_launches != 1:
+                raise AssertionError(f"{name}: the wide template did not run")
+            ref = fs.fused_scan_merge_ref(*args, **kw)
+            _check_lists(f"{name} != plain version", out, ref)
+            fin = torch.isfinite(ref[0])
+            err = float((out[0][fin] - ref[0][fin]).abs().max())
+            ms = time_ms(lambda: fs.fused_scan_merge(*args, **kw), reps=10)
+            plain_ms = time_ms(lambda: fs.fused_scan_merge_ref(*args, **kw),
+                               reps=1, warmup=1)
+            library_ms = time_ms(lambda: _lex_sort_merge(
+                torch.stack(args[:2], 1), torch.stack(args[2:4], 2),
+                *args[4:], k, precision=precision), reps=3, warmup=1)
+            nbytes = q_b1 * (8 + 13 * w + 8 * k) + q_b1 * 8 * k
+            ops = q_b1 * (6 * w + (k + w))
+            if precision == "mixed":
+                ops += q_b1 * w * 6  # the prefilter
+            recs[name] = _record(
+                name, "fused_scan.cu", f"src/repro/kernels/fused_scan.py:{line}",
+                None, ms, plain_ms, nbytes, ops, library_ms, err,
+                shape=f"Q={q_b1} W={w} k={k}", template="wide")
+            print(f"kernel: {name} Q={q_b1} W={w} k={k} (wide template) "
+                  f"bitwise equal to its plain version on every row (NaN, "
+                  f"negative and unsorted bands included); {ms:.4f} ms "
+                  f"(plain {plain_ms:.3f} ms, two-sort {library_ms:.3f} ms, "
+                  f"bound {recs[name]['bound_ms']:.4f} ms by "
+                  f"{recs[name]['bound_by']})")
+            del out, ref
+        del args
+
+    q = q_merge
+    r, k = 8, 128
+    d, i = merge_inputs(r, q, k, dev, seed=8, inf_ids=True)
+    d_cat = odd_values(d.transpose(0, 1).reshape(q, r * k))
+    i_cat = i.transpose(0, 1).reshape(q, r * k).contiguous()
+    del d, i
+    ka = kb = k3 = 384
+    d, i = merge_inputs(2, q, ka, dev, seed=9, inf_ids=True)
+    lists = (odd_values(d[0]), i[0].contiguous(), d[1].contiguous(),
+             i[1].contiguous())
+    del d, i
+    cat = (torch.cat([lists[0], lists[2]], 1), torch.cat([lists[1], lists[3]],
+                                                         1))
+    for name, fn, run_args, kk, line, row in (
+            ("merge_topk_multi_wide", mt.merge_topk_multi, (d_cat, i_cat), k,
+             75, r * k),
+            ("merge_topk_lists_wide", mt.merge_topk_lists, lists, k3, 119,
+             ka + kb)):
+        fn.wide_launches = 0
+        out = fn(*run_args, k=kk)
+        torch.cuda.synchronize()
+        if fn.wide_launches != 1:
+            raise AssertionError(f"{name}: the wide template did not run")
+        plain_fn = (mt.merge_topk_multi_ref if fn is mt.merge_topk_multi
+                    else mt.merge_topk_lists_ref)
+        ref = plain_fn(*run_args, k=kk)
+        _check_lists(f"{name} != plain version", out, ref)
+        fin = torch.isfinite(ref[0])
+        err = float((out[0][fin] - ref[0][fin]).abs().max())
+        ms = time_ms(lambda: fn(*run_args, k=kk), reps=5)
+        plain_ms = time_ms(lambda: plain_fn(*run_args, k=kk), reps=1,
+                           warmup=1)
+        two = (d_cat, i_cat) if fn is mt.merge_topk_multi else cat
+        library_ms = time_ms(lambda: topk_select_ref(*two, kk), reps=3,
+                             warmup=1)
+        recs[name] = _record(
+            name, "merge_topk.cu", f"src/repro/kernels/merge_topk.py:{line}",
+            None, ms, plain_ms, q * row * 8 + q * kk * 8, q * (row + kk),
+            library_ms, err,
+            shape=f"Q={q} row={row} k={kk}", template="wide")
+        print(f"kernel: {name} Q={q} row={row} k={kk} (wide template) "
+              f"bitwise equal to its plain version on every row (NaN, -inf, "
+              f"-0 and negative bands included); {ms:.4f} ms (plain "
+              f"{plain_ms:.3f} ms, two-sort {library_ms:.3f} ms, bound "
+              f"{recs[name]['bound_ms']:.4f} ms by {recs[name]['bound_by']})")
+        del out, ref
+    return recs
+
+
 def _add_shape(recs: dict, name: str, rec: dict):
     """The first shape of a kernel is its record; later shapes' numbers go
     into the record's ``other_shapes``."""
@@ -691,6 +836,9 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
     defaults; and Q = 8192 rows of C = 2048, S3's window; edge rows) and
     ``bucket_kselect_op`` (Q = 1,000,000 queries against one shared window
     of C = 2048 with 10% invalid and 40 coincident points, k = 32 and 256),
+    and the wide templates: ``topk_select_op`` at C = 8192 (Q = 8192) and
+    C = 40,000 (Q = 2048) with :func:`odd_values`' bands, and
+    ``bucket_kselect_op`` with 65,536 queries against a window of 16,384,
     with every launch count zeroed just before and read just after.  Then
     each output is held bit for bit against its kernel's plain version on
     the card (in row blocks where the plain version's temporaries would be
@@ -701,25 +849,42 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
     from repro_torch.kernels import bucket_kselect as bk
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise_dist as pd
+    from repro_torch.kernels import topk_select as tk
     from repro_torch.kernels.refine import masked_argmin_rounds
 
     n = 1_000_000 if full else 62_500  # the short run also pads Q and C
     q6, c6 = (2048 if full else 256), n
     tk_shapes = ((n, 288), (8192 if full else 1000, 2048))
+    # the wide template: staged in shared memory, and past it
+    tkw_shapes = ((8192 if full else 1024, 8192), (2048 if full else 256,
+                                                   40_000))
     q5, c5, k5s = n, 2048, (k, 256)
+    q5w, c5w = (65536 if full else 8192), 16_384
     qpos6, ppos6, valid6 = window_inputs(q6, c6, dev, seed=6)
     tk_in = [topk_inputs(q, c, k, dev, seed=4 + i)
              for i, (q, c) in enumerate(tk_shapes)]
+    tkw_in = []
+    for i, (q, c) in enumerate(tkw_shapes):
+        d, ids = topk_inputs(q, c, k, dev, seed=10 + i)
+        tkw_in.append((odd_values(d), ids))
     qpos5, ppos5, valid5 = window_inputs(q5, c5, dev, seed=5)
+    qpos5w, ppos5w, valid5w = window_inputs(q5w, c5w, dev, seed=15)
 
     _zero_counts()  # the kernel API path's counts start here
     out6 = ops.pairwise_dist_op(qpos6, ppos6, valid6)
     out4 = [ops.topk_select_op(d, i, k=k) for d, i in tk_in]
+    out4w, wide4 = [], []  # each wide shape's own count
+    for d, i in tkw_in:
+        before = tk.topk_select.wide_launches
+        out4w.append(ops.topk_select_op(d, i, k=k))
+        wide4.append(tk.topk_select.wide_launches - before)
     out5 = [ops.bucket_kselect_op(qpos5, ppos5, valid5, k=kk) for kk in k5s]
+    out5w = ops.bucket_kselect_op(qpos5w, ppos5w, valid5w, k=k)
     torch.cuda.synchronize()
     counts = _read_counts()
-    for name, want in (("pairwise_dist", 1), ("topk_select", 2),
-                       ("bucket_kselect", 2)):
+    for name, want in (("pairwise_dist", 1), ("topk_select", 4),
+                       ("topk_select_wide", 2), ("bucket_kselect", 3),
+                       ("bucket_kselect_wide", 1)):
         if counts[name] != want:
             raise AssertionError(f"kernel API path: {name} launched "
                                  f"{counts[name]} times, want {want}")
@@ -763,17 +928,16 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
         plain = masked_argmin_rounds(d, i, k)
         two_sort = ops.topk_select_ref(d, i, k)
         err = _check_merge(f"topk_select C={c}", out, plain, two_sort)
-        fin = torch.isfinite(plain[0])
         ms = time_ms(lambda: ops.topk_select_op(d, i, k=k), reps=20)
         plain_ms = time_ms(lambda: masked_argmin_rounds(d, i, k), reps=2,
                            warmup=1)
         lib_ms = time_ms(lambda: torch.topk(d, k, dim=1, largest=False),
                          reps=10)
-        rounds = torch.minimum(fin.sum(1) + 1, torch.tensor(k, device=dev))
+        # one comparison per entry read and per output (a selection)
         rec = _record("topk_select", "topk_select.cu",
                       "src/repro/kernels/topk_select.py:49",
-                      counts["topk_select"], ms, plain_ms,
-                      q * c * 8 + q * k * 8, int(rounds.sum()) * c, lib_ms,
+                      counts["topk_select"] - counts["topk_select_wide"], ms,
+                      plain_ms, q * c * 8 + q * k * 8, q * (c + k), lib_ms,
                       err, shape=f"Q={q} C={c} k={k}")
         print(f"kernel: topk_select Q={q} C={c} k={k} bitwise equal to its "
               f"plain version and the two-sort merge; {ms:.4f} ms (plain "
@@ -796,6 +960,33 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
               + ", ".join(f"{w['rows']} {w['ms']:.4f} ms" for w in worst))
         _add_shape(recs, "topk_select", rec)
     del tk_in, out4
+
+    # ---- B4's wide template: bitwise against masked_argmin_rounds on the
+    # edge bands and the NaN, -inf, -0 and negative ones.
+    for (q, c), (d, i), out, launches in zip(tkw_shapes, tkw_in, out4w,
+                                             wide4):
+        name = f"topk_select_wide_c{c}"
+        plain = masked_argmin_rounds(d, i, k)
+        _check_lists(f"{name} != plain version", out, plain)
+        fin = torch.isfinite(plain[0])
+        err = float((out[0][fin] - plain[0][fin]).abs().max())
+        ms = time_ms(lambda: ops.topk_select_op(d, i, k=k), reps=5)
+        plain_ms = time_ms(lambda: masked_argmin_rounds(d, i, k), reps=1,
+                           warmup=1)
+        lib_ms = time_ms(lambda: torch.topk(d, k, dim=1, largest=False),
+                         reps=5)
+        recs[name] = _record(
+            name, "topk_select.cu", "src/repro/kernels/topk_select.py:49",
+            launches, ms, plain_ms, q * c * 8 + q * k * 8, q * (c + k),
+            lib_ms, err, shape=f"Q={q} C={c} k={k}", template="wide",
+            staged=c * 8 <= 227 * 1024)
+        print(f"kernel: {name} Q={q} C={c} k={k} (wide template, "
+              f"{'staged in shared memory' if c * 8 <= 227 * 1024 else 'read from global memory'}) "
+              f"bitwise equal to its plain version (NaN, -inf, -0 and "
+              f"negative bands included); {ms:.4f} ms (plain {plain_ms:.3f} "
+              f"ms, torch.topk {lib_ms:.3f} ms, bound "
+              f"{recs[name]['bound_ms']:.4f} ms by {recs[name]['bound_by']})")
+    del tkw_in, out4w
 
     # ---- B5: bitwise in blocks of 65536 query rows, and the guarantee.
     qx, qy = qpos5[:, 0].contiguous(), qpos5[:, 1].contiguous()
@@ -825,7 +1016,8 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
         plain_ms = time_ms(plain5, reps=1, warmup=1)
         rec = _record("bucket_kselect", "bucket_kselect.cu",
                       "src/repro/kernels/bucket_kselect.py:84",
-                      counts["bucket_kselect"], ms, plain_ms,
+                      counts["bucket_kselect"] - counts["bucket_kselect_wide"],
+                      ms, plain_ms,
                       q5 * 12 + c5 * 9, q5 * c5 * (5 + 3 * 4), None,
                       shape=f"Q={q5} C={c5} k={kk}")
         print(f"kernel: bucket_kselect Q={q5} C={c5} k={kk} bitwise equal to "
@@ -834,6 +1026,45 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
               f"(plain {plain_ms:.3f} ms, bound {rec['bound_ms']:.4f} ms by "
               f"{rec['bound_by']})")
         _add_shape(recs, "bucket_kselect", rec)
+
+    # ---- B5's wide template (the window tiled through shared memory):
+    # bitwise in blocks of 8192 query rows, and the guarantee.
+    qx, qy = qpos5w[:, 0].contiguous(), qpos5w[:, 1].contiguous()
+    px, py = ppos5w[:, 0].contiguous(), ppos5w[:, 1].contiguous()
+    n_valid = int(valid5w.sum())
+    blk = 8192
+
+    def plain5w():
+        return [bk.bucket_kselect_ref(qx[r:r + blk], qy[r:r + blk], px, py,
+                                      valid5w, k=k)
+                for r in range(0, q5w, blk)]
+
+    nan_rows = 0
+    for r, ref in zip(range(0, q5w, blk), plain5w()):
+        if not same_values(out5w[r:r + blk], ref):
+            bad = (out5w[r:r + blk] != ref).nonzero()[:8, 0] + r
+            raise AssertionError(f"bucket_kselect_wide != plain version, "
+                                 f"rows {bad.tolist()}")
+        d2 = pd.pairwise_dist_ref(qx[r:r + blk], qy[r:r + blk], px, py,
+                                  valid5w)
+        if not _guarantee(d2, out5w[r:r + blk], k, n_valid):
+            raise AssertionError("bucket_kselect_wide: the guarantee fails")
+        nan_rows += int(torch.isnan(d2).any(1).sum())
+        del d2
+    ms = time_ms(lambda: ops.bucket_kselect_op(qpos5w, ppos5w, valid5w, k=k),
+                 reps=3)
+    plain_ms = time_ms(plain5w, reps=1, warmup=1)
+    name = "bucket_kselect_wide"
+    recs[name] = _record(
+        name, "bucket_kselect.cu", "src/repro/kernels/bucket_kselect.py:84",
+        counts["bucket_kselect_wide"], ms, plain_ms, q5w * 12 + c5w * 9,
+        q5w * c5w * (5 + 3 * 4), None, shape=f"Q={q5w} C={c5w} k={k}",
+        template="wide")
+    print(f"kernel: {name} Q={q5w} C={c5w} k={k} (wide template, slabs of "
+          f"4096) bitwise equal to its plain version, guarantee "
+          f"held on every row without a NaN distance, NaN on the {nan_rows} "
+          f"with one; {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
+          f"{recs[name]['bound_ms']:.4f} ms by {recs[name]['bound_by']})")
     return recs
 
 
@@ -910,94 +1141,204 @@ def _same_lists(res, ref) -> np.ndarray:
         res.nn_dist.view(np.uint32) != ref.nn_dist.view(np.uint32)).any(1)
 
 
+def _index_fields_equal(a, b) -> list:
+    """The index fields on which two sessions' indexes differ."""
+    return [f for f in ("pos", "ids", "codes", "starts", "pyramid",
+                        "leaf_level")
+            if not torch.equal(getattr(a, f), getattr(b, f))]
+
+
+def _move(g, pos, n: int, share: float, side: float, ids=None):
+    """``share`` of the objects (or ``ids``) moved up to 200 u, clipped to
+    the region: (ids, new positions)."""
+    if ids is None:
+        ids = g.choice(n, int(n * share), replace=False).astype(np.int32)
+    ang = g.uniform(0, 2 * np.pi, ids.size)
+    r = g.uniform(0, 200.0, ids.size)
+    new = pos[ids] + np.stack([np.cos(ang), np.sin(ang)], 1) * r[:, None]
+    return ids, np.clip(new, 0, side - 1e-3).astype(np.float32)
+
+
 def main_path(dev, n: int, seed: int = 0):
-    """The single path, with its ``precision="mixed"`` twin fed the same
-    data; returns the fp32 session's and the twin's B1 launches, and the
-    tick records."""
+    """The single path, with a ``precision="mixed"`` twin and a
+    ``maintenance="incremental"`` twin fed the same data; returns the fp32
+    session's and the mixed twin's B1 launches, and the tick records.
+
+    Ticks 0 to 4 are those of the single path before the incremental twin:
+    a uniform build, two 1% moves, the gaussian snapshot on the stale
+    partition (its drift rebuild finds a clean buffer and only re-decides
+    the leaves) and an unchanged tick.  Tick 5 ingests a uniform snapshot
+    on the gaussian partition, and a 1% move is staged while it is in flight
+    (after its ``submit()``, before its ``result()``), as a serving loop
+    stages one: so its drift rebuild finds the move pending, and the
+    incremental twin takes the splice route there (counted by a spy on the
+    session's ``reindex_objects_delta``), the others ``build_index``.  A
+    tick's wall is its ``submit()`` and its ``result()``; the staged move's
+    ``update_objects`` is timed apart."""
     from repro_torch.api import KnnSession, ServiceSpec
+    from repro_torch.api import session as session_mod
     from repro_torch.data.generators import make_workload
 
     spec = ServiceSpec(backend="fused_bucket")
     g = np.random.default_rng(seed + 1)
     pos = make_workload(n, "uniform", seed=seed, side=spec.side).positions()
     pos = pos.copy()
-    gauss = make_workload(n, "gaussian", seed=seed, side=spec.side,
-                          hotspots=25).positions()
+    snapshots = {
+        3: make_workload(n, "gaussian", seed=seed, side=spec.side,
+                         hotspots=25).positions(),
+        5: make_workload(n, "uniform", seed=seed + 2,
+                         side=spec.side).positions()}
 
     session = KnnSession(spec)  # device=None: the card
     twin = KnnSession(ServiceSpec(backend="fused_bucket", precision="mixed"))
+    inc = KnnSession(ServiceSpec(backend="fused_bucket",
+                                 maintenance="incremental"))
+    sessions = (session, twin, inc)
     handles = []
-    for s in (session, twin):
+    for s in sessions:
         s.ingest_objects(pos)
         handles.append(s.register_queries(pos, np.arange(n, dtype=np.int32)))
 
+    splices = [0]
+    splice = session_mod.reindex_objects_delta
+
+    def spy(*a, **kw):
+        splices[0] += 1
+        return splice(*a, **kw)
+
+    session_mod.reindex_objects_delta = spy
     total = {"fused_scan_merge": 0, "fused_scan_merge_mixed": 0}
     ticks = []
-    plan = ["uniform", "move 1%", "move 1%", "gaussian", "gaussian"]
-    for t, step in enumerate(plan):
-        if step == "move 1%":
-            ids = g.choice(n, n // 100, replace=False).astype(np.int32)
-            ang = g.uniform(0, 2 * np.pi, ids.size)
-            r = g.uniform(0, 200.0, ids.size)
-            new = pos[ids] + np.stack([np.cos(ang), np.sin(ang)], 1) * r[:, None]
-            new = np.clip(new, 0, spec.side - 1e-3).astype(np.float32)
-            pos[ids] = new
-            for s, h in zip((session, twin), handles):
-                s.update_objects(ids, new)
-                s.update_queries(h, pos)
-        elif step == "gaussian" and t == 3:
-            pos = gauss.copy()
-            for s, h in zip((session, twin), handles):
-                s.ingest_objects(pos)
-                s.update_queries(h, pos)
-        _zero_counts()  # the fp32 session's counts of this tick
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        res = session.submit().result()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-        counts = _read_counts()
-        peak = torch.cuda.max_memory_allocated()
-        _zero_counts()  # the mixed twin's counts of this tick
-        t0 = time.perf_counter()
-        res_m = twin.submit().result()
-        wall_ms_m = (time.perf_counter() - t0) * 1e3
-        counts_m = _read_counts()
-        launches = counts["fused_scan_merge"]
-        launches_m = counts_m["fused_scan_merge_mixed"]
-        if launches < 1 or counts["fused_scan_merge_mixed"]:
-            raise AssertionError(f"tick {t}: the fp32 session launched "
-                                 f"{counts}")
-        if launches_m < 1 or counts_m["fused_scan_merge"]:
-            raise AssertionError(f"tick {t}: the mixed twin launched "
-                                 f"{counts_m}")
-        total["fused_scan_merge"] += launches
-        total["fused_scan_merge_mixed"] += launches_m
-        if res.nn_idx.shape != (n, spec.k) or not np.isfinite(
-                res.nn_dist).all():
-            raise AssertionError(f"tick {t}: malformed result")
-        bad = _same_lists(res_m, res)
-        if bad.any() or (res_m.iterations, res_m.candidates) != (
-                res.iterations, res.candidates):
-            raise AssertionError(
-                f"tick {t}: the mixed twin differs from fp32 on "
-                f"{int(bad.sum())} rows, iterations {res_m.iterations} / "
-                f"{res.iterations}, candidates {res_m.candidates} / "
-                f"{res.candidates}")
-        sample = g.choice(n, 1024, replace=False)
-        oracle_check(torch.tensor(pos, device=dev), sample, res.nn_idx,
-                     res.nn_dist, spec.k, dev)
-        rec = {"tick": t, "step": step, "n_objects": n, "wall_ms": wall_ms,
-               "iterations": res.iterations, "candidates": res.candidates,
-               "launches": launches, "rebuilt": res.rebuilt,
-               "maintenance": res.maintenance,
-               "max_memory_allocated": peak,
-               "oracle_rows": 1024, "oracle": "bitwise",
-               "mixed_wall_ms": wall_ms_m, "mixed_launches": launches_m,
-               "mixed_twin": "bitwise, all rows"}
-        print("tick " + json.dumps(rec))
-        ticks.append(rec)
-    session.finalize_pending()
-    twin.finalize_pending()
+    plan = ["uniform", "move 1%", "move 1%", "gaussian", "gaussian",
+            "uniform"]
+    staged_at = len(plan) - 1  # the tick with a move staged in flight
+    drift_splices = 0
+    try:
+        for t, step in enumerate(plan):
+            if step == "move 1%":
+                ids, new = _move(g, pos, n, 0.01, spec.side)
+                pos[ids] = new
+                for s, h in zip(sessions, handles):
+                    s.update_objects(ids, new)
+                    s.update_queries(h, pos)
+            elif t in snapshots:
+                pos = snapshots[t].copy()
+                for s, h in zip(sessions, handles):
+                    s.ingest_objects(pos)
+                    s.update_queries(h, pos)
+            staged = (_move(g, pos, n, 0.01, spec.side) if t == staged_at
+                      else None)
+            runs = []
+            for s in sessions:
+                _zero_counts()  # this session's counts of this tick
+                torch.cuda.reset_peak_memory_stats()
+                before = splices[0]
+                t0 = time.perf_counter()
+                hd = s.submit()
+                submit_s = time.perf_counter() - t0
+                update_ms = None
+                if staged is not None:
+                    t1 = time.perf_counter()
+                    s.update_objects(*staged)
+                    update_ms = (time.perf_counter() - t1) * 1e3
+                t1 = time.perf_counter()
+                res = hd.result()
+                runs.append({"res": res, "handle": hd,
+                             "wall_ms": (submit_s + time.perf_counter()
+                                         - t1) * 1e3,
+                             "update_ms": update_ms,
+                             "counts": _read_counts(),
+                             "peak": torch.cuda.max_memory_allocated(),
+                             "splices": splices[0] - before})
+            r32, rmx, rin = runs
+            res = r32["res"]
+            launches = r32["counts"]["fused_scan_merge"]
+            launches_m = rmx["counts"]["fused_scan_merge_mixed"]
+            for label, run, own, other in (
+                    ("fp32 session", r32, "fused_scan_merge",
+                     "fused_scan_merge_mixed"),
+                    ("mixed twin", rmx, "fused_scan_merge_mixed",
+                     "fused_scan_merge"),
+                    ("incremental twin", rin, "fused_scan_merge",
+                     "fused_scan_merge_mixed")):
+                if run["counts"][own] < 1 or run["counts"][other]:
+                    raise AssertionError(f"tick {t}: the {label} launched "
+                                         f"{run['counts']}")
+            total["fused_scan_merge"] += launches
+            total["fused_scan_merge_mixed"] += launches_m
+            if res.nn_idx.shape != (n, spec.k) or not np.isfinite(
+                    res.nn_dist).all():
+                raise AssertionError(f"tick {t}: malformed result")
+            for label, run in (("mixed", rmx), ("incremental", rin)):
+                other = run["res"]
+                bad = _same_lists(other, res)
+                if bad.any() or (other.iterations, other.candidates) != (
+                        res.iterations, res.candidates):
+                    raise AssertionError(
+                        f"tick {t}: the {label} twin differs from fp32 on "
+                        f"{int(bad.sum())} rows, iterations "
+                        f"{other.iterations} / {res.iterations}, candidates "
+                        f"{other.candidates} / {res.candidates}")
+            if rin["counts"]["fused_scan_merge"] != launches:
+                raise AssertionError(f"tick {t}: the incremental twin "
+                                     f"launched B1 {rin['counts']}, fp32 "
+                                     f"{launches}")
+            # the first build and the unchanged tick skip; a snapshot
+            # re-sorts; a move re-sorts, or splices under the incremental
+            # spec
+            for run, splice_mode in ((r32, "rebuild"), (rmx, "rebuild"),
+                                     (rin, "incremental")):
+                want = ("skip" if t in (0, 4) else
+                        splice_mode if step == "move 1%" else "rebuild")
+                if run["res"].maintenance != want:
+                    raise AssertionError(
+                        f"tick {t}: maintenance {run['res'].maintenance}, "
+                        f"want {want}")
+            drift = r32["handle"].rebuilt_post
+            if any(run["handle"].rebuilt_post != drift for run in runs):
+                raise AssertionError(f"tick {t}: drift rebuilds "
+                                     f"{[r['handle'].rebuilt_post for r in runs]}")
+            # only the incremental twin's drift rebuild with a staged move
+            # splices
+            if rin["splices"] != int(drift and staged is not None) or \
+                    r32["splices"] or rmx["splices"]:
+                raise AssertionError(f"tick {t}: spliced drift rebuilds "
+                                     f"{[r['splices'] for r in runs]}")
+            drift_splices += rin["splices"]
+            diff = _index_fields_equal(session.index, inc.index)
+            if diff:
+                raise AssertionError(f"tick {t}: the incremental twin's index "
+                                     f"differs in {diff}")
+            sample = g.choice(n, 1024, replace=False)
+            oracle_check(torch.tensor(pos, device=dev), sample, res.nn_idx,
+                         res.nn_dist, spec.k, dev)
+            rec = {"tick": t, "step": step, "n_objects": n,
+                   "wall_ms": r32["wall_ms"], "iterations": res.iterations,
+                   "candidates": res.candidates, "launches": launches,
+                   "rebuilt": res.rebuilt, "maintenance": res.maintenance,
+                   "max_memory_allocated": r32["peak"],
+                   "oracle_rows": 1024, "oracle": "bitwise",
+                   "mixed_wall_ms": rmx["wall_ms"],
+                   "mixed_launches": launches_m,
+                   "mixed_twin": "bitwise, all rows",
+                   "incremental_wall_ms": rin["wall_ms"],
+                   "incremental_max_memory_allocated": rin["peak"],
+                   "incremental_maintenance": rin["res"].maintenance,
+                   "incremental_drift_splice": rin["splices"],
+                   "incremental_twin": "bitwise, all rows and index fields"}
+            if staged is not None:
+                rec["staged_move_update_ms"] = [r["update_ms"] for r in runs]
+            print("tick " + json.dumps(rec))
+            ticks.append(rec)
+            if staged is not None:  # the move the sessions took in flight
+                pos[staged[0]] = staged[1]
+    finally:
+        session_mod.reindex_objects_delta = splice
+    if n >= 1_000_000 and drift_splices < 1:
+        raise AssertionError("tick 5's drift rebuild did not take the "
+                             "splice route on the incremental twin")
+    for s in sessions:
+        s.finalize_pending()
     return total, ticks
 
 
@@ -1011,10 +1352,15 @@ def _counters():
 
     return {"fused_scan_merge": (fs.fused_scan_merge, "launches"),
             "fused_scan_merge_mixed": (fs.fused_scan_merge, "mixed_launches"),
+            "fused_scan_merge_wide": (fs.fused_scan_merge, "wide_launches"),
             "merge_topk_multi": (mt.merge_topk_multi, "launches"),
+            "merge_topk_multi_wide": (mt.merge_topk_multi, "wide_launches"),
             "merge_topk_lists": (mt.merge_topk_lists, "launches"),
+            "merge_topk_lists_wide": (mt.merge_topk_lists, "wide_launches"),
             "topk_select": (tk.topk_select, "launches"),
+            "topk_select_wide": (tk.topk_select, "wide_launches"),
             "bucket_kselect": (bk.bucket_kselect, "launches"),
+            "bucket_kselect_wide": (bk.bucket_kselect, "wide_launches"),
             "pairwise_dist": (pd.pairwise_dist, "launches")}
 
 
@@ -1125,6 +1471,173 @@ def object_path(dev, n: int, label: str, first: str, seed: int, **plan_kw):
     return totals, ticks
 
 
+def _tick(session):
+    """One tick of ``session``: (result, wall ms, counts, peak memory), its
+    counts zeroed just before and read just after."""
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = session.submit().result()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    return res, wall_ms, _read_counts(), torch.cuda.max_memory_allocated()
+
+
+def wide_sessions(dev, n: int, seed: int = 0):
+    """Specs whose rows pass the narrow templates' widths, at N objects, one
+    query per object, one uniform tick each:
+    (a) ``single`` with ``window=1024`` (B1 wide, k + W = 1056) and its
+        ``precision="mixed"`` twin, against a 1,024-row brute-force oracle;
+    (b) ``single`` with ``k=512`` (B1 wide, k + W = 768) and its mixed twin,
+        against the oracle;
+    (c) ``object_sharded`` 8, ``fused_multi``, k = 128 (B2 wide, R * k =
+        1024) against a ``single`` twin on every row;
+    (d) ``hybrid`` (2, 3), ``cost_balanced``, ``fused_merge``, k = 384 (B3
+        wide, ka + kb = 768) against a ``single`` twin on every row.
+    Returns each wide template's launches on its session."""
+    from repro_torch.api import KnnSession, ServiceSpec
+    from repro_torch.data.generators import make_workload
+
+    side = ServiceSpec().side
+    pos = make_workload(n, "uniform", seed=seed + 3, side=side).positions()
+    qid = np.arange(n, dtype=np.int32)
+    g = np.random.default_rng(seed + 4)
+    launches = {}
+
+    def session(**kw):
+        s = KnnSession(ServiceSpec(backend="fused_bucket", **kw))
+        s.ingest_objects(pos)
+        s.register_queries(pos, qid)
+        return s
+
+    def report(label, res, wall_ms, counts, peak, **extra):
+        rec = {"path": label, "n_objects": n, "wall_ms": wall_ms,
+               "iterations": res.iterations, "candidates": res.candidates,
+               "launches": {k: v for k, v in counts.items() if v},
+               "max_memory_allocated": peak, **extra}
+        print("wide " + json.dumps(rec))
+
+    pos_t = torch.tensor(pos, device=dev)
+    for label, kw in (("single window=1024", dict(window=1024)),
+                      ("single k=512", dict(k=512))):
+        res, wall_ms, counts, peak = _tick(session(**kw))
+        res_m, wall_m, counts_m, _ = _tick(session(precision="mixed", **kw))
+        w = kw.get("window", 256)
+        k = kw.get("k", 32)
+        key = f"w{w}_k{k}"
+        if counts["fused_scan_merge_wide"] < 1 or \
+                counts_m["fused_scan_merge_wide"] < 1:
+            raise AssertionError(f"{label}: the wide template did not run")
+        launches[f"fused_scan_merge_wide_{key}"] = counts[
+            "fused_scan_merge_wide"]
+        launches[f"fused_scan_merge_mixed_wide_{key}"] = counts_m[
+            "fused_scan_merge_wide"]
+        bad = _same_lists(res_m, res)
+        if bad.any() or (res_m.iterations, res_m.candidates) != (
+                res.iterations, res.candidates):
+            raise AssertionError(f"{label}: the mixed twin differs on "
+                                 f"{int(bad.sum())} rows")
+        if res.nn_idx.shape != (n, k) or not np.isfinite(res.nn_dist).all():
+            raise AssertionError(f"{label}: malformed result")
+        oracle_check(pos_t, g.choice(n, 1024, replace=False), res.nn_idx,
+                     res.nn_dist, k, dev)
+        report(label, res, wall_ms, counts, peak, oracle="bitwise, 1024 rows",
+               mixed_wall_ms=wall_m, mixed_twin="bitwise, all rows")
+
+    for label, kernel, kw in (
+            ("object_sharded 8 fused_multi k=128", "merge_topk_multi_wide",
+             dict(k=128, plan="object_sharded", mesh_shape=8,
+                  partitioner="equal", merge="fused_multi")),
+            ("hybrid (2, 3) fused_merge k=384", "merge_topk_lists_wide",
+             dict(k=384, plan="hybrid", mesh_shape=(2, 3),
+                  partitioner="cost_balanced", merge="fused_merge"))):
+        res, wall_ms, counts, peak = _tick(session(**kw))
+        ref, _, _, _ = _tick(session(k=kw["k"]))
+        if counts[kernel] < 1:
+            raise AssertionError(f"{label}: {kernel} never launched")
+        launches[kernel] = counts[kernel]
+        bad = _same_lists(res, ref)
+        if bad.any():
+            raise AssertionError(f"{label}: {int(bad.sum())} rows differ "
+                                 "from the single-plan twin")
+        report(label, res, wall_ms, counts, peak, twin="bitwise, all rows")
+    return launches
+
+
+def incremental_object_path(dev, n: int, seed: int = 0):
+    """``object_sharded`` 4, ``equal``, ``fused_multi`` with
+    ``maintenance="incremental"`` beside a ``single`` rebuild twin, at N
+    objects, one query per object, every row equal to the twin's:
+    the build (``skip``); a 1% move (``incremental``); a move of 30% of one
+    shard's owned rows, all inside its Morton range, which is within the
+    global budget (0.25 N) but over the shard's (0.25 x owned), so the
+    per-shard rule defers it (``rebuild``); a 30% global move, over the
+    global budget (``rebuild``)."""
+    from repro_torch.api import KnnSession, ServiceSpec
+    from repro_torch.core.ticks import shard_churn_over_budget
+    from repro_torch.data.generators import make_workload
+
+    spec = ServiceSpec(backend="fused_bucket", plan="object_sharded",
+                       mesh_shape=4, partitioner="equal", merge="fused_multi",
+                       maintenance="incremental")
+    pos = make_workload(n, "uniform", seed=seed + 5, side=spec.side
+                        ).positions().copy()
+    g = np.random.default_rng(seed + 6)
+    session, twin = KnnSession(spec), KnnSession(ServiceSpec(
+        backend="fused_bucket"))
+    handles = []
+    for s in (session, twin):
+        s.ingest_objects(pos)
+        handles.append(s.register_queries(pos, np.arange(n, dtype=np.int32)))
+    owned = -(-n // 4)
+    steps = [("build", "skip"), ("move 1%", "incremental"),
+             ("one shard's rows", "rebuild"), ("move 30%", "rebuild")]
+    for t, (step, want) in enumerate(steps):
+        ids = None
+        if step == "move 1%":
+            ids, new = _move(g, pos, n, 0.01, spec.side)
+        elif step == "one shard's rows":
+            ids = session.index.ids[: int(0.3 * owned)].cpu().numpy()
+            ids, new = _move(g, pos, n, 0.0, spec.side, ids=ids)
+        elif step == "move 30%":
+            ids, new = _move(g, pos, n, 0.3, spec.side)
+        if ids is not None:
+            pos[ids] = new
+            for s, h in zip((session, twin), handles):
+                s.update_objects(ids, new)
+                s.update_queries(h, pos)
+            in_budget = ids.size <= spec.churn_budget * n
+            over = bool(shard_churn_over_budget(
+                session.index, torch.tensor(np.sort(ids), device=dev), 4,
+                spec.churn_budget, session._obj_bounds))
+            rule = {"move 1%": (True, False), "one shard's rows": (True, True),
+                    "move 30%": (False, True)}[step]
+            if (in_budget, over) != rule:
+                raise AssertionError(f"{step}: global in budget {in_budget}, "
+                                     f"a shard over budget {over}, want "
+                                     f"{rule}")
+        res, wall_ms, counts, peak = _tick(session)
+        ref, ref_ms, _, _ = _tick(twin)
+        if res.maintenance != want:
+            raise AssertionError(f"incremental object path tick {t} ({step}): "
+                                 f"maintenance {res.maintenance}, want {want}")
+        bad = _same_lists(res, ref)
+        if bad.any():
+            raise AssertionError(f"incremental object path tick {t}: "
+                                 f"{int(bad.sum())} rows differ from the "
+                                 "single-plan twin")
+        if counts["fused_scan_merge"] < 1 or counts["merge_topk_multi"] != 1:
+            raise AssertionError(f"incremental object path tick {t}: "
+                                 f"launched {counts}")
+        print("tick " + json.dumps({
+            "path": "incremental object_sharded 4", "tick": t, "step": step,
+            "n_objects": n, "moved": 0 if ids is None else int(ids.size),
+            "maintenance": res.maintenance, "wall_ms": wall_ms,
+            "iterations": res.iterations, "candidates": res.candidates,
+            "launches": {k: v for k, v in counts.items() if v},
+            "max_memory_allocated": peak, "twin_wall_ms": ref_ms,
+            "twin": "bitwise, all rows"}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-objects", type=int, default=1_000_000)
@@ -1155,6 +1668,7 @@ def main() -> int:
             _add_shape(b1, r["name"], r)
     rec, rec_mixed = b1["fused_scan_merge"], b1["fused_scan_merge_mixed"]
     rec_multi, rec_lists = merge_kernel_phase(dev)
+    wide = wide_kernel_phase(dev)
     api = kernel_api_path(dev, full=not args.short_api)
     n = args.n_objects
     baseline_check(dev, n)
@@ -1174,8 +1688,14 @@ def main() -> int:
                 raise AssertionError(f"path {label}: {name} never launched")
     rec_multi["launches"] = counts_a["merge_topk_multi"]
     rec_lists["launches"] = counts_b["merge_topk_lists"]
+    n_wide = min(n, 200_000)
+    for name, count in wide_sessions(dev, n_wide).items():
+        wide[name]["launches"] = count
+    incremental_object_path(dev, n_wide)
     records = [rec, rec_mixed, rec_multi, rec_lists, api["topk_select"],
-               api["bucket_kselect"], api["pairwise_dist"]]
+               api["bucket_kselect"], api["pairwise_dist"],
+               *wide.values(),
+               *(r for name, r in api.items() if "wide" in name)]
     for r in records:
         if not r["launches"] or r["launches"] < 1:
             raise AssertionError(f"{r['name']}: no launch on its path")

@@ -1,11 +1,15 @@
 """KnnSession — the session-oriented serving facade, in PyTorch.
 
-Counterpart of ``repro/api/session.py`` for every plan, with
-``maintenance="rebuild"`` and ``collect="full"``: persistent query groups in a
-padded registry, delta object updates scattered on the device (grouped by
-owning object shard under the object-axis plans), per-query boundary-seed
-weights, and ticks submitted through
-:func:`repro_torch.core.ticks._tick_step`.  Drift-rebuild
+Counterpart of ``repro/api/session.py`` for every plan, both maintenance
+modes and ``collect="full"``: persistent query groups in a padded registry,
+delta object updates scattered on the device (grouped by owning object shard
+under the object-axis plans), per-query boundary-seed weights, and ticks
+submitted through :func:`repro_torch.core.ticks._tick_step`.  Under
+``maintenance="incremental"`` the session keeps the set of objects moved
+since the last index refresh, with each one's position as of that refresh,
+and splices them into the index while they stay within the churn budget
+(``churn_budget`` x N, and on an object-axis plan the same fraction of every
+shard's owned rows); otherwise a tick re-sorts every row.  Drift-rebuild
 bookkeeping is finalized per tick, in submit order, at the earlier of that
 tick's ``result()`` and the next ``submit()``, exactly as the reference does,
 so the sequence of rebuild decisions matches the reference tick for tick.
@@ -21,12 +25,13 @@ import torch
 from ..core.executor import resolve_executor
 from ..core.pipeline import default_max_nav
 from ..core.plan import pad_capacity, pad_queries, resolve_plan
-from ..core.quadtree import build_index, rebuild_zmap
+from ..core.quadtree import build_index, rebuild_zmap, reindex_objects_delta
 from ..core.ticks import (
     _tick_step,
     object_shard_of,
     route_delta,
     scatter_positions,
+    shard_churn_over_budget,
 )
 from ..runtime import resolve_device
 from .handles import QueryHandle, TickHandle
@@ -153,6 +158,21 @@ class KnnSession:
         self._qweight_staged = None  # (ver, padded_len, device tensor)
         # True iff the positions buffer changed since the index was refreshed
         self._positions_dirty = True
+        self._reset_pending()
+
+    def _reset_pending(self):
+        """Forget the delta since the last refresh.
+
+        ``_pending_ids``: the sorted unique ids moved since then (None: not
+        known, after a snapshot ingest or before the first build); the old
+        positions live in ``_pending_old_batches``, gathered on the device
+        before each scatter, and ``_pending_src`` holds each pending id's row
+        of its first touch in their concatenation.
+        """
+        self._pending_ids: np.ndarray | None = None
+        self._pending_src: np.ndarray | None = None
+        self._pending_old_batches: list[torch.Tensor] = []
+        self._pending_old_rows = 0
 
     # ------------------------------------------------------------ state views
     @property
@@ -180,12 +200,16 @@ class KnnSession:
         self._positions = torch.tensor(positions, dtype=torch.float32,
                                        device=self.device)
         self._positions_dirty = True
+        self._reset_pending()  # the delta is unknown: a full refresh follows
 
     def update_objects(self, ids, positions):
         """Delta ingest: scatter ``positions[i]`` to object ``ids[i]`` on device.
 
         Duplicate ids in one batch resolve to the last observation; batches
         are padded to ``spec.delta_pad`` rows with the sentinel id ``N``.
+        Under ``maintenance="incremental"`` the batch's ids join the pending
+        set, each with its position as of the last refresh (the first touch
+        since then wins).
         """
         if self._positions is None:
             raise RuntimeError("update_objects before ingest_objects: the "
@@ -215,6 +239,14 @@ class KnnSession:
                                         np.zeros((pad, 2), np.float32)])
         ids_dev = torch.tensor(ids, device=self.device)
         pos_dev = torch.tensor(positions, device=self.device)
+        tracking = self.spec.maintenance == "incremental" and not (
+            self._positions_dirty and self._pending_ids is None)
+        if tracking:
+            # the positions before this batch's scatter, which writes in
+            # place, in the host order of the deduped ids (before
+            # route_delta reorders them); padding rows read row N - 1,
+            # never used
+            old_batch = self._positions[ids_dev.clamp(max=n - 1).long()]
         if self.plan.object_axis_size > 1 and self._index is not None:
             # grouped by owning object shard: a pure reorder of unique ids
             ids_dev, pos_dev = route_delta(
@@ -222,6 +254,25 @@ class KnnSession:
                 self._obj_bounds,
             )
         self._positions = scatter_positions(self._positions, ids_dev, pos_dev)
+        if tracking:
+            moved = ids[:m]
+            self._pending_old_batches.append(old_batch)
+            src_batch = self._pending_old_rows + np.arange(m, dtype=np.int64)
+            self._pending_old_rows += int(ids.shape[0])
+            if self._pending_ids is None:
+                order = np.argsort(moved)
+                self._pending_ids = moved[order]
+                self._pending_src = src_batch[order]
+            else:
+                # first touch wins for the old position; the id set is a
+                # union, since an object moved twice is one moved row
+                fresh = ~np.isin(moved, self._pending_ids)
+                merged = np.union1d(self._pending_ids, moved)
+                src = np.empty(merged.size, np.int64)
+                src[np.searchsorted(merged, self._pending_ids)] = \
+                    self._pending_src
+                src[np.searchsorted(merged, moved[fresh])] = src_batch[fresh]
+                self._pending_ids, self._pending_src = merged, src
         self._positions_dirty = True
 
     def object_shards(self, ids) -> np.ndarray:
@@ -315,15 +366,49 @@ class KnnSession:
         return self._qweight_staged[2]
 
     # ------------------------------------------------------------ serving
+    def _in_budget(self) -> bool:
+        """A known pending delta within ``churn_budget`` x N, under an
+        incremental spec."""
+        return (self.spec.maintenance == "incremental"
+                and self._pending_ids is not None
+                and self._pending_ids.size
+                <= self.spec.churn_budget * self.num_objects)
+
+    def _assemble_delta(self):
+        """(delta_ids, delta_old_pos) on the device for the pending set.
+
+        The sorted pending ids padded to the ``delta_pad`` granularity with
+        the sentinel id N, and each id's position as of the last refresh,
+        one gather over the captured batches (padding rows read row 0).
+        """
+        n = self.num_objects
+        m = self._pending_ids.size
+        pad = pad_capacity(max(m, 1), self.spec.delta_pad) - m
+        delta_ids = torch.tensor(
+            np.concatenate([self._pending_ids, np.full((pad,), n, np.int32)]),
+            device=self.device)
+        sel = torch.tensor(np.concatenate(
+            [self._pending_src, np.zeros((pad,), np.int64)]),
+            device=self.device)
+        batches = self._pending_old_batches
+        cat = batches[0] if len(batches) == 1 else torch.cat(batches)
+        return delta_ids, cat[sel]
+
     def _build(self):
         """(Re)build the space partition from the current device positions.
 
-        A clean buffer (the index was refreshed from this very buffer) only
-        needs the leaf partition re-decided (``rebuild_zmap``); otherwise the
-        full ``build_index``.  Both give the same bits.
+        Three routes to the same bits: a clean buffer (the index was
+        refreshed from this very buffer) only needs the leaf partition
+        re-decided (``rebuild_zmap``); a known in-budget delta under an
+        incremental spec is spliced in first (``reindex_objects_delta``),
+        then the same; anything else takes the full ``build_index``.
         """
         if self._index is not None and not self._positions_dirty:
             self._index = rebuild_zmap(self._index)
+        elif self._index is not None and self._in_budget():
+            ids_dev, old_dev = self._assemble_delta()
+            self._index = rebuild_zmap(reindex_objects_delta(
+                self._index, self._positions, ids_dev, old_dev))
         else:
             self._index = build_index(
                 self._positions,
@@ -338,6 +423,7 @@ class KnnSession:
         # the boundaries index Morton ranks of the previous partition
         self._obj_bounds = None
         self._positions_dirty = False
+        self._reset_pending()
 
     def _finalize_one(self, h: TickHandle):
         """Read the tick's two bookkeeping scalars and apply the drift policy."""
@@ -387,7 +473,26 @@ class KnnSession:
                                     device=self.device)
         qweight_dev = self._staged_qweight(nq, int(qpos_dev.shape[0]))
         spec = self.spec
-        mode = "rebuild" if self._positions_dirty else "skip"
+        # the maintenance decision, on the host: a clean buffer skips; a
+        # known in-budget delta under an incremental spec splices; anything
+        # else re-sorts every row (the z_map stays, so the drift trigger
+        # fires as under rebuild)
+        delta_ids = delta_old_pos = None
+        if not self._positions_dirty:
+            mode = "skip"
+        elif self._in_budget():
+            mode = "incremental"
+            delta_ids, delta_old_pos = self._assemble_delta()
+            # one shard past churn_budget x its owned rows defers the tick
+            # (one bool read back; the earlier ticks are finalized already)
+            if self.plan.object_axis_size > 1 and bool(
+                    shard_churn_over_budget(
+                        self._index, delta_ids, self.plan.object_axis_size,
+                        spec.churn_budget, self._obj_bounds)):
+                mode = "rebuild"
+                delta_ids = delta_old_pos = None
+        else:
+            mode = "rebuild"
         work = np.inf if self._work_at_build is None else self._work_at_build
         self._index, nn_idx, nn_dist, aux, should_rebuild = _tick_step(
             self._index,
@@ -407,8 +512,11 @@ class KnnSession:
             executor=self.executor,
             plan=self.plan,
             maintenance=mode,
+            delta_ids=delta_ids,
+            delta_old_pos=delta_old_pos,
         )
         self._positions_dirty = False
+        self._reset_pending()
         self._qcost = aux.qcost_next
         self._obj_bounds = (
             aux.object_bounds if self.plan.object_axis_size > 1 else None

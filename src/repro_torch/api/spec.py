@@ -3,11 +3,10 @@
 Same fields and defaults as the reference's ``repro/api/spec.py``, and the
 same eager validation.  Every plan, partitioner and merge backend runs; the
 mesh plans lay ``mesh_shape`` logical shards onto the session's one device.
-Values the port does not run yet raise ``NotImplementedError`` at
-construction, naming the ROADMAP item that ports them:
-``maintenance="incremental"`` (A8) and ``collect`` other than ``"full"``
-(A9b).  Both precisions run: ``"mixed"`` adds the bf16 prefilter to every
-SCAN backend and gives fp32's lists bit for bit.
+Both maintenance modes run.  ``collect`` other than ``"full"`` is not ported
+yet and raises ``NotImplementedError`` at construction, naming its ROADMAP
+item (A9b).  Both precisions run: ``"mixed"`` adds the bf16 prefilter to
+every SCAN backend and gives fp32's lists bit for bit.
 """
 from __future__ import annotations
 
@@ -66,7 +65,6 @@ class ServiceSpec:
         if self.delta_pad < 1:
             raise ValueError(f"delta_pad must be >= 1, got {self.delta_pad}")
         unported = [
-            ("maintenance", self.maintenance == "incremental", "A8"),
             ("collect", self.collect != "full", "A9b"),
         ]
         for field, bad, item in unported:

@@ -1,10 +1,12 @@
-"""PR-quadtree spatial index, build side, in PyTorch.
+"""PR-quadtree spatial index and its maintenance, in PyTorch.
 
 Counterpart of ``repro/core/quadtree.py``: the count pyramid (one bincount at
 the finest level plus ``l_max`` reshape-sums), the leaf levels that form the
 paper's z_map, and the per-cell prefix offsets.  The object order is the
 canonical ``(code, id)`` order: a stable argsort of the id-indexed codes, with
-``ids = order``.
+``ids = order``.  The index is refreshed either by a full re-sort
+(:func:`reindex_objects`) or by splicing only the moved rows into the old
+order (:func:`reindex_objects_delta`); both give the same bits.
 """
 from __future__ import annotations
 
@@ -12,6 +14,8 @@ import dataclasses
 
 import torch
 
+from ..kernels.delta_splice import (gather_splice, searchsorted_pairs,
+                                    sparse_splice_plan)
 from . import morton
 
 __all__ = [
@@ -21,6 +25,8 @@ __all__ = [
     "build_index",
     "rebuild_zmap",
     "reindex_objects",
+    "reindex_objects_delta",
+    "pyramid_delta",
     "leaf_of_points",
     "starts_from_pyramid",
     "local_pyramid_from_starts",
@@ -83,6 +89,28 @@ def _count_pyramid(codes: torch.Tensor, l_max: int) -> torch.Tensor:
     """Quadrant populations at every level, flattened level-major (int32)."""
     counts = torch.bincount(codes.to(torch.int64), minlength=4**l_max)
     return _rollup(counts.to(torch.int32), l_max)
+
+
+def pyramid_delta(pyramid: torch.Tensor, old_codes: torch.Tensor,
+                  new_codes: torch.Tensor, weight: torch.Tensor,
+                  l_max: int) -> torch.Tensor:
+    """The count pyramid after rows move from ``old_codes`` to ``new_codes``.
+
+    ``-weight`` at each old fine cell and ``+weight`` at each new one
+    (``weight`` 1 for a real row, 0 for padding; codes at or above
+    ``4**l_max``, the sentinel, are dropped), then the same reshape-sum
+    rollup as a recount.  Integer adds commute, so it equals the recount of
+    the moved code set bit for bit.
+    """
+    n_fine = 4**l_max
+    fine = torch.cat([pyramid[pyramid_offset(l_max):],
+                      torch.zeros((1,), dtype=pyramid.dtype,
+                                  device=pyramid.device)])
+    weight = weight.to(fine.dtype)
+    for codes, w in ((old_codes, -weight), (new_codes, weight)):
+        at = torch.where((codes >= 0) & (codes < n_fine), codes, n_fine)
+        fine.index_add_(0, at.long(), w)
+    return _rollup(fine[:n_fine], l_max)
 
 
 def starts_from_pyramid(pyramid: torch.Tensor, l_max: int) -> torch.Tensor:
@@ -172,6 +200,83 @@ def reindex_objects(index: QuadtreeIndex, points) -> QuadtreeIndex:
         pos=points[order],
         ids=order.to(torch.int32),
         codes=codes[order],
+        starts=starts_from_pyramid(pyramid, l_max),
+        pyramid=pyramid,
+    )
+
+
+def reindex_objects_delta(index: QuadtreeIndex, points: torch.Tensor,
+                          delta_ids: torch.Tensor,
+                          delta_old_pos: torch.Tensor) -> QuadtreeIndex:
+    """Stage (ii) with work proportional to the delta: the same index as
+    ``reindex_objects(index, points)`` when ``points`` differs from the
+    indexed positions only at ``delta_ids``.
+
+    The moved rows, keyed ``(new code, id)`` and sorted alone, are spliced
+    into the surviving rows of the old order (the sparse plan of
+    ``kernels/delta_splice.py``); each moved row's slot is found by searching
+    its old key, recomputed from ``delta_old_pos``, the position it had when
+    ``index`` was refreshed (bitwise).  The pyramid takes +-1 at the old and
+    new fine cells (:func:`pyramid_delta`); ``leaf_level`` is kept, as
+    ``reindex_objects`` keeps it.
+
+    ``delta_ids`` holds each object id at most once; ids at or past N are
+    sentinel padding, ignored (their old positions are arbitrary).  Where
+    ``4**l_max * (n + 1) + n < 2**31`` the key ``code * (n + 1) + id`` packs
+    into one int32 and one sort and one fused ``searchsorted`` serve, as in
+    the reference; otherwise the pair formulation does (two stable sorts,
+    :func:`~repro_torch.kernels.delta_splice.searchsorted_pairs`).
+    """
+    n = index.n_objects
+    l_max = index.l_max
+    dev = index.device
+    points = points.to(torch.float32)
+    ids = delta_ids.to(torch.int32)
+    p = ids.shape[0]
+    valid = ids < n
+    safe = torch.where(valid, ids, 0).long()
+    sent_code = 4**l_max  # above every real fine code
+    q_ids = torch.where(valid, ids, n)
+    old_codes = torch.where(
+        valid,
+        morton.morton_encode_points(delta_old_pos.to(torch.float32),
+                                    index.origin, index.side, l_max),
+        sent_code)
+    # run B: the moved rows, sorted by (code, id): the only sort in the path
+    new_pos = points[safe]
+    new_codes = morton.morton_encode_points(new_pos, index.origin, index.side,
+                                            l_max)
+    new_codes_m = torch.where(valid, new_codes, sent_code)
+    if 4**l_max * (n + 1) + n < 2**31:
+        # (code, id) packs into one int32 (id < n + 1), whose numeric order
+        # is the lexicographic order
+        mult = n + 1
+        pk_b, perm = torch.sort(new_codes_m * mult + q_ids, stable=True)
+        codes_b = new_codes_m[perm]
+        ids_b = q_ids[perm]
+        # one search, side right: the first half hits existing keys exactly
+        # (rank = slot + 1), the second ranks the new keys for insertion
+        res = torch.searchsorted(index.codes * mult + index.ids,
+                                 torch.cat([old_codes * mult + q_ids, pk_b]),
+                                 right=True, out_int32=True)
+    else:
+        by_id = torch.argsort(q_ids, stable=True)
+        perm = by_id[torch.argsort(new_codes_m[by_id], stable=True)]
+        codes_b = new_codes_m[perm]
+        ids_b = q_ids[perm]
+        res = searchsorted_pairs(index.codes, index.ids,
+                                 torch.cat([old_codes, codes_b]),
+                                 torch.cat([q_ids, ids_b]), side="right")
+    pos_b = new_pos[perm]
+    slots = torch.where(valid, res[:p] - 1, n)
+    src_a, b_src = sparse_splice_plan(slots, res[p:], n)
+    pyramid = pyramid_delta(index.pyramid, old_codes, new_codes_m,
+                            valid.to(torch.int32), l_max)
+    return dataclasses.replace(
+        index,
+        pos=gather_splice(src_a, b_src, index.pos, pos_b),
+        ids=gather_splice(src_a, b_src, index.ids, ids_b),
+        codes=gather_splice(src_a, b_src, index.codes, codes_b),
         starts=starts_from_pyramid(pyramid, l_max),
         pyramid=pyramid,
     )

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/core/ticks.py``: the engine configuration and its
 eager validation, the per-tick result record, the device-side delta scatter
-and its routing by owning object shard, and the per-tick step (index
-refresh, the plan's sweep, the drift check).
+and its routing by owning object shard, the per-shard churn accounting of
+incremental maintenance, and the per-tick step (index refresh, the plan's
+sweep, the drift check).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from ..kernels.ops import merge_backend_names
 from .balance import partitioner_names
 from .executor import QueryExecutor, available_backends, available_precisions
 from .plan import ExecutionPlan, object_shard_capacity, plan_names
-from .quadtree import QuadtreeIndex, reindex_objects
+from .quadtree import QuadtreeIndex, reindex_objects, reindex_objects_delta
 
 __all__ = [
     "TickResult",
@@ -26,6 +27,8 @@ __all__ = [
     "scatter_positions",
     "object_shard_of",
     "route_delta",
+    "delta_shard_counts",
+    "shard_churn_over_budget",
 ]
 
 MAINTENANCE_MODES = ("rebuild", "incremental")
@@ -148,21 +151,29 @@ def _tick_step(index, positions, qpos, qid, qcost, work_at_build,
                rebuild_factor, qweight=None, *, k: int, window: int,
                chunk: int, max_nav: int, max_iters: int,
                executor: QueryExecutor, plan: ExecutionPlan,
-               maintenance: str = "rebuild"):
+               maintenance: str = "rebuild", delta_ids=None,
+               delta_old_pos=None):
     """(index, P_tau, Q_tau) -> (index', nn_idx, nn_dist, aux, should_rebuild).
 
     ``maintenance``: ``"rebuild"`` re-sorts all positions into the existing
-    partition (``reindex_objects``); ``"skip"`` keeps the index, whose order
-    is already current for this very buffer.  The mode and ``qweight`` (the
-    optional (Q,) boundary-seed weights) go on to ``plan.run``.
-    ``work_at_build`` and ``rebuild_factor`` are f32 tensors; the drift rule
-    is the reference's ``candidates > rebuild_factor * work_at_build`` in f32.
+    partition (``reindex_objects``); ``"incremental"`` splices only the
+    ``delta_ids`` rows (sentinel-N padded, unique; ``delta_old_pos`` their
+    positions as of the last refresh) into the old order
+    (``reindex_objects_delta``), the same bits; ``"skip"`` keeps the index,
+    whose order is already current for this very buffer.  The mode and
+    ``qweight`` (the optional (Q,) boundary-seed weights) go on to
+    ``plan.run``.  ``work_at_build`` and ``rebuild_factor`` are f32 tensors;
+    the drift rule is the reference's
+    ``candidates > rebuild_factor * work_at_build`` in f32.
     """
+    if (delta_ids is None) != (maintenance != "incremental"):
+        raise ValueError("delta_ids (and delta_old_pos) go with "
+                         "maintenance='incremental' only")
     if maintenance == "rebuild":
         index = reindex_objects(index, positions)
     elif maintenance == "incremental":
-        raise NotImplementedError(
-            "maintenance='incremental' is not ported yet (ROADMAP item A8)")
+        index = reindex_objects_delta(index, positions, delta_ids,
+                                      delta_old_pos)
     elif maintenance != "skip":
         raise ValueError(f"unknown step maintenance mode {maintenance!r}")
     nn_idx, nn_dist, aux = plan.run(
@@ -201,13 +212,60 @@ def route_delta(index: QuadtreeIndex, ids: torch.Tensor, new_pos: torch.Tensor,
     sort last.  A pure reorder of unique ids, so the scattered buffer is the
     same bits.
     """
+    order = torch.argsort(_shard_or_sentinel(index, ids, num_shards, bounds),
+                          stable=True)
+    return ids[order], new_pos[order]
+
+
+def _shard_or_sentinel(index: QuadtreeIndex, ids: torch.Tensor,
+                       num_shards: int, bounds: torch.Tensor | None):
+    """Each row's owning object shard; ``num_shards`` for a sentinel row
+    (id >= N)."""
     n = index.n_objects
-    live = ids < n
     owner = object_shard_of(index, ids.clamp(0, max(n - 1, 0)), num_shards,
                             bounds)
-    shard = torch.where(live, owner, num_shards)
-    order = torch.argsort(shard, stable=True)
-    return ids[order], new_pos[order]
+    return torch.where(ids < n, owner, num_shards)
+
+
+def delta_shard_counts(index: QuadtreeIndex, ids: torch.Tensor,
+                       num_shards: int,
+                       bounds: torch.Tensor | None = None) -> torch.Tensor:
+    """Pending delta rows per owning object shard, (num_shards,) i32.
+
+    Each valid id of a (sentinel-padded) pending batch counts against the
+    shard that owns it under the live index, the rule :func:`route_delta`
+    sorts by (its source shard); sentinel rows (id >= N) fall into a virtual
+    shard ``num_shards`` that is sliced off.
+    """
+    shard = _shard_or_sentinel(index, ids, num_shards, bounds)
+    return torch.bincount(shard.long(), minlength=num_shards + 1)[
+        :num_shards].to(torch.int32)
+
+
+def shard_churn_over_budget(index: QuadtreeIndex, ids: torch.Tensor,
+                            num_shards: int, budget: float,
+                            bounds: torch.Tensor | None = None
+                            ) -> torch.Tensor:
+    """Does any object shard's pending churn exceed ``budget`` x its owned
+    rows?  A () bool tensor.
+
+    Owned counts come from ``bounds`` (the boundaries the last tick used) or
+    the equal-capacity rule clipped to N.  The comparison is strict, in f32
+    with the f32 product ``budget * owned``: churn exactly at the budget
+    stays incremental, as the session's global ``<=`` rule.
+    """
+    n = index.n_objects
+    counts = delta_shard_counts(index, ids, num_shards, bounds)
+    if bounds is None:
+        cap = object_shard_capacity(n, num_shards)
+        edges = (torch.arange(num_shards + 1, dtype=torch.int32,
+                              device=index.device) * cap).clamp(max=n)
+    else:
+        edges = bounds.to(torch.int32)
+    owned = (edges[1:] - edges[:-1]).to(torch.float32)
+    limit = torch.tensor(budget, dtype=torch.float32,
+                         device=index.device) * owned
+    return (counts.to(torch.float32) > limit).any()
 
 
 def scatter_positions(positions: torch.Tensor, ids: torch.Tensor,

@@ -9,9 +9,10 @@ header).
 It returns the (Q,) radius ``r`` with
 ``count(valid & d2 < r) >= min(k, n_valid)``, or +inf when the whole window
 holds fewer than k valid candidates, or NaN where a valid distance of the
-row is NaN (the reference's ``jnp.min`` propagates it).  The window may
-hold up to ``MAX_WINDOW`` = 4096 candidates on the card; beyond that the
-wrapper raises.
+row is NaN (the reference's ``jnp.min`` propagates it).  A window of more
+than 4096 candidates takes the kernel's wide template, which tiles it
+through shared memory in slabs of 4096, so no width raises; the entry
+point says which template it took.
 
 The refinement counts ranks against the bucket edges, as the port's
 :func:`~repro_torch.kernels.refine.bucket_refine_step` does, so on rows where
@@ -22,7 +23,8 @@ per (query, candidate) pair at ``iters`` = 4.
 
 :func:`bucket_kselect` launches the kernel for CUDA tensors (or raises) and
 runs :func:`bucket_kselect_ref`, the plain PyTorch version, for CPU tensors.
-``bucket_kselect.launches`` counts kernel launches.
+``bucket_kselect.launches`` counts kernel launches,
+``bucket_kselect.wide_launches`` those of the wide template.
 """
 from __future__ import annotations
 
@@ -35,10 +37,9 @@ from .fused_scan import HI_ADD, HI_MUL, NUM_BINS, TINY
 from .pairwise_dist import check_planes, pairwise_dist_ref
 from .refine import bucket_refine_step
 
-__all__ = ["bucket_kselect", "bucket_kselect_ref", "Q_TILE", "MAX_WINDOW"]
+__all__ = ["bucket_kselect", "bucket_kselect_ref", "Q_TILE"]
 
 Q_TILE = 8
-MAX_WINDOW = 4096  # csrc/bucket_kselect.cu: 36 KB of shared memory
 
 
 def bucket_kselect_ref(qx, qy, px, py, valid, *, k: int,
@@ -73,13 +74,7 @@ def _kernel():
         lib.bucket_kselect_f32.restype = ctypes.c_int
         lib.bucket_kselect_f32.argtypes = (
             [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-            + [ctypes.c_float] * 3 + [ctypes.c_void_p])
-        lib.bucket_kselect_max_window.restype = ctypes.c_int
-        lib.bucket_kselect_max_window.argtypes = []
-        if lib.bucket_kselect_max_window() != MAX_WINDOW:
-            raise RuntimeError("bucket_kselect: the kernel's window limit "
-                               f"{lib.bucket_kselect_max_window()} != "
-                               f"{MAX_WINDOW}")
+            + [ctypes.c_float] * 3 + [ctypes.c_void_p] * 2)
         _lib = lib
     return _lib
 
@@ -88,8 +83,8 @@ def bucket_kselect(qx, qy, px, py, valid, *, k: int, num_bins: int = NUM_BINS,
                    iters: int = 4):
     """(Q,) queries x (C,) shared window -> (Q,) f32 k-selection radius.
 
-    ``Q`` must be a multiple of ``Q_TILE``; on the card ``C`` must be at
-    most ``MAX_WINDOW`` and ``num_bins`` 32 (one bin per lane).
+    ``Q`` must be a multiple of ``Q_TILE``; on the card ``num_bins`` must
+    be 32 (one bin per lane).
     """
     q, c, dev = check_planes("bucket_kselect", qx, qy, px, py, valid)
     if q % Q_TILE:
@@ -104,24 +99,26 @@ def bucket_kselect(qx, qy, px, py, valid, *, k: int, num_bins: int = NUM_BINS,
     if num_bins != NUM_BINS:
         raise ValueError(f"bucket_kselect: the kernel has {NUM_BINS} bins, "
                          f"got num_bins={num_bins}")
-    if c > MAX_WINDOW:
-        raise ValueError(f"bucket_kselect: C={c} exceeds the kernel's window "
-                         f"limit MAX_WINDOW={MAX_WINDOW}")
     out = torch.empty((q,), dtype=torch.float32, device=dev)
     if q == 0:
         return out
     lib = _kernel()
+    wide = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.bucket_kselect_f32(qx.data_ptr(), qy.data_ptr(),
                                      px.data_ptr(), py.data_ptr(),
                                      valid.data_ptr(), out.data_ptr(), q, c,
-                                     k, iters, HI_MUL, HI_ADD, TINY, stream)
+                                     k, iters, HI_MUL, HI_ADD, TINY, stream,
+                                     ctypes.byref(wide))
     if err != 0:
         raise RuntimeError(f"bucket_kselect: kernel launch failed with "
                            f"cudaError {err}")
     bucket_kselect.launches += 1
+    if wide.value:
+        bucket_kselect.wide_launches += 1
     return out
 
 
 bucket_kselect.launches = 0
+bucket_kselect.wide_launches = 0

@@ -48,6 +48,14 @@
 //   at 16 warps an SM, slower than recomputing.
 // - lo and hi propagate NaN, as jnp.min / jnp.max and torch's amin / amax
 //   do: a NaN distance makes the row's interval, and its radius, NaN.
+// - Wide template: a window of more than kMaxWindow = 4096 candidates is
+//   tiled through shared memory in slabs of kMaxWindow (the same 36 KB).
+//   The block's 8 warps take 8 rows at a time and make every pass
+//   together, staging each slab in turn: lo / hi, then for each round the
+//   histogram and the edge counts, 1 + 2 * iters passes over the slabs.
+//   It keeps no entries (its kept buffer is bounded at zero): each round
+//   counts over every slab, so it needs no shared memory beyond one slab
+//   and no global scratch.
 // Every multiply, add and divide is an explicit round-to-nearest intrinsic
 // and the build passes --fmad=false.
 //
@@ -373,6 +381,104 @@ bucket_kselect_kernel(const float* __restrict__ qx,
   }
 }
 
+// The wide template (see the header): 8 rows a block at a time, every pass
+// over the window's slabs, each slab staged once a pass for all 8 rows.
+__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
+bucket_kselect_wide_kernel(const float* __restrict__ qx,
+                           const float* __restrict__ qy,
+                           const float* __restrict__ px,
+                           const float* __restrict__ py,
+                           const bool* __restrict__ valid,
+                           float* __restrict__ out, int q, int c, int k,
+                           int iters, float hi_mul, float hi_add, float tiny) {
+  __shared__ float2 sp[kMaxWindow];
+  __shared__ unsigned char sv[kMaxWindow];
+  __shared__ int hist_all[kRowsPerBlock][kBins];
+  int n_valid = 0;
+  for (int base = 0; base < c; base += blockDim.x) {
+    const int j = base + threadIdx.x;
+    n_valid += __syncthreads_count(j < c && valid[j]);
+  }
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  int* hist = hist_all[warp];
+  const float inf = CUDART_INF_F;
+  for (int tile = blockIdx.x; tile < (q + kRowsPerBlock - 1) / kRowsPerBlock;
+       tile += gridDim.x) {
+    const int row = tile * kRowsPerBlock + warp;
+    const bool live = row < q;
+    const float fx = live ? qx[row] : 0.0f;
+    const float fy = live ? qy[row] : 0.0f;
+    // One pass: f over each of the row's entries, slab by slab; every
+    // thread of the block calls it together.
+    auto pass = [&](auto&& f) {
+      for (int s0 = 0; s0 < c; s0 += kMaxWindow) {
+        const int len = min(kMaxWindow, c - s0);
+        __syncthreads();  // the last slab's readers are done
+        for (int j = threadIdx.x; j < len; j += blockDim.x) {
+          sp[j] = make_float2(px[s0 + j], py[s0 + j]);
+          sv[j] = valid[s0 + j];
+        }
+        __syncthreads();
+        Window{sp, sv, len, lane, fx, fy}.each(f);
+      }
+    };
+
+    float lo = inf;
+    float hi0 = -inf;
+    bool nan = false;
+    pass([&](float x) {
+      lo = fminf(lo, x);
+      hi0 = fmaxf(hi0, isinf(x) ? -inf : x);
+      nan |= x != x;
+    });
+#pragma unroll
+    for (int o = kWarp / 2; o > 0; o /= 2) {
+      lo = fminf(lo, __shfl_xor_sync(kFull, lo, o));
+      hi0 = fmaxf(hi0, __shfl_xor_sync(kFull, hi0, o));
+    }
+    if (__any_sync(kFull, nan)) lo = hi0 = CUDART_NAN_F;
+    float flo = lo;
+    float fhi = __fmaf_rn(nan_max(hi0, lo), hi_mul, hi_add);
+    int kth = k;
+    for (int it = 0; it < iters; ++it) {
+      const float width = nan_max(
+          __fdiv_rn(__fsub_rn(fhi, flo), static_cast<float>(kBins)), tiny);
+      hist[lane] = 0;
+      __syncwarp();
+      pass([&](float x) {
+        if ((x >= flo) & (x < fhi)) atomicAdd(&hist[bin_of(x, flo, width)], 1);
+      });
+      __syncwarp();
+      int cum = hist[lane];
+#pragma unroll
+      for (int o = 1; o < kWarp; o *= 2) {
+        const int v = __shfl_up_sync(kFull, cum, o);
+        if (lane >= o) cum += v;
+      }
+      const unsigned ge = __ballot_sync(kFull, cum >= kth);
+      const int sel = ge ? __ffs(ge) - 1 : 0;
+      const float new_lo = __fmaf_rn(static_cast<float>(sel), width, flo);
+      const float new_hi = __fadd_rn(new_lo, width);
+      int lt = 0;
+      int in = 0;
+      pass([&](float x) {
+        lt += (x >= flo) & (x < new_lo);
+        in += (x >= new_lo) & (x < new_hi);
+      });
+      const int below = warp_sum(lt);
+      const int inside = warp_sum(in);
+      if (below < kth && below + inside >= kth) {
+        flo = new_lo;
+        fhi = new_hi;
+        kth -= below;
+      }
+      __syncwarp();  // every lane has read its bin before the next reset
+    }
+    if (live && lane == 0) out[row] = n_valid < k ? inf : fhi;
+  }
+}
+
 struct Args {
   const float* qx;
   const float* qy;
@@ -389,9 +495,13 @@ struct Args {
 // Q_TILE of rows.  Dynamic shared memory: the window, then kCap kept
 // entries a warp.
 cudaError_t launch(const Args& a) {
-  const size_t smem = sizeof(float) * (2 * static_cast<size_t>(a.c) +
-                                       (a.c + 3) / 4 +
-                                       kRowsPerBlock * kCap);
+  const bool wide = a.c > kMaxWindow;
+  const void* fn = wide ? reinterpret_cast<const void*>(bucket_kselect_wide_kernel)
+                        : reinterpret_cast<const void*>(bucket_kselect_kernel);
+  const size_t smem = wide ? 0
+                           : sizeof(float) * (2 * static_cast<size_t>(a.c) +
+                                              (a.c + 3) / 4 +
+                                              kRowsPerBlock * kCap);
   int dev = 0;
   int sms = 0;
   int per_sm = 0;
@@ -399,19 +509,24 @@ cudaError_t launch(const Args& a) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess && smem > 48 * 1024)
-    err = cudaFuncSetAttribute(bucket_kselect_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   if (err == cudaSuccess)
     err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, bucket_kselect_kernel, kWarp * kRowsPerBlock, smem);
+        &per_sm, fn, kWarp * kRowsPerBlock, smem);
   if (err != cudaSuccess) return err;
   const int tiles = (a.q + kRowsPerBlock - 1) / kRowsPerBlock;
   const int fill = sms * (per_sm > 0 ? per_sm : 1);
   const int blocks = tiles < fill ? tiles : fill;
-  bucket_kselect_kernel<<<blocks, kWarp * kRowsPerBlock, smem, a.stream>>>(
-      a.qx, a.qy, a.px, a.py, a.valid, a.out, a.q, a.c, a.k, a.iters,
-      a.hi_mul, a.hi_add, a.tiny);
+  if (wide) {
+    bucket_kselect_wide_kernel<<<blocks, kWarp * kRowsPerBlock, 0, a.stream>>>(
+        a.qx, a.qy, a.px, a.py, a.valid, a.out, a.q, a.c, a.k, a.iters,
+        a.hi_mul, a.hi_add, a.tiny);
+  } else {
+    bucket_kselect_kernel<<<blocks, kWarp * kRowsPerBlock, smem, a.stream>>>(
+        a.qx, a.qy, a.px, a.py, a.valid, a.out, a.q, a.c, a.k, a.iters,
+        a.hi_mul, a.hi_add, a.tiny);
+  }
   return cudaGetLastError();
 }
 
@@ -419,18 +534,17 @@ cudaError_t launch(const Args& a) {
 
 extern "C" {
 
-// Largest shared window the kernel stages.
-int bucket_kselect_max_window() { return kMaxWindow; }
-
 // Returns a cudaError_t (0 = launched).  All pointers are device pointers;
-// qx / qy / out are (q,), px / py / valid (c,); q > 0;
-// 0 < c <= bucket_kselect_max_window(); k > 0, iters >= 0.
+// qx / qy / out are (q,), px / py / valid (c,); q > 0; c > 0; k > 0,
+// iters >= 0.  *wide is set to 1 where the window took the wide template
+// (c > kMaxWindow), else to 0.
 int bucket_kselect_f32(const void* qx, const void* qy, const void* px,
                        const void* py, const void* valid, void* out, int q,
                        int c, int k, int iters, float hi_mul, float hi_add,
-                       float tiny, void* stream) {
-  if (q <= 0 || c <= 0 || c > kMaxWindow || k <= 0 || iters < 0)
+                       float tiny, void* stream, int* wide) {
+  if (q <= 0 || c <= 0 || k <= 0 || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  *wide = c > kMaxWindow;
   const Args a{static_cast<const float*>(qx), static_cast<const float*>(qy),
                static_cast<const float*>(px), static_cast<const float*>(py),
                static_cast<const bool*>(valid), static_cast<float*>(out),

@@ -51,6 +51,14 @@
 //   prune then drops every entry, as the plain version's does, or, with
 //   fewer than k entries below +inf, only the NaN ones.
 // - k > 256 runs the refinement path on every row (the rounds template).
+// - k + W > 512 (the ladder's P = 16 a lane) runs the wide template: one
+//   block of 256 threads a row, the plain version's steps at block level
+//   (block_select.cuh): d2 of the window (+inf where invalid; under MIXED
+//   the bf16 prefilter first), appended to the list, the refinement, the
+//   prune, then the k smallest of what the prune keeps.  Where the row and
+//   its keys fit in shared memory it is staged and the kept entries' keys
+//   are sorted (k + W up to about 9,000 on an H100); else the row is
+//   recomputed from the inputs on every pass and the rounds select.
 //
 // Bound on an H100: memory.  Per row the kernel reads W*13 + k*8 + 8 bytes
 // and writes k*8 (about 3.6 KB + 0.26 KB at W=256, k=32); its arithmetic is
@@ -72,20 +80,12 @@
 
 #include <type_traits>
 
+#include "block_select.cuh"
 #include "select_keys.cuh"
 
 namespace {
 
 constexpr int kBins = 32;  // one histogram bin per lane
-
-// jnp.maximum / jnp.minimum (and torch's amax / amin) propagate NaN.
-__device__ __forceinline__ float nan_max(float a, float b) {
-  return (a != a || b != b) ? CUDART_NAN_F : fmaxf(a, b);
-}
-
-__device__ __forceinline__ float nan_min(float a, float b) {
-  return (a != a || b != b) ? CUDART_NAN_F : fminf(a, b);
-}
 
 struct Args {
   const float* qx;
@@ -297,6 +297,87 @@ fused_scan_rounds_kernel(const Args a) {
   refine_row<P, MIXED>(a, row, lane, hist[warp]);
 }
 
+// The wide template, for k + W beyond the narrow templates' row: one block
+// a row (block_select.cuh), its own kernel so that the narrow templates'
+// launch bounds stay theirs.  Its modes (block_select.cuh's wide_plan):
+// kSort stages the row (8 bytes a column) beside its keys (8 bytes each of
+// p = pow2_at_least(k + W)), refines it there, and sorts the keys of the
+// entries below the prune radius (the pruned ones, NaN among them, are
+// kNoKey: (inf, -1), as the rounds give them); kRounds stages the row,
+// prunes it in place and runs the rounds; kGlobal recomputes the row from
+// the inputs on every pass and runs the rounds.
+template <bool MIXED>
+struct PrunedRow {
+  RowIn<MIXED> in;
+  float radius;
+  __device__ __forceinline__ void entry(int j, float& d, int& id) const {
+    in.entry(j, d, id);
+    if (!(d < radius)) d = CUDART_INF_F;
+  }
+};
+
+template <bool MIXED, Wide MODE>
+__global__ void __launch_bounds__(kBlockThreads)
+fused_scan_wide_kernel(const Args a) {
+  extern __shared__ Key wide_keys[];
+  __shared__ BlockScratch s;
+  const int row = blockIdx.x;
+  const RowIn<MIXED> in(a, row);
+  const int n = a.k + a.w;
+  const RefineConsts rc{a.iters, a.hi_mul, a.hi_add, a.slop_mul, a.tiny};
+  float* out_d = a.out_d + in.brow;
+  int* out_i = a.out_i + in.brow;
+  if constexpr (MODE == Wide::kRounds) {
+    float* sd = reinterpret_cast<float*>(wide_keys);
+    const StagedRow st =
+        stage_row(in, n, sd, reinterpret_cast<int*>(sd + n));
+    const float radius = block_refine_radius(st, n, a.k, rc, s);
+    for (int j = threadIdx.x; j < n; j += kBlockThreads) {
+      if (!(sd[j] < radius)) sd[j] = CUDART_INF_F;  // the prune
+    }
+    __syncthreads();
+    block_rounds(st, n, a.k, out_d, out_i, s);
+  } else if constexpr (MODE == Wide::kSort) {
+    const int p = static_cast<int>(pow2_at_least(n));
+    Key* keys = wide_keys;
+    float* sd = reinterpret_cast<float*>(keys + p);
+    int* si = reinterpret_cast<int*>(sd + n);
+    const StagedRow st = stage_row(in, n, sd, si);
+    const float radius = block_refine_radius(st, n, a.k, rc, s);
+    for (int j = threadIdx.x; j < p; j += kBlockThreads) {
+      keys[j] = j < n && sd[j] < radius ? make_key(sd[j], si[j]) : kNoKey;
+    }
+    __syncthreads();
+    block_sort_keys(keys, p);
+    store_sorted(keys, p, a.k, out_d, out_i);
+  } else {
+    const float radius = block_refine_radius(in, n, a.k, rc, s);
+    block_rounds(PrunedRow<MIXED>{in, radius}, n, a.k, out_d, out_i, s);
+  }
+}
+
+template <bool MIXED>
+cudaError_t launch_wide_as(const Args& a, cudaStream_t stream) {
+  const long long n = static_cast<long long>(a.k) + a.w;
+  const size_t row_bytes = (sizeof(float) + sizeof(int)) * n;
+  WidePlan w;
+  const cudaError_t err =
+      wide_plan(n, a.k, sizeof(Key) * pow2_at_least(n) + row_bytes,
+                row_bytes, sizeof(BlockScratch), w);
+  if (err != cudaSuccess) return err;
+  switch (w.mode) {
+    case Wide::kSort:
+      return launch_wide<fused_scan_wide_kernel<MIXED, Wide::kSort>>(
+          w, a.q, stream, a);
+    case Wide::kRounds:
+      return launch_wide<fused_scan_wide_kernel<MIXED, Wide::kRounds>>(
+          w, a.q, stream, a);
+    default:
+      return launch_wide<fused_scan_wide_kernel<MIXED, Wide::kGlobal>>(
+          w, a.q, stream, a);
+  }
+}
+
 template <int N, int P>
 cudaError_t launch_queue(const Args& a, bool mixed, cudaStream_t stream) {
   const int blocks = (a.q + kRowsPerBlock - 1) / kRowsPerBlock;
@@ -347,23 +428,26 @@ cudaError_t launch_ladder(const Args& a, bool mixed, cudaStream_t stream) {
   return cudaErrorInvalidValue;
 }
 
+// The widest k + W row the narrow templates take (P = 16 elements a lane);
+// a wider row takes the wide template.
+constexpr long long kNarrowRow = kWarp * 16;
+
 }  // namespace
 
 extern "C" {
 
-// Largest k + W one row may hold: P = 16 elements per lane.
-int fused_scan_merge_max_row() { return kWarp * 16; }
-
 // Returns a cudaError_t (0 = launched).  All pointers are device pointers;
-// q, w, k, iters > 0; k + w <= fused_scan_merge_max_row(); mixed != 0 runs
-// the bf16 prefilter with the widening factor `widen`.
+// q, w, k, iters > 0; mixed != 0 runs the bf16 prefilter with the widening
+// factor `widen`.  *wide is set to 1 where the row took the wide template,
+// else to 0.
 int fused_scan_merge_f32(const void* qx, const void* qy, const void* cx,
                          const void* cy, const void* cids, const void* valid,
                          const void* best_d, const void* best_i, void* out_d,
                          void* out_i, int q, int w, int k, int iters,
                          int mixed, float hi_mul, float hi_add, float slop_mul,
-                         float tiny, float widen, void* stream) {
-  if (q <= 0 || w <= 0 || k <= 0 || k + w > fused_scan_merge_max_row())
+                         float tiny, float widen, void* stream,
+                         int* wide) {
+  if (q <= 0 || w <= 0 || k <= 0 || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(qx), static_cast<const float*>(qy),
                static_cast<const float*>(cx), static_cast<const float*>(cy),
@@ -375,7 +459,10 @@ int fused_scan_merge_f32(const void* qx, const void* qy, const void* cx,
   const bool mx = mixed != 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (k <= 32) {
+  *wide = static_cast<long long>(k) + w > kNarrowRow;
+  if (*wide) {
+    err = mx ? launch_wide_as<true>(a, s) : launch_wide_as<false>(a, s);
+  } else if (k <= 32) {
     err = launch_ladder<1>(a, mx, s);
   } else if (k <= 64) {
     err = launch_ladder<2>(a, mx, s);

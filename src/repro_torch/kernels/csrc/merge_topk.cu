@@ -34,10 +34,19 @@
 //   equal keys at every level.
 // There is no float arithmetic, only comparisons, so no rounding hazard.
 //
+// Wide template: a row of more than 512 entries (R * k for merge_topk_multi,
+// ca + cb for merge_topk_lists, or k > 512) goes to block_select.cuh's
+// select_wide_kernel, one block of 256 threads a row: a block bitonic sort
+// of the row's keys in shared memory where they fit, else (and on a row
+// holding a NaN) the plain version's masked_argmin_rounds over the whole
+// row.  It needs no ascending input; merge_topk_multi's C % k == 0 stays
+// the wrapper's precondition on the card.
+//
 // Bound on an H100: memory.  Per row it reads (ca + cb) * 8 bytes and writes
 // k * 8: at Q = 1,007,616, R = 4, k = 32 that is 1.29 GB, about 0.385 ms at
 // 3.35 TB/s.  Each input is read once, neighbouring lanes on neighbouring
 // addresses; the merges cost ceil(log2 R) * k / 32 searches a lane.
+#include "block_select.cuh"
 #include "select_keys.cuh"
 #include "warp_select.cuh"
 
@@ -155,21 +164,31 @@ cudaError_t launch_with_smem(const void* fn, size_t smem) {
   return cudaSuccess;
 }
 
+// The largest row (R * k, or ca + cb) and k a warp stages: 512 entries; a
+// wider row takes the wide template.
+constexpr int kNarrowRow = kWarp * 16;
+
 }  // namespace
 
 extern "C" {
 
-// Largest row (R * k, or ca + cb) a warp stages: 512 entries.
-int merge_topk_max_row() { return kWarp * 16; }
-
 // Returns a cudaError_t (0 = launched).  All pointers are device pointers;
 // d / id are (q, runs * k), out (q, k), each row runs ascending lists of k;
-// q > 0; runs > 0; 0 < runs * k <= merge_topk_max_row().
+// q > 0; runs > 0; k > 0.  *wide is set to 1 where the row took the wide
+// template, else to 0.
 int merge_topk_multi_f32(const void* d, const void* id, int runs,
                          void* out_d, void* out_i, int q, int k,
-                         void* stream) {
-  if (runs <= 0 || k <= 0 || runs * k > merge_topk_max_row())
+                         void* stream, int* wide) {
+  if (runs <= 0 || k <= 0 || static_cast<long long>(runs) * k > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
+  *wide = runs * k > kNarrowRow;
+  if (*wide) {
+    const float* dd = static_cast<const float*>(d);
+    const int* ii = static_cast<const int*>(id);
+    return static_cast<int>(launch_select_wide(
+        dd, ii, runs * k, dd, ii, 0, static_cast<float*>(out_d),
+        static_cast<int*>(out_i), q, k, static_cast<cudaStream_t>(stream)));
+  }
   const size_t smem =
       sizeof(Key) * kRowsPerBlock * (runs + (runs + 1) / 2) * k;
   const cudaError_t err =
@@ -185,12 +204,22 @@ int merge_topk_multi_f32(const void* d, const void* id, int runs,
 
 // Returns a cudaError_t (0 = launched).  All pointers are device pointers;
 // a is (q, ca), b is (q, cb), out (q, k), a and b ascending; q > 0;
-// ca, cb >= 0; 0 < k <= merge_topk_max_row().
+// ca, cb >= 0; k > 0.  *wide is set to 1 where the row took the wide
+// template, else to 0.
 int merge_topk_lists_f32(const void* da, const void* ia, int ca,
                          const void* db, const void* ib, int cb, void* out_d,
-                         void* out_i, int q, int k, void* stream) {
-  if (ca < 0 || cb < 0 || k <= 0 || k > merge_topk_max_row())
+                         void* out_i, int q, int k, void* stream, int* wide) {
+  if (ca < 0 || cb < 0 || k <= 0 ||
+      static_cast<long long>(ca) + cb > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
+  *wide = ca + cb > kNarrowRow || k > kNarrowRow;
+  if (*wide) {
+    return static_cast<int>(launch_select_wide(
+        static_cast<const float*>(da), static_cast<const int*>(ia), ca,
+        static_cast<const float*>(db), static_cast<const int*>(ib), cb,
+        static_cast<float*>(out_d), static_cast<int*>(out_i), q, k,
+        static_cast<cudaStream_t>(stream)));
+  }
   const size_t smem = sizeof(Key) * kRowsPerBlock * 2 * k;
   const cudaError_t err =
       launch_with_smem(reinterpret_cast<const void*>(merge_lists_kernel), smem);

@@ -28,6 +28,13 @@
 // 64-bit compare and one select.  Registers: the queue's 2N and the U
 // slabs' keys; up to W = 64 the launch bounds hold them to 32, so 64 warps
 // fit on an SM.
+//
+// Wide template: C > 2048 goes to block_select.cuh's select_wide_kernel,
+// one block of 256 threads a row: where the row's keys, padded to a power
+// of two, fit in shared memory (C up to 16,384 on an H100) a block bitonic
+// sort of them; beyond, or on a row holding a NaN, masked_argmin_rounds'
+// rounds, reading the row from global memory on every pass.
+#include "block_select.cuh"
 #include "select_keys.cuh"
 
 namespace {
@@ -125,20 +132,28 @@ cudaError_t launch_ladder(const Args& a) {
   return cudaErrorInvalidValue;
 }
 
+// The widest row the narrow templates take (the rounds template's 64 keys
+// a lane); a wider row takes the wide template.
+constexpr int kNarrowWidth = kWarp * 64;
+
 }  // namespace
 
 extern "C" {
 
-// Widest row the kernel takes (the rounds template's 64 keys a lane).
-int topk_select_max_width() { return kWarp * 64; }
-
 // Returns a cudaError_t (0 = launched).  All pointers are device pointers;
-// d2 / ids are (q, c), out (q, k); q > 0; 0 < c <= topk_select_max_width();
-// k > 0.
+// d2 / ids are (q, c), out (q, k); q > 0; c > 0; k > 0.  *wide is set to 1
+// where the row took the wide template, else to 0.
 int topk_select_f32(const void* d2, const void* ids, void* out_d, void* out_i,
-                    int q, int c, int k, void* stream) {
-  if (c <= 0 || k <= 0 || c > topk_select_max_width())
-    return static_cast<int>(cudaErrorInvalidValue);
+                    int q, int c, int k, void* stream, int* wide) {
+  if (c <= 0 || k <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  *wide = c > kNarrowWidth;
+  if (*wide) {
+    const float* dd = static_cast<const float*>(d2);
+    const int* ii = static_cast<const int*>(ids);
+    return static_cast<int>(launch_select_wide(
+        dd, ii, c, dd, ii, 0, static_cast<float*>(out_d),
+        static_cast<int*>(out_i), q, k, static_cast<cudaStream_t>(stream)));
+  }
   const Args a{static_cast<const float*>(d2), static_cast<const int*>(ids),
                static_cast<float*>(out_d), static_cast<int*>(out_i), q, c, k,
                static_cast<cudaStream_t>(stream)};

@@ -11,7 +11,12 @@ rounds for rows holding a NaN or a negative entry, and for k > 256.  Bound
 on an H100: memory — per row it reads ``W*13 + k*8 + 8`` bytes and writes
 ``k*8``, about 31 MB per launch at Q=8192, W=256, k=32, so about 9.4 us at
 3.35 TB/s.  The kernel keeps the (k+W) distance row and the queue on chip,
-so only the window and the lists cross device memory.
+so only the window and the lists cross device memory.  A row wider than
+the narrow templates' 512 (``k + W``) takes the kernel's wide template:
+one thread block a row running the plain version's refinement and prune,
+then a sort of the kept entries' keys or the rounds
+(``csrc/block_select.cuh``), so no width raises.  The kernel's entry point
+says which template it took.
 
 :func:`fused_scan_merge` launches the kernel for CUDA tensors (or raises) and
 runs :func:`fused_scan_merge_ref`, the plain PyTorch version, for CPU
@@ -19,8 +24,10 @@ tensors.  ``precision="mixed"`` first narrows the window by the bf16
 widened-radius prefilter (:func:`~repro_torch.kernels.refine.mixed_prune_keep`,
 the reference's branch at ``fused_scan.py:52``); the pruned entries leave the
 refinement population too, and the merged lists equal fp32's bit for bit.
-``fused_scan_merge.launches`` counts fp32 kernel launches and
-``fused_scan_merge.mixed_launches`` the mixed ones.
+``fused_scan_merge.launches`` counts fp32 kernel launches,
+``fused_scan_merge.mixed_launches`` the mixed ones, and
+``fused_scan_merge.wide_launches`` those of either that took the wide
+template.
 """
 from __future__ import annotations
 
@@ -98,10 +105,8 @@ def _kernel():
             [ctypes.c_void_p] * 10
             + [ctypes.c_int] * 5
             + [ctypes.c_float] * 5
-            + [ctypes.c_void_p]
+            + [ctypes.c_void_p] * 2
         )
-        lib.fused_scan_merge_max_row.restype = ctypes.c_int
-        lib.fused_scan_merge_max_row.argtypes = []
         _lib = lib
     return _lib
 
@@ -154,13 +159,11 @@ def fused_scan_merge(qx, qy, cx, cy, cids, valid, best_d, best_i, *, k: int,
     q, w = cx.shape
     mixed = precision == "mixed"
     lib = _kernel()
-    if k + w > lib.fused_scan_merge_max_row():
-        raise ValueError(f"fused_scan_merge: k + W = {k + w} exceeds the "
-                         f"kernel's row limit {lib.fused_scan_merge_max_row()}")
     out_d = torch.empty((q, k), dtype=torch.float32, device=qx.device)
     out_i = torch.empty((q, k), dtype=torch.int32, device=qx.device)
     if q == 0:
         return out_d, out_i
+    wide = ctypes.c_int(0)
     with torch.cuda.device(qx.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_scan_merge_f32(
@@ -168,7 +171,7 @@ def fused_scan_merge(qx, qy, cx, cy, cids, valid, best_d, best_i, *, k: int,
             cids.data_ptr(), valid.data_ptr(), best_d.data_ptr(),
             best_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             q, w, k, iters, int(mixed), HI_MUL, HI_ADD, SLOP_MUL, TINY,
-            MIXED_WIDEN, stream)
+            MIXED_WIDEN, stream, ctypes.byref(wide))
     if err != 0:
         raise RuntimeError(f"fused_scan_merge: kernel launch failed with "
                            f"cudaError {err}")
@@ -176,8 +179,11 @@ def fused_scan_merge(qx, qy, cx, cy, cids, valid, best_d, best_i, *, k: int,
         fused_scan_merge.mixed_launches += 1
     else:
         fused_scan_merge.launches += 1
+    if wide.value:
+        fused_scan_merge.wide_launches += 1
     return out_d, out_i
 
 
 fused_scan_merge.launches = 0
 fused_scan_merge.mixed_launches = 0
+fused_scan_merge.wide_launches = 0

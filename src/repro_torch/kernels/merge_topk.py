@@ -23,14 +23,19 @@ on those), as every caller's lists are.  ``-0`` and ``+0`` count as equal,
 as the plain version compares them, and a zero distance leaves as ``+0``.
 A warp stages its row in shared memory; each output is found by a
 merge-path co-rank binary search, and ``merge_topk_multi`` merges its R
-lists pairwise in ceil(log2 R) levels.  So on the card ``merge_topk_multi``
-needs the row to be R whole lists of k (C % k == 0) and raises otherwise;
-the plain version on the CPU takes any row.  Bound on an H100: memory,
+lists pairwise in ceil(log2 R) levels.  A row wider than 512 entries (or
+k above it) takes the kernels' wide template instead: one thread block a
+row sorting the row's keys in shared memory, or running the plain
+version's rounds (``csrc/block_select.cuh``), so no width raises; the
+entry point says which template it took.  On the card ``merge_topk_multi`` needs the row to be R
+whole lists of k (C % k == 0) and raises otherwise; the plain version on
+the CPU takes any row.  Bound on an H100: memory,
 ``(row width + k) * 8`` bytes per row (about 0.385 ms for B2 at
 Q = 1,007,616, R = 4, k = 32 at 3.35 TB/s).
 
 CUDA tensors launch a kernel (or raise); CPU tensors run the plain
-version.  Each wrapper counts its kernel launches in ``.launches``.
+version.  Each wrapper counts its kernel launches in ``.launches``, and
+those that took the wide template also in ``.wide_launches``.
 """
 from __future__ import annotations
 
@@ -74,15 +79,14 @@ def _kernel():
         lib.merge_topk_lists_f32.restype = ctypes.c_int
         lib.merge_topk_lists_f32.argtypes = (
             [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] * 2
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+            + [ctypes.c_void_p] * 2
         )
         lib.merge_topk_multi_f32.restype = ctypes.c_int
         lib.merge_topk_multi_f32.argtypes = (
             [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 2
-            + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+            + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
         )
-        lib.merge_topk_max_row.restype = ctypes.c_int
-        lib.merge_topk_max_row.argtypes = []
         _lib = lib
     return _lib
 
@@ -115,15 +119,13 @@ def _check(fn: str, pairs, k: int):
 
 def _launch(wrapper, q: int, dev, k: int, a, b):
     """One kernel launch over the lists ``a`` and ``b`` (``b`` None: the R
-    lists of k side by side in ``a``); counts it on ``wrapper.launches``."""
+    lists of k side by side in ``a``); counts it on ``wrapper.launches``,
+    and on ``wrapper.wide_launches`` where the kernel says it took the
+    wide template."""
     fn = wrapper.__name__
     lib = _kernel()
     ca = a[0].shape[1]
     cb = 0 if b is None else b[0].shape[1]
-    limit = lib.merge_topk_max_row()
-    if ca + cb > limit or k > limit:
-        raise ValueError(f"{fn}: row width {ca + cb} and k={k} must be <= "
-                         f"the kernel's row limit {limit}")
     if b is None and ca % k:
         raise ValueError(f"{fn}: the row's {ca} columns are not whole lists "
                          f"of k={k}; the kernel merges R = C / k ascending "
@@ -133,18 +135,23 @@ def _launch(wrapper, q: int, dev, k: int, a, b):
     if q == 0:
         return out_d, out_i
     outs = (out_d.data_ptr(), out_i.data_ptr())
+    wide = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if b is None:
             err = lib.merge_topk_multi_f32(a[0].data_ptr(), a[1].data_ptr(),
-                                           ca // k, *outs, q, k, stream)
+                                           ca // k, *outs, q, k, stream,
+                                           ctypes.byref(wide))
         else:
             err = lib.merge_topk_lists_f32(
                 a[0].data_ptr(), a[1].data_ptr(), ca,
-                b[0].data_ptr(), b[1].data_ptr(), cb, *outs, q, k, stream)
+                b[0].data_ptr(), b[1].data_ptr(), cb, *outs, q, k, stream,
+                ctypes.byref(wide))
     if err != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with cudaError {err}")
     wrapper.launches += 1
+    if wide.value:
+        wrapper.wide_launches += 1
     return out_d, out_i
 
 
@@ -178,4 +185,6 @@ def merge_topk_lists(d_a, i_a, d_b, i_b, *, k: int):
 
 
 merge_topk_multi.launches = 0
+merge_topk_multi.wide_launches = 0
 merge_topk_lists.launches = 0
+merge_topk_lists.wide_launches = 0

@@ -14,13 +14,16 @@ below the queue's k-th key wait in a shared ring and are merged in by a
 warp bitonic merge 32 at a time.  Its key is ``(d2, id)`` with ``-0`` and
 ``+0`` equal, as the rounds compare them; a zero distance leaves as
 ``+0``.  Where ``min(k, C)`` exceeds 256 it runs k rounds of a
-lexicographic warp argmin instead.  Either way it takes rows up to
-``MAX_WIDTH`` = 2048 columns (S3's window is 2048, the kernel
-micro-benchmark's 1024) and raises beyond it.
+lexicographic warp argmin instead.  Rows wider than 2048 columns (S3's
+window is 2048, the kernel micro-benchmark's 1024) take the wide
+template: one thread block a row, sorting the row's keys or running the
+rounds in shared memory where the row fits and the rounds from global
+memory beyond (``csrc/block_select.cuh``), so no width raises; the entry
+point says which template it took.
 
 :func:`topk_select` launches the kernel for CUDA tensors (or raises) and runs
 the plain version for CPU tensors.  ``topk_select.launches`` counts kernel
-launches.
+launches, ``topk_select.wide_launches`` those of the wide template.
 """
 from __future__ import annotations
 
@@ -30,10 +33,9 @@ import torch
 
 from .refine import masked_argmin_rounds
 
-__all__ = ["topk_select", "Q_TILE", "MAX_WIDTH"]
+__all__ = ["topk_select", "Q_TILE"]
 
 Q_TILE = 8
-MAX_WIDTH = 2048  # csrc/topk_select.cu: the rounds template's 64 a lane
 
 _lib = None
 
@@ -46,12 +48,8 @@ def _kernel():
         lib = load("topk_select.cu")
         lib.topk_select_f32.restype = ctypes.c_int
         lib.topk_select_f32.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.topk_select_max_width.restype = ctypes.c_int
-        lib.topk_select_max_width.argtypes = []
-        if lib.topk_select_max_width() != MAX_WIDTH:
-            raise RuntimeError("topk_select: the kernel's width limit "
-                               f"{lib.topk_select_max_width()} != {MAX_WIDTH}")
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+            + [ctypes.c_void_p] * 2)
         _lib = lib
     return _lib
 
@@ -85,30 +83,30 @@ def topk_select(d2, ids, *, k: int):
     """(Q, C) f32 distances + (Q, C) i32 ids -> ((Q, k) f32, (Q, k) i32).
 
     Ascending ``(d2, id)``, lowest id on ties, ``(inf, -1)`` padded; +inf
-    marks an empty entry.  ``Q`` must be a multiple of ``Q_TILE``; on the
-    card ``C`` must be at most ``MAX_WIDTH``.
+    marks an empty entry.  ``Q`` must be a multiple of ``Q_TILE``.
     """
     q, c, dev = _check(d2, ids, k)
     if dev.type == "cpu":
         return masked_argmin_rounds(d2, ids, k)
-    if c > MAX_WIDTH:
-        raise ValueError(f"topk_select: C={c} exceeds the kernel's width "
-                         f"limit MAX_WIDTH={MAX_WIDTH}")
     out_d = torch.empty((q, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((q, k), dtype=torch.int32, device=dev)
     if q == 0:
         return out_d, out_i
     lib = _kernel()
+    wide = ctypes.c_int(0)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.topk_select_f32(d2.data_ptr(), ids.data_ptr(),
                                   out_d.data_ptr(), out_i.data_ptr(), q, c, k,
-                                  stream)
+                                  stream, ctypes.byref(wide))
     if err != 0:
         raise RuntimeError(f"topk_select: kernel launch failed with "
                            f"cudaError {err}")
     topk_select.launches += 1
+    if wide.value:
+        topk_select.wide_launches += 1
     return out_d, out_i
 
 
 topk_select.launches = 0
+topk_select.wide_launches = 0

@@ -242,11 +242,45 @@ def test_topk_select_kernel_on_worst_rows(cuda, kind, c, k):
     assert _same(out, masked_argmin_rounds(d, i, k))
 
 
+def _odd_band(d, seed=0):
+    """Rows 0-3 of every 16 get a NaN (in column 0, in a later column, in
+    both), a -inf and a -0 in place: masked_argmin_rounds' NaN, -inf and
+    signed-zero rounds, on a copy of ``d``."""
+    d = d.clone()
+    q, c = d.shape
+    nan = float("nan")
+    d[0::16, 0] = nan
+    d[1::16, c // 2] = nan
+    d[2::16, 0] = nan
+    d[2::16, c - 1] = nan
+    d[3::16, c // 3] = -float("inf")
+    d[3::16, c // 4] = -0.0
+    d[4::16] -= 1.0e6  # negative entries
+    return d.contiguous()
+
+
+def _same_nan(a, b):
+    return same_values(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
 @pytest.mark.gpu
-def test_topk_select_kernel_states_its_width_limit(cuda):
-    d, i = topk_inputs(8, ttk.MAX_WIDTH + 1, 4, cuda)
-    with pytest.raises(ValueError, match="MAX_WIDTH"):
-        ttk.topk_select(d, i, k=4)
+@pytest.mark.parametrize("q,c,k", [
+    (64, 2049, 4), (64, 8192, 32), (64, 3000, 300), (32, 5000, 1),
+    (16, 40_000, 32), (16, 30_000, 600)])
+def test_topk_select_wide_template_matches_plain(cuda, q, c, k):
+    """B4 past its narrow templates' 2048 columns: bitwise equal to
+    masked_argmin_rounds on ``chip_smoke.topk_inputs``' edge rows and on
+    NaN, -inf, -0 and negative rows, staged in shared memory and (C of
+    30,000 and more) read from global memory."""
+    d, i = topk_inputs(q, c, k, cuda, seed=c + k)
+    for dd in (d, _odd_band(d)):
+        before = (ttk.topk_select.launches, ttk.topk_select.wide_launches)
+        out = ttk.topk_select(dd, i, k=k)
+        torch.cuda.synchronize()
+        assert (ttk.topk_select.launches,
+                ttk.topk_select.wide_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+        assert _same_nan(out, masked_argmin_rounds(dd, i, k))
 
 
 @pytest.mark.gpu
@@ -322,7 +356,92 @@ def test_bucket_kselect_kernel_on_a_bucket_edge_window(cuda, k):
 
 
 @pytest.mark.gpu
-def test_bucket_kselect_kernel_states_its_window_limit(cuda):
-    qpos, ppos, valid = window_inputs(8, tbk.MAX_WINDOW + 1, cuda)
-    with pytest.raises(ValueError, match="MAX_WINDOW"):
-        tbk.bucket_kselect(*_xy(qpos), *_xy(ppos), valid, k=4)
+@pytest.mark.parametrize("k", [1, 32, 256])
+@pytest.mark.parametrize("c", [4097, 9000, 16_384])
+def test_bucket_kselect_wide_template_matches_plain(cuda, k, c):
+    """B5 past its 4096-candidate window, tiled through shared memory:
+    bitwise equal to the plain version (NaN where it is, on the NaN query
+    band and the negative band of ``chip_smoke.window_inputs``) and the
+    guarantee on every row without a NaN distance."""
+    qpos, ppos, valid = window_inputs(1027, c, cuda, seed=k + c)
+    before = (tbk.bucket_kselect.launches, tbk.bucket_kselect.wide_launches)
+    out = tops.bucket_kselect_op(qpos, ppos, valid, k=k)
+    torch.cuda.synchronize()
+    assert (tbk.bucket_kselect.launches,
+            tbk.bucket_kselect.wide_launches) == (before[0] + 1,
+                                                  before[1] + 1)
+    qx, qy = _xy(qpos)
+    px, py = _xy(ppos)
+    assert same_values(out, tbk.bucket_kselect_ref(qx, qy, px, py, valid,
+                                                 k=k))
+    d2 = tpd.pairwise_dist_ref(qx, qy, px, py, valid)
+    assert _guarantee(d2, out, k, int(valid.sum()))
+    assert torch.isnan(out).any()  # the NaN band
+
+
+# (k, W) past the narrow templates' k + W <= 512: the main path's k with a
+# wide window, k = 512 at window 256, a row past shared memory
+_B1_WIDE = [(32, 1024), (512, 256), (1, 600), (300, 300), (33, 2000),
+            (32, 30_000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "mixed"])
+@pytest.mark.parametrize("k,w", _B1_WIDE)
+def test_fused_scan_wide_template_matches_plain(cuda, k, w, precision):
+    """B1's wide template, fp32 and mixed, bitwise equal to the plain
+    version on every band of ``chip_smoke.kernel_inputs`` (bucket-edge
+    lists, lists in any order, NaN window and list entries, negative
+    entries, -inf and -0), counted as a wide launch."""
+    q = 256 if w < 10_000 else 32
+    args = kernel_inputs(q, w, k, cuda, seed=k + w)
+    before = tfs.fused_scan_merge.wide_launches
+    out = tfs.fused_scan_merge(*args, k=k, precision=precision)
+    torch.cuda.synchronize()
+    assert tfs.fused_scan_merge.wide_launches == before + 1
+    assert _same(out, tfs.fused_scan_merge_ref(*args, k=k,
+                                               precision=precision))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r,k,q", [(8, 128, 1024), (3, 200, 1024),
+                                   (1, 600, 256), (40, 32, 256),
+                                   (250, 128, 16)])
+def test_merge_topk_multi_wide_template_matches_plain(cuda, r, k, q):
+    """B2 past R * k = 512 (R = 8 at k = 128 is object_sharded 8's row; the
+    last shape passes shared memory), bitwise equal to its plain version on
+    ``chip_smoke.merge_inputs``' edge rows and on NaN, -inf, -0 and
+    negative rows, which the wide template takes as the plain version
+    does."""
+    d, i = merge_inputs(r, q, k, cuda, seed=r + k, inf_ids=True)
+    d_cat = d.transpose(0, 1).reshape(q, r * k).contiguous()
+    i_cat = i.transpose(0, 1).reshape(q, r * k).contiguous()
+    for dd in (d_cat, _odd_band(d_cat)):
+        before = tmt.merge_topk_multi.wide_launches
+        out = tmt.merge_topk_multi(dd, i_cat, k=k)
+        torch.cuda.synchronize()
+        assert tmt.merge_topk_multi.wide_launches == before + 1
+        assert _same_nan(out, tmt.merge_topk_multi_ref(dd, i_cat, k=k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ka,kb,k,q", [(384, 384, 384, 1024),
+                                       (300, 300, 600, 256),
+                                       (600, 0, 32, 256), (20, 700, 32, 256),
+                                       (32, 32, 600, 256),
+                                       (16_000, 16_000, 64, 16)])
+def test_merge_topk_lists_wide_template_matches_plain(cuda, ka, kb, k, q):
+    """B3 past a row of 512 (ka = kb = 384 is ``fused_merge`` at k = 384),
+    past k = 512, and past shared memory, bitwise equal to its plain
+    version on ``chip_smoke.merge_inputs``' edge rows and on NaN, -inf, -0
+    and negative rows."""
+    d, i = merge_inputs(2, q, max(ka, kb), cuda, seed=ka + kb + k,
+                        inf_ids=True)
+    da, ia = d[0, :, :ka].contiguous(), i[0, :, :ka].contiguous()
+    db, ib = d[1, :, :kb].contiguous(), i[1, :, :kb].contiguous()
+    for a_d in ((da, _odd_band(da)) if ka else (da,)):
+        before = tmt.merge_topk_lists.wide_launches
+        out = tmt.merge_topk_lists(a_d, ia, db, ib, k=k)
+        torch.cuda.synchronize()
+        assert tmt.merge_topk_lists.wide_launches == before + 1
+        assert _same_nan(out, tmt.merge_topk_lists_ref(a_d, ia, db, ib, k=k))

@@ -119,8 +119,8 @@ def test_single_plan_matches_jax(backend, max_iters):
 
 def test_unported_plans_raise():
     """Every plan of the reference resolves now (ROADMAP A10, on one
-    device); unknown names still raise, and so does the unported
-    ``maintenance="incremental"`` (A8) on a mesh plan."""
+    device), and each accepts ``maintenance="incremental"`` (A8); unknown
+    names still raise."""
     from repro_torch.api import ServiceSpec
 
     for name, mesh in (("sharded", 3), ("object_sharded", 4),
@@ -130,8 +130,9 @@ def test_unported_plans_raise():
                                   merge="fused_multi")
         assert plan.name == name
         assert ServiceSpec(plan=name, mesh_shape=mesh).plan == name
-        with pytest.raises(NotImplementedError, match="A8"):
-            ServiceSpec(plan=name, mesh_shape=mesh, maintenance="incremental")
+        spec = ServiceSpec(plan=name, mesh_shape=mesh,
+                           maintenance="incremental")
+        assert (spec.plan, spec.maintenance) == (name, "incremental")
     with pytest.raises(ValueError, match="unknown execution plan"):
         tplan.resolve_plan("nope")
     with pytest.raises(ValueError, match="unknown execution plan"):

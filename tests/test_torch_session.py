@@ -127,7 +127,6 @@ def test_session_matches_jax_fused_bucket():
 
 @pytest.mark.parametrize("field,value,item", [
     ("collect", "none", "A9"),
-    ("maintenance", "incremental", "A8"),
     ("collect", "stats", "A9"),
 ])
 def test_spec_rejects_unported_values(field, value, item):
