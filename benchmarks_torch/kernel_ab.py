@@ -17,7 +17,11 @@ versions agree time the same work:
 - B5 ``bucket_kselect``, Q = 1,000,000 against one window of C = 2048, at
   k = 32 and 256;
 - B4 ``topk_select``, k = 32, at Q = 1,000,000, C = 288 and Q = 8192,
-  C = 2048.
+  C = 2048 (the warp queue); and beside one ``torch.topk`` call on the same
+  distances, at the shapes past the queue: C = 8192, k = 32 (Q = 8192);
+  C = 40,000, k = 32 (Q = 2048); C = 3000, k = 300 (Q = 8192); C = 8192,
+  k = 512 (Q = 2048); C = 12,000, k = 600 (Q = 2048); C = 2048, k = 512
+  (Q = 8192).
 
 Each kernel's output is first held bit for bit against its plain version
 (in row blocks), then timed with CUDA events (B1 at Q = 8192 in CUDA
@@ -36,6 +40,9 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
+# (Q, C, k) of B4 past its warp queue, timed beside torch.topk
+B4_WIDE = ((8192, 8192, 32), (2048, 40_000, 32), (8192, 3000, 300),
+           (2048, 8192, 512), (2048, 12_000, 600), (8192, 2048, 512))
 
 
 def main() -> int:
@@ -104,6 +111,17 @@ def main() -> int:
                                       (d, ids)))
         times[f"B4 C={c}"] = cs.time_ms(lambda: tk.topk_select(d, ids, k=k),
                                         reps=20)
+        del d, ids
+    for q, c, kk in B4_WIDE:
+        d, ids = cs.topk_inputs(q, c, kk, dev, seed=c + kk)
+        cs._check_lists(f"B4 C={c} k={kk} != plain version",
+                        tk.topk_select(d, ids, k=kk),
+                        cs._in_blocks(lambda a, b: masked_argmin_rounds(
+                            a, b, kk), (d, ids), blk=2048))
+        times[f"B4 C={c} k={kk}"] = cs.time_ms(
+            lambda: tk.topk_select(d, ids, k=kk), reps=20)
+        times[f"torch.topk C={c} k={kk}"] = cs.time_ms(
+            lambda: torch.topk(d, kk, dim=1, largest=False), reps=20)
         del d, ids
     for name, ms in times.items():
         print(f"{name}: {ms} ms")

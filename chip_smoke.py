@@ -33,13 +33,15 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. kernel API path (:func:`kernel_api_path`): ``pairwise_dist_op``,
    ``topk_select_op`` and ``bucket_kselect_op`` at the S2 / S3 studies'
    sizes, each bitwise against its kernel's plain version on the card
-   (``topk_select`` also against the two-sort merge, and again on its worst
-   rows, descending and one-distance, which are timed too;
-   ``bucket_kselect`` also against its guarantee on every row without a NaN
-   distance, and NaN where the plain version is) and timed; with them the
-   wide templates of B4 (C = 8192, staged in shared memory, and C =
-   40,000, read from global memory; NaN, -inf, -0 and negative bands) and
-   B5 (C = 16,384, tiled through shared memory);
+   (``topk_select`` also against the two-sort merge, with NaN, -inf, -0
+   and negative bands, and again on its worst rows, descending and
+   one-distance, which are timed too; ``bucket_kselect`` also against its
+   guarantee on every row without a NaN distance, and NaN where the plain
+   version is) and timed; with them B4's radix select past its warp queue
+   (k = 32 at C = 8192 and 40,000; C = 3000, k = 300; C = 8192, k = 512;
+   C = 12,000, k = 600; C = 2048, k = 512; NaN, -inf, -0 and negative
+   bands), each timed beside ``torch.topk``, and B5's wide template
+   (C = 16,384, tiled through shared memory);
    then the brute-force baseline ``knn_bruteforce_chunked`` over 128
    queries of the 1M uniform set, on the card bitwise equal to the same
    call on the CPU;
@@ -817,6 +819,13 @@ def _add_shape(recs: dict, name: str, rec: dict):
          if key in rec})
 
 
+def _topk_bound(q: int, c: int, k: int):
+    """B4's bytes and operations: each row's d2 read once, the winners' ids
+    read and the (d2, id) output written (8 bytes a rank); one comparison
+    per entry read and per output, a selection."""
+    return q * c * 4 + q * min(k, c) * 4 + q * k * 8, q * (c + k)
+
+
 def _timed_once(fn) -> float:
     """Milliseconds of one call of ``fn`` after one warm-up call."""
     fn()
@@ -836,10 +845,11 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
     defaults; and Q = 8192 rows of C = 2048, S3's window; edge rows) and
     ``bucket_kselect_op`` (Q = 1,000,000 queries against one shared window
     of C = 2048 with 10% invalid and 40 coincident points, k = 32 and 256),
-    and the wide templates: ``topk_select_op`` at C = 8192 (Q = 8192) and
-    C = 40,000 (Q = 2048) with :func:`odd_values`' bands, and
-    ``bucket_kselect_op`` with 65,536 queries against a window of 16,384,
-    with every launch count zeroed just before and read just after.  Then
+    B4 past its warp queue (the radix select) at ``tkw_shapes`` with
+    :func:`odd_values`' bands, and ``bucket_kselect_op`` with 65,536
+    queries against a window of 16,384, with every launch count zeroed just
+    before and read just after (B4's radix launches also around each
+    shape's own call).  Then
     each output is held bit for bit against its kernel's plain version on
     the card (in row blocks where the plain version's temporaries would be
     large), B4 also against the two-sort merge and B5 against its
@@ -855,17 +865,20 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
     n = 1_000_000 if full else 62_500  # the short run also pads Q and C
     q6, c6 = (2048 if full else 256), n
     tk_shapes = ((n, 288), (8192 if full else 1000, 2048))
-    # the wide template: staged in shared memory, and past it
-    tkw_shapes = ((8192 if full else 1024, 8192), (2048 if full else 256,
-                                                   40_000))
+    # (Q, C, k) past the warp queue, all the radix select: k = 32 past 2048
+    # columns (staged in shared memory at both widths), then k past the
+    # queue's 256 at C = 3000, 8192, 12,000 and 2048
+    tkw_shapes = tuple((q if full else q // 8, c, kk) for q, c, kk in (
+        (8192, 8192, k), (2048, 40_000, k), (8192, 3000, 300),
+        (2048, 8192, 512), (2048, 12_000, 600), (8192, 2048, 512)))
     q5, c5, k5s = n, 2048, (k, 256)
     q5w, c5w = (65536 if full else 8192), 16_384
     qpos6, ppos6, valid6 = window_inputs(q6, c6, dev, seed=6)
     tk_in = [topk_inputs(q, c, k, dev, seed=4 + i)
              for i, (q, c) in enumerate(tk_shapes)]
     tkw_in = []
-    for i, (q, c) in enumerate(tkw_shapes):
-        d, ids = topk_inputs(q, c, k, dev, seed=10 + i)
+    for i, (q, c, kk) in enumerate(tkw_shapes):
+        d, ids = topk_inputs(q, c, kk, dev, seed=10 + i)
         tkw_in.append((odd_values(d), ids))
     qpos5, ppos5, valid5 = window_inputs(q5, c5, dev, seed=5)
     qpos5w, ppos5w, valid5w = window_inputs(q5w, c5w, dev, seed=15)
@@ -873,17 +886,19 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
     _zero_counts()  # the kernel API path's counts start here
     out6 = ops.pairwise_dist_op(qpos6, ppos6, valid6)
     out4 = [ops.topk_select_op(d, i, k=k) for d, i in tk_in]
-    out4w, wide4 = [], []  # each wide shape's own count
-    for d, i in tkw_in:
-        before = tk.topk_select.wide_launches
-        out4w.append(ops.topk_select_op(d, i, k=k))
-        wide4.append(tk.topk_select.wide_launches - before)
+    out4w, radix4 = [], []  # each radix shape's own count
+    for (_, _, kk), (d, i) in zip(tkw_shapes, tkw_in):
+        before = tk.topk_select.radix_launches
+        out4w.append(ops.topk_select_op(d, i, k=kk))
+        radix4.append(tk.topk_select.radix_launches - before)
     out5 = [ops.bucket_kselect_op(qpos5, ppos5, valid5, k=kk) for kk in k5s]
     out5w = ops.bucket_kselect_op(qpos5w, ppos5w, valid5w, k=k)
     torch.cuda.synchronize()
     counts = _read_counts()
-    for name, want in (("pairwise_dist", 1), ("topk_select", 4),
-                       ("topk_select_wide", 2), ("bucket_kselect", 3),
+    n4w = len(tkw_shapes)
+    for name, want in (("pairwise_dist", 1), ("topk_select", 2 + n4w),
+                       ("topk_select_queue", 2), ("topk_select_radix", n4w),
+                       ("topk_select_wide", n4w), ("bucket_kselect", 3),
                        ("bucket_kselect_wide", 1)):
         if counts[name] != want:
             raise AssertionError(f"kernel API path: {name} launched "
@@ -923,24 +938,35 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
           f"{recs['pairwise_dist']['bound_by']})")
     del kin
 
-    # ---- B4: bitwise against masked_argmin_rounds and the two-sort merge.
+    # ---- B4: bitwise against masked_argmin_rounds and the two-sort merge,
+    # and against masked_argmin_rounds on odd_values' NaN, -inf, -0 and
+    # negative bands.
     for (q, c), (d, i), out in zip(tk_shapes, tk_in, out4):
         plain = masked_argmin_rounds(d, i, k)
         two_sort = ops.topk_select_ref(d, i, k)
         err = _check_merge(f"topk_select C={c}", out, plain, two_sort)
+        del plain, two_sort
+        odd = odd_values(d)
+        _check_lists(f"topk_select C={c} != plain version on the odd bands",
+                     ops.topk_select_op(odd, i, k=k),
+                     masked_argmin_rounds(odd, i, k))
         ms = time_ms(lambda: ops.topk_select_op(d, i, k=k), reps=20)
+        odd_ms = time_ms(lambda: ops.topk_select_op(odd, i, k=k), reps=20)
+        del odd
         plain_ms = time_ms(lambda: masked_argmin_rounds(d, i, k), reps=2,
                            warmup=1)
         lib_ms = time_ms(lambda: torch.topk(d, k, dim=1, largest=False),
                          reps=10)
-        # one comparison per entry read and per output (a selection)
         rec = _record("topk_select", "topk_select.cu",
                       "src/repro/kernels/topk_select.py:49",
-                      counts["topk_select"] - counts["topk_select_wide"], ms,
-                      plain_ms, q * c * 8 + q * k * 8, q * (c + k), lib_ms,
-                      err, shape=f"Q={q} C={c} k={k}")
-        print(f"kernel: topk_select Q={q} C={c} k={k} bitwise equal to its "
-              f"plain version and the two-sort merge; {ms:.4f} ms (plain "
+                      counts["topk_select_queue"], ms, plain_ms,
+                      *_topk_bound(q, c, k), lib_ms, err,
+                      shape=f"Q={q} C={c} k={k}", template="queue",
+                      odd_rows_ms=odd_ms)
+        print(f"kernel: topk_select Q={q} C={c} k={k} (warp queue) bitwise "
+              f"equal to its plain version and the two-sort merge, and to "
+              f"its plain version with the NaN, -inf, -0 and negative "
+              f"bands; {ms:.4f} ms ({odd_ms:.4f} ms with those bands; plain "
               f"{plain_ms:.3f} ms, torch.topk {lib_ms:.3f} ms, bound "
               f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})")
         # the worst rows for the warp queue: every entry enters it
@@ -961,30 +987,35 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
         _add_shape(recs, "topk_select", rec)
     del tk_in, out4
 
-    # ---- B4's wide template: bitwise against masked_argmin_rounds on the
-    # edge bands and the NaN, -inf, -0 and negative ones.
-    for (q, c), (d, i), out, launches in zip(tkw_shapes, tkw_in, out4w,
-                                             wide4):
-        name = f"topk_select_wide_c{c}"
-        plain = masked_argmin_rounds(d, i, k)
+    # ---- B4 past its warp queue (the radix select): bitwise against
+    # masked_argmin_rounds on the edge bands and the NaN, -inf, -0 and
+    # negative ones, each shape timed beside torch.topk on the same rows.
+    for (q, c, kk), (d, i), out, launches in zip(tkw_shapes, tkw_in, out4w,
+                                                 radix4):
+        name = (f"topk_select_wide_c{c}" if kk == k else
+                f"topk_select_{'wide_' if c > 2048 else ''}c{c}_k{kk}")
+        if launches != 1:
+            raise AssertionError(f"{name}: the radix select launched "
+                                 f"{launches} times, want 1")
+        plain = _in_blocks(lambda a, b: masked_argmin_rounds(a, b, kk),
+                           (d, i), blk=2048)
         _check_lists(f"{name} != plain version", out, plain)
         fin = torch.isfinite(plain[0])
         err = float((out[0][fin] - plain[0][fin]).abs().max())
-        ms = time_ms(lambda: ops.topk_select_op(d, i, k=k), reps=5)
-        plain_ms = time_ms(lambda: masked_argmin_rounds(d, i, k), reps=1,
+        del plain, fin
+        ms = time_ms(lambda: ops.topk_select_op(d, i, k=kk), reps=20)
+        plain_ms = time_ms(lambda: masked_argmin_rounds(d, i, kk), reps=1,
                            warmup=1)
-        lib_ms = time_ms(lambda: torch.topk(d, k, dim=1, largest=False),
-                         reps=5)
+        lib_ms = time_ms(lambda: torch.topk(d, kk, dim=1, largest=False),
+                         reps=20)
         recs[name] = _record(
             name, "topk_select.cu", "src/repro/kernels/topk_select.py:49",
-            launches, ms, plain_ms, q * c * 8 + q * k * 8, q * (c + k),
-            lib_ms, err, shape=f"Q={q} C={c} k={k}", template="wide",
-            staged=c * 8 <= 227 * 1024)
-        print(f"kernel: {name} Q={q} C={c} k={k} (wide template, "
-              f"{'staged in shared memory' if c * 8 <= 227 * 1024 else 'read from global memory'}) "
-              f"bitwise equal to its plain version (NaN, -inf, -0 and "
-              f"negative bands included); {ms:.4f} ms (plain {plain_ms:.3f} "
-              f"ms, torch.topk {lib_ms:.3f} ms, bound "
+            launches, ms, plain_ms, *_topk_bound(q, c, kk), lib_ms, err,
+            shape=f"Q={q} C={c} k={kk}", template="radix")
+        print(f"kernel: {name} Q={q} C={c} k={kk} (radix select) bitwise "
+              f"equal to its plain version (NaN, -inf, -0 and negative "
+              f"bands included); {ms:.4f} ms (plain {plain_ms:.3f} ms, "
+              f"torch.topk {lib_ms:.3f} ms, bound "
               f"{recs[name]['bound_ms']:.4f} ms by {recs[name]['bound_by']})")
     del tkw_in, out4w
 
@@ -1359,6 +1390,9 @@ def _counters():
             "merge_topk_lists_wide": (mt.merge_topk_lists, "wide_launches"),
             "topk_select": (tk.topk_select, "launches"),
             "topk_select_wide": (tk.topk_select, "wide_launches"),
+            "topk_select_queue": (tk.topk_select, "queue_launches"),
+            "topk_select_radix": (tk.topk_select, "radix_launches"),
+            "topk_select_global": (tk.topk_select, "global_launches"),
             "bucket_kselect": (bk.bucket_kselect, "launches"),
             "bucket_kselect_wide": (bk.bucket_kselect, "wide_launches"),
             "pairwise_dist": (pd.pairwise_dist, "launches")}
@@ -1692,10 +1726,10 @@ def main() -> int:
     for name, count in wide_sessions(dev, n_wide).items():
         wide[name]["launches"] = count
     incremental_object_path(dev, n_wide)
-    records = [rec, rec_mixed, rec_multi, rec_lists, api["topk_select"],
-               api["bucket_kselect"], api["pairwise_dist"],
-               *wide.values(),
-               *(r for name, r in api.items() if "wide" in name)]
+    narrow = ("topk_select", "bucket_kselect", "pairwise_dist")
+    records = [rec, rec_mixed, rec_multi, rec_lists,
+               *(api[name] for name in narrow), *wide.values(),
+               *(r for name, r in api.items() if name not in narrow)]
     for r in records:
         if not r["launches"] or r["launches"] < 1:
             raise AssertionError(f"{r['name']}: no launch on its path")

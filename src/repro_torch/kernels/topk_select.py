@@ -7,23 +7,39 @@ pairs of each row, ascending, lowest id on distance ties, ``(inf, -1)``
 padded; the plain version is
 :func:`~repro_torch.kernels.refine.masked_argmin_rounds`.
 
-The kernel is a warp-queue select (WarpSelect): one warp streams a row in
-32-wide slabs and keeps the best ``W`` keys so far in a sorted warp queue
-(``W`` = 32, 64, 128 or 256, the first at or above ``min(k, C)``); entries
-below the queue's k-th key wait in a shared ring and are merged in by a
-warp bitonic merge 32 at a time.  Its key is ``(d2, id)`` with ``-0`` and
-``+0`` equal, as the rounds compare them; a zero distance leaves as
-``+0``.  Where ``min(k, C)`` exceeds 256 it runs k rounds of a
-lexicographic warp argmin instead.  Rows wider than 2048 columns (S3's
-window is 2048, the kernel micro-benchmark's 1024) take the wide
-template: one thread block a row, sorting the row's keys or running the
-rounds in shared memory where the row fits and the rounds from global
-memory beyond (``csrc/block_select.cuh``), so no width raises; the entry
-point says which template it took.
+The kernel has three templates, picked from ``C`` and ``k`` only; the C
+entry point reports which one ran:
+
+- **queue** (``min(k, C) <= 256`` and ``C <= 2048``): a warp-queue select
+  (WarpSelect).  One warp streams a row in 32-wide slabs and keeps the best
+  ``W`` keys so far in a sorted warp queue (``W`` = 32, 64, 128 or 256, the
+  first at or above ``min(k, C)``); entries below the queue's k-th key wait
+  in a shared ring and are merged in by a warp bitonic merge 32 at a time.
+- **radix** (every other shape): one thread block a row, a radix select of
+  the row's 64-bit ``(d2, id)`` keys.  Each pass histograms the next digit
+  (up to 8 bits, d2's first) of the keys under the decided prefix in 256
+  shared bins, and skips the digits all those keys share; it stops once
+  the bin holding rank k holds no more keys than are still needed.  Then
+  the keys below the k-th are gathered, sorted and stored.  Ids are read
+  only for entries on the k-th distance and for the winners.  Where the
+  row's d2 fits in shared memory (C up to about 57,000 at k = 32 on an
+  H100) it is staged once by bulk asynchronous copies; beyond, every pass
+  reads it from global memory.
+- **global** (``min(k, C)`` past about 28,000, where the k keys do not fit
+  in shared memory): the block rounds over global memory
+  (``csrc/block_select.cuh``).
+
+A row holding a NaN is written in closed form, as the rounds leave it:
+``(NaN, INT_MAX)`` first, then the k - 1 smallest of columns 1 to C - 1
+where column 0 is the row's only NaN, else ``(NaN, INT_MAX)`` k times.
+The key is ``(d2, id)`` with ``-0`` and ``+0`` equal, as the rounds
+compare them; a zero distance leaves as ``+0``.  No width raises.
 
 :func:`topk_select` launches the kernel for CUDA tensors (or raises) and runs
 the plain version for CPU tensors.  ``topk_select.launches`` counts kernel
-launches, ``topk_select.wide_launches`` those of the wide template.
+launches; ``queue_launches``, ``radix_launches`` and ``global_launches``
+those of each template, and ``wide_launches`` those past the warp queue
+(radix or global).
 """
 from __future__ import annotations
 
@@ -36,6 +52,8 @@ from .refine import masked_argmin_rounds
 __all__ = ["topk_select", "Q_TILE"]
 
 Q_TILE = 8
+# The C entry point's route codes: the template each launch took.
+ROUTES = ("queue", "radix", "global")
 
 _lib = None
 
@@ -93,20 +111,25 @@ def topk_select(d2, ids, *, k: int):
     if q == 0:
         return out_d, out_i
     lib = _kernel()
-    wide = ctypes.c_int(0)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.topk_select_f32(d2.data_ptr(), ids.data_ptr(),
                                   out_d.data_ptr(), out_i.data_ptr(), q, c, k,
-                                  stream, ctypes.byref(wide))
+                                  stream, ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"topk_select: kernel launch failed with "
                            f"cudaError {err}")
+    counter = f"{ROUTES[route.value]}_launches"
+    setattr(topk_select, counter, getattr(topk_select, counter) + 1)
     topk_select.launches += 1
-    if wide.value:
+    if route.value != 0:
         topk_select.wide_launches += 1
     return out_d, out_i
 
 
 topk_select.launches = 0
 topk_select.wide_launches = 0
+topk_select.queue_launches = 0
+topk_select.radix_launches = 0
+topk_select.global_launches = 0

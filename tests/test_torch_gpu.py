@@ -207,41 +207,6 @@ def test_pairwise_dist_kernel_takes_unaligned_inputs(cuda):
     assert same_values(out, tpd.pairwise_dist_ref(qx, qy, px, py, v))
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("q,c,k", [
-    (1024, 288, 32), (256, 2048, 32), (64, 40, 1), (64, 100, 64), (61, 33, 8),
-    (64, 1, 1), (64, 1, 32), (128, 300, 31), (128, 300, 33),
-    (128, 1000, 64), (64, 2048, 1), (64, 70, 128), (64, 2048, 256),
-    (64, 200, 300), (64, 2000, 300)])
-def test_topk_select_kernel_matches_plain_and_two_sort(cuda, q, c, k):
-    """B4 through its op, ids too, on ``chip_smoke.topk_inputs``' edge rows
-    (descending rows, one d2 with descending ids, duplicates in other
-    slabs, zeros of both signs): every rung of the warp-queue ladder,
-    k > C, C = 1, C not a multiple of 32, and min(k, C) beyond the ladder
-    (the rounds template)."""
-    d, i = topk_inputs(q, c, k, cuda, seed=c + k)
-    before = ttk.topk_select.launches
-    out = tops.topk_select_op(d, i, k=k)
-    torch.cuda.synchronize()
-    assert ttk.topk_select.launches == before + 1
-    assert _same(out, masked_argmin_rounds(d, i, k))
-    two = topk_select_ref(d, i, k)
-    assert _same(tuple(o[:, :two[0].shape[1]] for o in out), two)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["descending", "equal"])
-@pytest.mark.parametrize("c,k", [(288, 32), (2048, 32), (300, 100)])
-def test_topk_select_kernel_on_worst_rows(cuda, kind, c, k):
-    """B4, bitwise, on rows where every entry enters the warp queue."""
-    d, i = worst_rows(64, c, kind, cuda, seed=c)
-    before = ttk.topk_select.launches
-    out = ttk.topk_select(d, i, k=k)
-    torch.cuda.synchronize()
-    assert ttk.topk_select.launches == before + 1
-    assert _same(out, masked_argmin_rounds(d, i, k))
-
-
 def _odd_band(d, seed=0):
     """Rows 0-3 of every 16 get a NaN (in column 0, in a later column, in
     both), a -inf and a -0 in place: masked_argmin_rounds' NaN, -inf and
@@ -263,23 +228,82 @@ def _same_nan(a, b):
     return same_values(a[0], b[0]) and torch.equal(a[1], b[1])
 
 
+def _b4_template(c, k):
+    """The template B4's entry point takes: the warp queue up to 2048
+    columns and min(k, C) = 256, the block rounds where min(k, C) keys pass
+    the card's 227 KB of shared memory, else the radix select."""
+    m = min(k, c)
+    if c <= 2048 and m <= 256:
+        return "queue"
+    return "global" if 8 * m > 227 * 1024 else "radix"
+
+
+def _b4_launch(fn, c, k):
+    """fn() launches B4 once; asserts the template it took."""
+    counts = ("launches", f"{_b4_template(c, k)}_launches")
+    before = [getattr(ttk.topk_select, n) for n in counts]
+    out = fn()
+    torch.cuda.synchronize()
+    assert [getattr(ttk.topk_select, n) for n in counts] == [
+        b + 1 for b in before]
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q,c,k", [
+    (1024, 288, 32), (256, 2048, 32), (64, 40, 1), (64, 100, 64), (61, 33, 8),
+    (64, 1, 1), (64, 1, 32), (128, 300, 31), (128, 300, 33),
+    (128, 1000, 64), (64, 2048, 1), (64, 70, 128), (64, 2048, 256),
+    (64, 200, 300), (64, 2000, 300), (64, 2048, 512), (64, 1000, 1000),
+    (64, 700, 900)])
+def test_topk_select_kernel_matches_plain_and_two_sort(cuda, q, c, k):
+    """B4 through its op, ids too, on ``chip_smoke.topk_inputs``' edge rows
+    (descending rows, one d2 with descending ids, duplicates in other
+    slabs, zeros of both signs): every rung of the warp-queue ladder,
+    k > C, k = C, C = 1, C not a multiple of 32, and min(k, C) beyond the
+    ladder (the radix select); then again with NaN, -inf, -0 and negative
+    rows, against masked_argmin_rounds."""
+    d, i = topk_inputs(q, c, k, cuda, seed=c + k)
+    out = _b4_launch(lambda: tops.topk_select_op(d, i, k=k), c, k)
+    assert _same(out, masked_argmin_rounds(d, i, k))
+    two = topk_select_ref(d, i, k)
+    assert _same(tuple(o[:, :two[0].shape[1]] for o in out), two)
+    odd = _odd_band(d)
+    out = _b4_launch(lambda: tops.topk_select_op(odd, i, k=k), c, k)
+    assert _same_nan(out, masked_argmin_rounds(odd, i, k))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["descending", "equal"])
+@pytest.mark.parametrize("c,k", [(288, 32), (2048, 32), (300, 100),
+                                 (8192, 32), (3000, 300)])
+def test_topk_select_kernel_on_worst_rows(cuda, kind, c, k):
+    """B4, bitwise, on rows where every entry enters the warp queue, and
+    (``equal``: one d2 for the row) the radix select reaches the id
+    digits; with and without NaN, -inf, -0 and negative rows."""
+    d, i = worst_rows(64, c, kind, cuda, seed=c)
+    for dd in (d, _odd_band(d)):
+        out = _b4_launch(lambda: ttk.topk_select(dd, i, k=k), c, k)
+        assert _same_nan(out, masked_argmin_rounds(dd, i, k))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("q,c,k", [
     (64, 2049, 4), (64, 8192, 32), (64, 3000, 300), (32, 5000, 1),
-    (16, 40_000, 32), (16, 30_000, 600)])
+    (16, 40_000, 32), (16, 30_000, 600), (16, 40_000, 300),
+    (8, 60_000, 32), (16, 3000, 3000), (16, 12_000, 600),
+    (8, 30_000, 30_000)])
 def test_topk_select_wide_template_matches_plain(cuda, q, c, k):
-    """B4 past its narrow templates' 2048 columns: bitwise equal to
+    """B4 past its warp queue's 2048 columns: bitwise equal to
     masked_argmin_rounds on ``chip_smoke.topk_inputs``' edge rows and on
-    NaN, -inf, -0 and negative rows, staged in shared memory and (C of
-    30,000 and more) read from global memory."""
+    NaN, -inf, -0 and negative rows; the row staged in shared memory, read
+    from global memory (C = 60,000), and k's keys past shared memory (the
+    block rounds, k = 30,000)."""
     d, i = topk_inputs(q, c, k, cuda, seed=c + k)
     for dd in (d, _odd_band(d)):
-        before = (ttk.topk_select.launches, ttk.topk_select.wide_launches)
-        out = ttk.topk_select(dd, i, k=k)
-        torch.cuda.synchronize()
-        assert (ttk.topk_select.launches,
-                ttk.topk_select.wide_launches) == (before[0] + 1,
-                                                   before[1] + 1)
+        before = ttk.topk_select.wide_launches
+        out = _b4_launch(lambda: ttk.topk_select(dd, i, k=k), c, k)
+        assert ttk.topk_select.wide_launches == before + 1
         assert _same_nan(out, masked_argmin_rounds(dd, i, k))
 
 

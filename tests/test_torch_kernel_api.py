@@ -147,6 +147,85 @@ def test_topk_select_with_infs():
     assert out_d[0, 2] == float("inf")
 
 
+def _nan_closed_form(d, ids, k):
+    """The rounds' output on rows holding a NaN, from how they behave: a NaN
+    makes the row minimum NaN, no entry ties with it, so a round emits
+    (NaN, INT_MAX) and masks column 0.  A row whose only NaN is column 0
+    gives (NaN, INT_MAX), then the k - 1 smallest (d2, id) of columns 1 to
+    C - 1 ((inf, -1) padded); any other NaN row (NaN, INT_MAX) k times."""
+    q, c = d.shape
+    out_d = np.full((q, k), np.inf, np.float32)
+    out_i = np.full((q, k), -1, np.int32)
+    out_d[:, 0], out_i[:, 0] = np.nan, np.iinfo(np.int32).max
+    for r in range(q):
+        if np.isnan(d[r, 1:]).any():
+            out_d[r], out_i[r] = np.nan, np.iinfo(np.int32).max
+            continue
+        order = np.lexsort((ids[r, 1:], d[r, 1:]))[:k - 1]
+        out_d[r, 1:1 + len(order)] = d[r, 1:][order]
+        out_i[r, 1:1 + len(order)] = np.where(np.isinf(d[r, 1:][order]), -1,
+                                              ids[r, 1:][order])
+    return out_d, out_i
+
+
+def _nan_bits_equal(a, b, what, zero_sign=True):
+    """Bitwise, but a NaN equals any NaN (its payload is not part of the
+    contract) and, without ``zero_sign``, -0 equals +0 (the rounds' row
+    minimum of two zeros may be either; the sorts keep the entry's own)."""
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape and a.dtype == b.dtype, what
+    nan = np.isnan(a)
+    np.testing.assert_array_equal(nan, np.isnan(b), err_msg=what)
+    a, b = np.where(nan, 0, a), np.where(nan, 0, b)
+    if not zero_sign:
+        a, b = a + np.float32(0), b + np.float32(0)  # -0 + 0 is +0
+    _bits_equal(a, b, what)
+
+
+@pytest.mark.parametrize("k", [1, 5, 43])
+@pytest.mark.parametrize("where", ["first", "last", "both", "inner"])
+def test_topk_select_nan_rows_closed_form(where, k):
+    """The premise of the card's NaN rule: on rows holding a NaN (column 0
+    only, column C - 1 only, both, two inner columns), the reference's op
+    in interpret mode and the port's plain version both equal the closed
+    form, with k below C and past it (C = 40).  Rows of every 4th are left
+    without a NaN, and some hold -inf, -0 and ties."""
+    c = 40
+    d, ids = topk_inputs(16, c, 8, "cpu", seed=k)
+    d, ids = d.numpy(), ids.numpy()
+    cols = {"first": [0], "last": [c - 1], "both": [0, c - 1],
+            "inner": [c // 3, 2 * c // 3]}[where]
+    nan_rows = np.arange(16) % 4 != 0
+    for j in cols:
+        d[nan_rows, j] = np.nan
+    d[1::4, c // 2] = -np.inf
+    d[2::4, c // 4] = -0.0
+    want = jk.topk_select_op(d, ids, k=k, interpret=True)
+    got = tk.topk_select_op(_t(d), _t(ids), k=k)
+    closed = _nan_closed_form(d[nan_rows], ids[nan_rows], k)
+    for name, out in (("reference", want), ("port", got)):
+        out = [np.asarray(o) for o in out]
+        _nan_bits_equal(out[0][nan_rows], closed[0], f"{name} distances",
+                        zero_sign=False)
+        _bits_equal(out[1][nan_rows], closed[1], f"{name} ids")
+    _nan_bits_equal(want[0], got[0].numpy(), "distances", zero_sign=False)
+    _bits_equal(want[1], got[1].numpy(), "ids")
+
+
+def test_topk_select_wide_k_matches_two_sort():
+    """The radix select's premise at k beyond the warp queue (C = 3000,
+    k = 300): the port's plain version is bitwise equal to the reference's
+    jitted two-key sort, ``topk_select_ref``, on ``topk_inputs``' edge rows
+    (distances up to the sign of a zero: the sort keeps each entry's own,
+    the rounds' row minimum may be either)."""
+    d, ids = topk_inputs(16, 3000, 300, "cpu", seed=18)
+    want = jax.jit(jk.topk_select_ref, static_argnames="k")(
+        jnp.asarray(d.numpy()), jnp.asarray(ids.numpy()), k=300)
+    got = ttk.topk_select(d, ids, k=300)
+    _nan_bits_equal(want[0], got[0].numpy(), "distances", zero_sign=False)
+    _bits_equal(want[1], got[1].numpy(), "ids")
+
+
 def test_topk_select_wrapper_checks():
     d, i = topk_inputs(8, 40, 4, "cpu")
     with pytest.raises(ValueError, match="Q_TILE"):
