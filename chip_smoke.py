@@ -69,17 +69,28 @@ Phases, in order; any failure raises and the script exits non-zero:
    (2, 3), ``cost_balanced``, ``fused_merge`` over the gaussian snapshot, a
    1% move and a ``skip`` tick.  ``fused_multi`` must launch once per tick
    in (a), ``fused_merge`` twice per query shard that owns rows in (b);
-10. wide sessions at N = 200,000 (:func:`wide_sessions`): specs that
-   raised on the card before the wide templates, each equal to its oracle
-   or twin and launching the wide template it exists for;
-11. incremental object-axis path at N = 200,000
+10. wide sessions (:func:`wide_sessions`): specs that raised on the card
+   before the wide templates, each equal to its oracle or twin and
+   launching the wide template it exists for; the ``single`` ones at
+   N = 200,000, the host-bound object-axis ones (B2 and B3 wide) at
+   N = 50,000;
+11. incremental object-axis path at N = 50,000
    (:func:`incremental_object_path`): ``object_sharded`` 4 under
    ``maintenance="incremental"``, splicing a 1% move and deferring, by the
    per-shard and the global churn budget, every row equal to a ``single``
-   twin.
+   twin;
+12. server path at N (:func:`server_path`): a ``KnnServer`` with four
+   tenants over the paper's Table 1 world, spatial invalidation: the build,
+   an unchanged tick served wholly from the cache (no B1 launch), a
+   2,000-object move that recomputes only the stabbed rows, a 1% move that
+   clears the epoch; every tenant row equal to a solo session, and a
+   ``collect="stats"`` session whose aggregates equal what the full twin's
+   lists give, at a peak within 10% of the twin's;
+13. the ``knn`` entry point (``repro_torch.launch.serve``) with four
+   tenants at N, in this process: it must return 0.
 
 Launch counts are zeroed just before each path (each tick, in the single
-path) and read just after, on the path's own session only.  The
+and server paths) and read just after, on the path's own session only.  The
 next-to-last line is the kernels' JSON record, narrow and wide templates;
 the last line is ``{"ok": true, "device": {...}}``.  Imports nothing of JAX.
 """
@@ -1142,17 +1153,20 @@ def baseline_check(dev, n: int, sample: int = 128, k: int = 32,
     return ms
 
 
-def oracle_check(pos_t, qrows, nn_idx, nn_dist, k, dev, batch=128):
+def oracle_check(pos_t, qrows, nn_idx, nn_dist, k, dev, batch=128,
+                 qpos_t=None):
     """Brute force on the card: full distance rows, lexicographic (d2, id)
-    order, the query's own object excluded; ids and distances bitwise."""
+    order, the query's own object excluded; ids and distances bitwise.
+    Query row i stands at object i's position, or at ``qpos_t[i]``."""
     from repro_torch.runtime import fma, sqrt
 
     px, py = pos_t[:, 0], pos_t[:, 1]
+    qx, qy = (px, py) if qpos_t is None else (qpos_t[:, 0], qpos_t[:, 1])
     ids = torch.arange(pos_t.shape[0], device=dev)
     for b in range(0, qrows.shape[0], batch):
         rows = torch.tensor(qrows[b:b + batch], device=dev)
-        dx = px[None, :] - px[rows][:, None]
-        dy = py[None, :] - py[rows][:, None]
+        dx = px[None, :] - qx[rows][:, None]
+        dy = py[None, :] - qy[rows][:, None]
         d2 = fma(dx, dx, dy * dy)
         d2[ids[None, :] == rows[:, None]] = float("inf")
         sd, order = torch.sort(d2, dim=1, stable=True)  # ids ascend already
@@ -1516,9 +1530,10 @@ def _tick(session):
     return res, wall_ms, _read_counts(), torch.cuda.max_memory_allocated()
 
 
-def wide_sessions(dev, n: int, seed: int = 0):
-    """Specs whose rows pass the narrow templates' widths, at N objects, one
-    query per object, one uniform tick each:
+def wide_sessions(dev, n: int, n_axis: int, seed: int = 0):
+    """Specs whose rows pass the narrow templates' widths, one query per
+    object, one uniform tick each, (a) and (b) at ``n`` objects, the
+    host-bound object-axis sessions (c) and (d) at ``n_axis``:
     (a) ``single`` with ``window=1024`` (B1 wide, k + W = 1056) and its
         ``precision="mixed"`` twin, against a 1,024-row brute-force oracle;
     (b) ``single`` with ``k=512`` (B1 wide, k + W = 768) and its mixed twin,
@@ -1532,19 +1547,21 @@ def wide_sessions(dev, n: int, seed: int = 0):
     from repro_torch.data.generators import make_workload
 
     side = ServiceSpec().side
-    pos = make_workload(n, "uniform", seed=seed + 3, side=side).positions()
-    qid = np.arange(n, dtype=np.int32)
+    worlds = {m: make_workload(m, "uniform", seed=seed + 3,
+                               side=side).positions() for m in {n, n_axis}}
+    pos = worlds[n]
     g = np.random.default_rng(seed + 4)
     launches = {}
 
-    def session(**kw):
+    def session(m=n, **kw):
         s = KnnSession(ServiceSpec(backend="fused_bucket", **kw))
-        s.ingest_objects(pos)
-        s.register_queries(pos, qid)
+        s.ingest_objects(worlds[m])
+        s.register_queries(worlds[m], np.arange(m, dtype=np.int32))
         return s
 
     def report(label, res, wall_ms, counts, peak, **extra):
-        rec = {"path": label, "n_objects": n, "wall_ms": wall_ms,
+        rec = {"path": label, "n_objects": res.nn_idx.shape[0],
+               "wall_ms": wall_ms,
                "iterations": res.iterations, "candidates": res.candidates,
                "launches": {k: v for k, v in counts.items() if v},
                "max_memory_allocated": peak, **extra}
@@ -1584,8 +1601,8 @@ def wide_sessions(dev, n: int, seed: int = 0):
             ("hybrid (2, 3) fused_merge k=384", "merge_topk_lists_wide",
              dict(k=384, plan="hybrid", mesh_shape=(2, 3),
                   partitioner="cost_balanced", merge="fused_merge"))):
-        res, wall_ms, counts, peak = _tick(session(**kw))
-        ref, _, _, _ = _tick(session(k=kw["k"]))
+        res, wall_ms, counts, peak = _tick(session(n_axis, **kw))
+        ref, _, _, _ = _tick(session(n_axis, k=kw["k"]))
         if counts[kernel] < 1:
             raise AssertionError(f"{label}: {kernel} never launched")
         launches[kernel] = counts[kernel]
@@ -1672,6 +1689,227 @@ def incremental_object_path(dev, n: int, seed: int = 0):
             "twin": "bitwise, all rows"}))
 
 
+def _same_bits(a, b) -> bool:
+    """Equal shapes and equal f32 bits."""
+    a = np.asarray(a, np.float32)
+    b = np.asarray(b, np.float32)
+    return a.shape == b.shape and np.array_equal(a.view(np.uint32),
+                                                 b.view(np.uint32))
+
+
+def _sink_reckoning(res, prev, dev):
+    """What the stats sink must report for the full lists of ``res`` after
+    those of ``prev`` (None: no previous observation): the k-th distances,
+    the drift and churn maxima and the one shard's hits, each in f32 as the
+    sink computes it; the two means in f64.  The ids each row kept are
+    found by a binary search of the row's sorted previous ids, on the card
+    (not the sink's pairwise compare)."""
+    ii, kth = res.nn_idx, res.nn_dist[:, -1]
+    valid = ii >= 0
+    n_valid = valid.sum(1)
+    if prev is None:
+        drift = np.zeros(kth.shape, np.float32)
+        churn = np.ones(kth.shape, np.float32)
+        n_drift = 0
+    else:
+        pk = prev.nn_dist[:, -1]
+        ok = np.isfinite(kth) & np.isfinite(pk)
+        drift = np.where(ok, np.abs(kth - pk), np.float32(0))
+        n_drift = int(ok.sum())
+        cur = torch.tensor(ii, device=dev)
+        old = torch.sort(torch.tensor(prev.nn_idx, device=dev), dim=1).values
+        at = torch.searchsorted(old, cur).clamp(max=old.shape[1] - 1)
+        kept = ((old.gather(1, at) == cur) & (cur >= 0)).sum(1).cpu().numpy()
+        churn = np.float32(1) - kept.astype(np.float32) / np.maximum(
+            n_valid, 1).astype(np.float32)
+        churn = np.where(n_valid > 0, churn, np.float32(0))
+    return {"kth_dist": kth,
+            "kth_drift_max": np.float32(max(drift.max(), 0)),
+            "churn_max": np.float32(max(churn.max(), 0)),
+            "shard_hits": np.array([valid.sum()], np.float32),
+            "kth_drift_mean": drift.astype(np.float64).sum() / max(n_drift, 1),
+            "churn_mean": churn.astype(np.float64).mean()}
+
+
+def server_path(dev, n: int, seed: int = 0):
+    """The multi-tenant server on the paper's Table 1 world: N uniform
+    objects, k = 32, spec defaults, ``fused_bucket``, ``single``,
+    ``invalidation="spatial"`` with a cache of 1,048,576 entries.  Tenant i
+    registers one query for each object ``i::4`` (at its tick-0 position,
+    qid = its id); tenant 0 also registers 65,536 rows that duplicate tenant
+    1's.  Ticks: the build (every unique row computed, the duplicates
+    folded); an unchanged tick (all from the cache, no device work); tenant
+    2 moves 2,000 objects up to 200 u (N / 500; under the stab budget, the
+    pyramid stab: only the stabbed entries recomputed); tenant 3 moves 1%
+    (over the budget: the epoch clears, every row recomputed).  Every tenant row of
+    every tick equals a solo ``collect="full"`` session fed the same world,
+    whose 1,024 sampled rows a tick equal the brute-force oracle.  Beside
+    them a ``collect="stats"`` session on ticks 0, 2 and 3, whose k-th
+    distances, maxima and shard hits equal what the full twin's lists give,
+    bitwise (the means within 1e-5 of an f64 sum), at a peak within 10% of
+    the twin's.  Returns the server's B1 launches."""
+    from repro_torch.api import KnnSession, ServiceSpec
+    from repro_torch.data.generators import make_workload
+    from repro_torch.serve import KnnServer
+
+    spec = ServiceSpec(backend="fused_bucket")
+    pos = make_workload(n, "uniform", seed=seed + 7, side=spec.side
+                        ).positions().copy()
+    g = np.random.default_rng(seed + 8)
+    qid = np.arange(n, dtype=np.int32)
+    qpos = pos.copy()  # the queries stay where their objects started
+    qpos_t = torch.tensor(qpos, device=dev)
+    T = 4
+    # the default stab budget at 1M objects, scaled with N, so that a small
+    # first-check run takes the same routes
+    server = KnnServer(spec, invalidation="spatial", cache_entries=1_048_576,
+                       stab_budget=4096 * n // 1_000_000)
+    server.ingest_objects(pos)
+    tenants = [server.admit(f"tenant-{i}") for i in range(T)]
+    rows = [qid[i::T] for i in range(T)]
+    rows.append(qid[1::T][:65_536])  # tenant 0's duplicates of tenant 1's
+    groups = [t.register_queries(qpos[r], r)
+              for t, r in zip(tenants, rows[:T])]
+    groups.append(tenants[0].register_queries(qpos[rows[T]], rows[T]))
+    twin = KnnSession(spec)
+    stats = KnnSession(ServiceSpec(backend="fused_bucket", collect="stats"))
+    for s in (twin, stats):
+        s.ingest_objects(pos)
+        s.register_queries(qpos, qid)
+    print(f"path server: {server.describe()}, N={n}")
+    steps = [("build", None, 0), ("unchanged", None, 0),
+             ("tenant 2 moves 2,000", 2, n // 500),
+             ("tenant 3 moves 1%", 3, n // 100)]
+    launches = 0
+    prev_full = None
+    for t, (step, mover, m) in enumerate(steps):
+        # the stab evicts at ingest
+        inval0 = server.cache.stats.invalidations
+        epoch0 = server.cache.epoch
+        if mover is not None:
+            ids, new = _move(g, pos, n, 0.0, spec.side,
+                             ids=g.choice(n, m, replace=False
+                                          ).astype(np.int32))
+            pos[ids] = new
+            tenants[mover].update_objects(ids, new)
+            for s in (twin, stats):
+                s.update_objects(ids, new)
+        _zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        st = server.submit()
+        res = st.result()
+        counts = _read_counts()
+        peak = torch.cuda.max_memory_allocated()
+        b1 = counts["fused_scan_merge"]
+        launches += b1
+        evicted = server.cache.stats.invalidations - inval0
+        ref, _, _, twin_peak = _tick(twin)
+        for i, (group, r) in enumerate(zip(groups, rows)):
+            ii, dd, qq = st.result_for(group)
+            bad = (ii != ref.nn_idx[r]).any(1) | (
+                dd.view(np.uint32) != ref.nn_dist[r].view(np.uint32)).any(1)
+            if bad.any() or not np.array_equal(qq, r):
+                raise AssertionError(f"server tick {t}: group {i} differs "
+                                     f"from the solo twin on "
+                                     f"{int(bad.sum())} rows")
+        if ref.nn_idx.shape != (n, spec.k) or not np.isfinite(
+                ref.nn_dist).all():
+            raise AssertionError(f"server tick {t}: malformed twin result")
+        oracle_check(torch.tensor(pos, device=dev),
+                     g.choice(n, 1024, replace=False), ref.nn_idx,
+                     ref.nn_dist, spec.k, dev, qpos_t=qpos_t)
+        dup = rows[T].size
+        want = {0: (n, dup, 0), 1: (0, 0, n + dup), 3: (n, dup, 0)}.get(t)
+        got = (res.rows_computed, res.dedup_hit_rows, res.cache_hit_rows)
+        if res.rows_total != n + dup or res.rows_unique != n or (
+                want is not None and got != want):
+            raise AssertionError(f"server tick {t}: rows {res.rows_total}, "
+                                 f"unique {res.rows_unique}, (computed, "
+                                 f"dedup, cache) {got}, want {want}")
+        if t == 1 and (res.inner is not None or b1):
+            raise AssertionError("server tick 1 was not served wholly from "
+                                 f"the cache: B1 launched {b1}")
+        if t != 1 and b1 < 1:
+            raise AssertionError(f"server tick {t}: B1 never launched")
+        if t == 2 and not (0 < res.rows_computed == evicted < n
+                           and res.epoch == epoch0
+                           and server.cache.last_invalidation
+                           == "delta-stab:tenant-2"):
+            raise AssertionError(
+                f"server tick 2: computed {res.rows_computed} rows, the "
+                f"stab evicted {evicted}, epoch {epoch0} -> {res.epoch}, "
+                f"{server.cache.last_invalidation}")
+        if t == 3 and (res.epoch != epoch0 + 1
+                       or server.cache.last_invalidation
+                       != "stab-budget:tenant-3"):
+            raise AssertionError(f"server tick 3: epoch {epoch0} -> "
+                                 f"{res.epoch}, "
+                                 f"{server.cache.last_invalidation}")
+        print("server " + json.dumps({
+            "tick": t, "step": step, "n_objects": n, "tenants": T,
+            "rows": res.rows_total, "unique": res.rows_unique,
+            "computed": res.rows_computed, "dedup_hits": res.dedup_hit_rows,
+            "cache_hits": res.cache_hit_rows, "evicted": evicted,
+            "epoch": res.epoch, "invalidation": server.cache.last_invalidation,
+            "submit_s": res.submit_s, "drain_s": res.drain_s,
+            "assemble_s": res.assemble_s, "wall_s": res.wall_s,
+            "iterations": None if res.inner is None else res.inner.iterations,
+            "b1_launches": b1, "max_memory_allocated": peak,
+            "twin": "bitwise, every tenant row", "oracle_rows": 1024}))
+        if t != 1:
+            rs, stats_ms, _, stats_peak = _tick(stats)
+            want_s = _sink_reckoning(ref, prev_full, dev)
+            agg = rs.aggregates
+            for f in ("kth_dist", "kth_drift_max", "churn_max",
+                      "shard_hits"):
+                got_f = rs.kth_dist if f == "kth_dist" else getattr(agg, f)
+                if not _same_bits(got_f, want_s[f]):
+                    raise AssertionError(f"stats tick {t}: {f} "
+                                         f"{got_f} != {want_s[f]}")
+            if int(agg.n_live) != n:
+                raise AssertionError(f"stats tick {t}: n_live {agg.n_live}")
+            for f in ("kth_drift_mean", "churn_mean"):
+                if not np.isclose(float(getattr(agg, f)), want_s[f],
+                                  rtol=1e-5, atol=0):
+                    raise AssertionError(f"stats tick {t}: {f} "
+                                         f"{float(getattr(agg, f))} vs "
+                                         f"{want_s[f]}")
+            if rs.nn_idx is not None or stats_peak > 1.10 * twin_peak:
+                raise AssertionError(f"stats tick {t}: peak {stats_peak} "
+                                     f"against the full twin's {twin_peak}")
+            print("stats " + json.dumps({
+                "tick": t, "step": step, "n_objects": n,
+                "wall_ms": stats_ms, "collect_s": rs.collect_s,
+                "max_memory_allocated": stats_peak,
+                "full_twin_max_memory_allocated": twin_peak,
+                "peak_ratio": stats_peak / twin_peak,
+                "kth_drift_mean": float(agg.kth_drift_mean),
+                "kth_drift_max": float(agg.kth_drift_max),
+                "churn_mean": float(agg.churn_mean),
+                "churn_max": float(agg.churn_max),
+                "shard_hits": agg.shard_hits.tolist(),
+                "reckoning": "kth, maxima, shard hits bitwise; means "
+                             "within 1e-5"}))
+        prev_full = ref
+    for s in (twin, stats, server.session):
+        s.finalize_pending()
+    return launches
+
+
+def entry_point(n: int):
+    """``python -m repro_torch.launch.serve knn`` with four tenants, in this
+    process, on the card: it must return 0."""
+    from repro_torch.launch.serve import main as serve_main
+
+    argv = ["knn", "--objects", str(n), "--ticks", "3", "--tenants", "4"]
+    t0 = time.perf_counter()
+    rc = serve_main(argv)
+    if rc != 0:
+        raise AssertionError(f"knn entry point returned {rc}")
+    print("entry " + json.dumps({"argv": argv, "rc": rc,
+                                 "seconds": time.perf_counter() - t0}))
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-objects", type=int, default=1_000_000)
@@ -1695,6 +1933,16 @@ def main() -> int:
     build.build_all(verbose=args.ptxas)
     print(f"build: {len(build.SOURCES)} source(s) in "
           f"{time.perf_counter() - t0:.1f} s")
+    # seconds per phase, printed before the kernels' line: where the run's
+    # time limit goes
+    phases = {"build": time.perf_counter() - t0}
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        now = time.perf_counter()
+        phases[name] = now - clock[0]
+        clock[0] = now
+
     check_fma(dev)
     b1 = {}
     for q in (8192, 123 * (512 if args.short_api else 8192)):
@@ -1703,10 +1951,13 @@ def main() -> int:
     rec, rec_mixed = b1["fused_scan_merge"], b1["fused_scan_merge_mixed"]
     rec_multi, rec_lists = merge_kernel_phase(dev)
     wide = wide_kernel_phase(dev)
+    lap("kernels")
     api = kernel_api_path(dev, full=not args.short_api)
     n = args.n_objects
     baseline_check(dev, n)
+    lap("kernel_api")
     total, _ = main_path(dev, n)
+    lap("single")
     rec["launches"] = total["fused_scan_merge"]
     rec_mixed["launches"] = total["fused_scan_merge_mixed"]
     counts_a, _ = object_path(dev, n, "a", "uniform", seed=0,
@@ -1722,10 +1973,19 @@ def main() -> int:
                 raise AssertionError(f"path {label}: {name} never launched")
     rec_multi["launches"] = counts_a["merge_topk_multi"]
     rec_lists["launches"] = counts_b["merge_topk_lists"]
-    n_wide = min(n, 200_000)
-    for name, count in wide_sessions(dev, n_wide).items():
+    lap("object_axis")
+    # the host-bound object-axis sessions run at 50,000 objects: each still
+    # launches the wide template or takes the maintenance route it is for
+    n_axis = min(n, 50_000)
+    for name, count in wide_sessions(dev, min(n, 200_000), n_axis).items():
         wide[name]["launches"] = count
-    incremental_object_path(dev, n_wide)
+    lap("wide_sessions")
+    incremental_object_path(dev, n_axis)
+    lap("incremental_object_axis")
+    rec["server_launches"] = server_path(dev, n)
+    lap("server")
+    entry_point(n)
+    lap("entry_point")
     narrow = ("topk_select", "bucket_kselect", "pairwise_dist")
     records = [rec, rec_mixed, rec_multi, rec_lists,
                *(api[name] for name in narrow), *wide.values(),
@@ -1734,6 +1994,7 @@ def main() -> int:
         if not r["launches"] or r["launches"] < 1:
             raise AssertionError(f"{r['name']}: no launch on its path")
         r["card"] = card
+    print("phases " + json.dumps(phases))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,9 +4,11 @@ The JAX package ``repro`` is the reference; this package imports nothing of
 it and nothing of JAX.  Entry points run on the card unless the caller passes
 ``device="cpu"``.  So far the port covers ``KnnSession`` ticks on every
 execution plan (the mesh plans' shards run one after another on the one
-card), through the hand-written CUDA kernels ``kernels/csrc/fused_scan.cu``
-(backend ``fused_bucket``) and ``kernels/csrc/merge_topk.cu`` (merges
-``fused_multi`` and ``fused_merge``).
+card) and every collect mode, through the hand-written CUDA kernels
+``kernels/csrc/fused_scan.cu`` (backend ``fused_bucket``) and
+``kernels/csrc/merge_topk.cu`` (merges ``fused_multi`` and ``fused_merge``),
+the multi-tenant server (``repro_torch.serve``) and the ``knn`` entry point
+(``repro_torch.launch.serve``).
 """
 from .api import KnnSession, QueryHandle, ServiceSpec, TickHandle
 from .core.pipeline import KnnStats, knn_query_batch

@@ -1,6 +1,17 @@
 """Session API: ServiceSpec -> KnnSession -> submit()/result()."""
 from .handles import QueryHandle, TickHandle
 from .session import KnnSession
-from .spec import ServiceSpec
+from .sink import ResultSink, SinkState, StatsSink, TickAggregates
+from .spec import COLLECT_MODES, ServiceSpec
 
-__all__ = ["KnnSession", "QueryHandle", "ServiceSpec", "TickHandle"]
+__all__ = [
+    "KnnSession",
+    "ServiceSpec",
+    "COLLECT_MODES",
+    "QueryHandle",
+    "TickHandle",
+    "ResultSink",
+    "StatsSink",
+    "SinkState",
+    "TickAggregates",
+]

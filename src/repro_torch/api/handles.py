@@ -3,7 +3,11 @@
 Counterpart of ``repro/api/handles.py``.  ``submit()`` returns a
 :class:`TickHandle` right after the tick's work is queued on the device;
 ``result()`` finalizes every earlier tick in submit order (so drift rebuilds
-apply in tick order) and then copies this tick's lists to the host.
+apply in tick order) and then copies to the host what the spec's ``collect``
+mode asks for: the ``(Q, k)`` lists under ``"full"``, only the sink's
+aggregates and the shard counters under ``"stats"``, nothing under
+``"none"``.  ``TickResult.collect_s`` is the copy time that call paid, taken
+after the device work has drained.
 """
 from __future__ import annotations
 
@@ -31,7 +35,8 @@ class TickHandle:
 
     def __init__(self, session, tick: int, nn_idx, nn_dist, aux,
                  should_rebuild, nq: int, qids: np.ndarray, owner: np.ndarray,
-                 t0: float, submit_s: float, rebuilt_pre: bool,
+                 t0: float, submit_s: float, compile_s: float,
+                 rebuilt_pre: bool, collect: str = "full", agg=None,
                  maintenance: str = "rebuild"):
         self._session = session
         self.tick = tick
@@ -39,11 +44,14 @@ class TickHandle:
         self._nn_dist = nn_dist
         self._aux = aux
         self._should_rebuild = should_rebuild
+        self._collect = collect
+        self._agg = agg  # the sink's TickAggregates on the device ("stats")
         self._nq = nq
         self._qids = qids
         self._owner = owner
         self._t0 = t0
         self.submit_s = submit_s
+        self.compile_s = compile_s
         self._rebuilt_pre = rebuilt_pre
         self._maintenance = maintenance
         self._event = None
@@ -56,6 +64,7 @@ class TickHandle:
         self._work: float | None = None
         self._iterations: int | None = None
         self._result: TickResult | None = None
+        self._result_dev: TickResult | None = None
 
     @property
     def finalized(self) -> bool:
@@ -67,6 +76,16 @@ class TickHandle:
         """Did the drift check of THIS tick trigger a rebuild after it ran?"""
         return self._rebuilt_post
 
+    def done(self) -> bool:
+        """Non-blocking: has this tick's device work finished?
+
+        Queries the event recorded behind the tick's work (and the sink's);
+        always True on the CPU, where the work ran inside ``submit()``.
+        """
+        if self._result is not None or self._event is None:
+            return True
+        return self._event.query()
+
     def block_until_ready(self) -> "TickHandle":
         """Block until this tick's device work is done, with no transfer."""
         if self._result is None and self._event is not None:
@@ -74,53 +93,97 @@ class TickHandle:
         return self
 
     def _tick_result(self, nn_idx, nn_dist, shard_cand, shard_it,
-                     collect_s: float = 0.0) -> TickResult:
+                     collect_s: float = 0.0, aggregates=None) -> TickResult:
         return TickResult(
             tick=self.tick,
             nn_idx=nn_idx,
             nn_dist=nn_dist,
             rebuilt=self._rebuilt_pre or self._rebuilt_post,
-            wall_s=time.perf_counter() - self._t0,
+            wall_s=time.perf_counter() - self._t0 - self.compile_s,
             candidates=self._work,
             iterations=self._iterations,
+            compile_s=self.compile_s,
             qids=self._qids,
             shard_candidates=shard_cand,
             shard_iterations=shard_it,
             collect_s=collect_s,
+            aggregates=aggregates,
             maintenance=self._maintenance,
         )
 
     def result(self, materialize: bool = True) -> TickResult:
         """Block until this tick's results are available (idempotent).
 
-        ``materialize=False`` returns the lists as device tensors (sliced to
-        the live rows) instead of host arrays.
+        Finalizes every earlier pending tick first, in submit order.  What
+        crosses to the host is the spec's ``collect`` mode: ``"full"`` the
+        ``(Q, k)`` lists and the shard counters; ``"stats"`` the sink's
+        aggregates and the shard counters (``nn_idx``/``nn_dist`` None);
+        ``"none"`` nothing (every field past the finalize bookkeeping None,
+        ``collect_s`` 0).
+
+        ``materialize=False`` returns, and caches, a result whose lists,
+        counters and aggregates are device tensors (the lists sliced to the
+        live rows); a later ``result()`` still materializes and releases
+        them.
         """
         if self._result is not None:
             return self._result
         self._session._finalize_through(self)
         nq = self._nq
         if not materialize:
-            return self._tick_result(
-                self._nn_idx[:nq], self._nn_dist[:nq],
-                self._aux.shard_candidates, self._aux.shard_iterations,
-            )
-        self.block_until_ready()
-        tc = time.perf_counter()
-        nn_idx = self._nn_idx[:nq].cpu().numpy()
-        nn_dist = self._nn_dist[:nq].cpu().numpy()
-        shard_cand = self._aux.shard_candidates.cpu().numpy()
-        shard_it = self._aux.shard_iterations.cpu().numpy()
-        self._result = self._tick_result(
-            nn_idx, nn_dist, shard_cand, shard_it,
-            collect_s=time.perf_counter() - tc,
-        )
+            if self._result_dev is None:
+                self._result_dev = self._tick_result(
+                    self._nn_idx[:nq], self._nn_dist[:nq],
+                    self._aux.shard_candidates, self._aux.shard_iterations,
+                    aggregates=self._agg,
+                )
+            return self._result_dev
+        if self._collect == "none":
+            self._result = self._tick_result(None, None, None, None)
+        else:
+            # drain the device work outside the timed window: collect_s is
+            # the copy alone
+            self.block_until_ready()
+            tc = time.perf_counter()
+            shard_cand = self._aux.shard_candidates.cpu().numpy()
+            shard_it = self._aux.shard_iterations.cpu().numpy()
+            if self._collect == "stats":
+                agg = type(self._agg)(*(t.cpu().numpy() for t in self._agg))
+                self._result = self._tick_result(
+                    None, None, shard_cand, shard_it,
+                    collect_s=time.perf_counter() - tc, aggregates=agg)
+            else:
+                nn_idx = self._nn_idx[:nq].cpu().numpy()
+                nn_dist = self._nn_dist[:nq].cpu().numpy()
+                self._result = self._tick_result(
+                    nn_idx, nn_dist, shard_cand, shard_it,
+                    collect_s=time.perf_counter() - tc)
         # release the device tensors
         self._nn_idx = self._nn_dist = self._aux = self._should_rebuild = None
+        self._agg = None
+        self._result_dev = None
         return self._result
 
     def result_for(self, handle: QueryHandle):
-        """This tick's rows for one query group: (nn_idx, nn_dist, qids)."""
-        res = self.result()
+        """This tick's rows for one query group: (nn_idx, nn_dist, qids).
+
+        Rows come from the registry snapshot taken at submit.  Under
+        ``collect != "full"`` the lists never reach the host, so the rows
+        come back as device tensors (through ``result(materialize=False)``).
+        """
+        if self._collect == "full":
+            res = self.result()
+        else:
+            res = self.result(materialize=False)
+        if res.nn_idx is None:
+            raise RuntimeError(
+                f"result_for after result() under collect={self._collect!r}: "
+                "the neighbour lists were never copied to the host and their "
+                "device tensors are released; call result_for (or "
+                "result(materialize=False)) before materializing")
         rows = np.nonzero(self._owner == handle.hid)[0]
+        if torch.is_tensor(res.nn_idx):
+            sel = torch.as_tensor(rows, device=res.nn_idx.device)
+            return (res.nn_idx.index_select(0, sel),
+                    res.nn_dist.index_select(0, sel), res.qids[rows])
         return res.nn_idx[rows], res.nn_dist[rows], res.qids[rows]

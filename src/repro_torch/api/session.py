@@ -1,7 +1,8 @@
 """KnnSession — the session-oriented serving facade, in PyTorch.
 
 Counterpart of ``repro/api/session.py`` for every plan, both maintenance
-modes and ``collect="full"``: persistent query groups in a padded registry,
+modes and every collect mode: persistent query groups in a padded registry
+(or one bulk query set, ``set_queries``),
 delta object updates scattered on the device (grouped by owning object shard
 under the object-axis plans), per-query boundary-seed weights, and ticks
 submitted through :func:`repro_torch.core.ticks._tick_step`.  Under
@@ -13,9 +14,13 @@ shard's owned rows); otherwise a tick re-sorts every row.  Drift-rebuild
 bookkeeping is finalized per tick, in submit order, at the earlier of that
 tick's ``result()`` and the next ``submit()``, exactly as the reference does,
 so the sequence of rebuild decisions matches the reference tick for tick.
+Under ``collect="stats"`` each tick's padded lists go to a
+:class:`~repro_torch.api.sink.StatsSink` queued right behind the tick, whose
+memory resets with the cost EMA whenever the registry's row set changes.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import deque
 
@@ -33,8 +38,10 @@ from ..core.ticks import (
     scatter_positions,
     shard_churn_over_budget,
 )
+from ..kernels.build import build_seconds
 from ..runtime import resolve_device
 from .handles import QueryHandle, TickHandle
+from .sink import StatsSink
 from .spec import ServiceSpec
 
 __all__ = ["KnnSession"]
@@ -44,7 +51,9 @@ class _QueryRegistry:
     """Host mirror + cached padded device staging of the live query set.
 
     Rows stay contiguous (drops compact); padding rows clone the last query
-    with qid = -2 (:func:`repro_torch.core.plan.pad_queries`).
+    with qid = -2 (:func:`repro_torch.core.plan.pad_queries`).  ``owner``
+    maps each row to the handle that registered it (-1 for bulk
+    ``set_queries`` rows).
     """
 
     def __init__(self, multiple: int, device: torch.device):
@@ -64,17 +73,22 @@ class _QueryRegistry:
     def nq(self) -> int:
         return int(self.qpos.shape[0])
 
-    def register(self, qpos, qid=None) -> QueryHandle:
+    def _coerce(self, qpos, qid):
         qpos = np.asarray(qpos, np.float32).reshape(-1, 2)
         m = qpos.shape[0]
-        if m == 0:
-            raise ValueError("cannot register an empty query group")
         if qid is None:
             qid = np.full((m,), -2, np.int32)
         else:
             qid = np.asarray(qid, np.int32).reshape(-1)
             if qid.shape[0] != m:
                 raise ValueError(f"qid has {qid.shape[0]} rows but qpos has {m}")
+        return qpos, qid
+
+    def register(self, qpos, qid=None) -> QueryHandle:
+        qpos, qid = self._coerce(qpos, qid)
+        m = qpos.shape[0]
+        if m == 0:
+            raise ValueError("cannot register an empty query group")
         hid = self._next_hid
         self._next_hid += 1
         self.qpos = np.concatenate([self.qpos, qpos])
@@ -87,7 +101,8 @@ class _QueryRegistry:
 
     def rows(self, handle: QueryHandle) -> np.ndarray:
         if handle.hid not in self._live:
-            raise KeyError(f"{handle} is not live in this registry")
+            raise KeyError(f"{handle} is not live in this registry (already "
+                           "dropped, or invalidated by set_queries)")
         return np.nonzero(self.owner == handle.hid)[0]
 
     def update(self, handle: QueryHandle, qpos):
@@ -108,6 +123,16 @@ class _QueryRegistry:
         self.qid = self.qid[keep]
         self.owner = self.owner[keep]
         self._live.discard(handle.hid)
+        self._dirty = True
+        self.rows_changed = True
+
+    def replace_all(self, qpos, qid=None):
+        """Bulk staging: replaces every row and invalidates every handle."""
+        qpos, qid = self._coerce(qpos, qid)
+        self.qpos = qpos.copy()
+        self.qid = qid.copy()
+        self.owner = np.full((qpos.shape[0],), -1, np.int64)
+        self._live = set()
         self._dirty = True
         self.rows_changed = True
 
@@ -156,6 +181,11 @@ class KnnSession:
         self._qweight_host: np.ndarray | None = None
         self._qweight_ver = 0
         self._qweight_staged = None  # (ver, padded_len, device tensor)
+        # collect="stats": the sink queued behind each tick, and its memory
+        # of the previous tick (reset with the cost EMA on a row-set change)
+        self._sink = (StatsSink(self.plan.object_axis_size)
+                      if spec.collect == "stats" else None)
+        self._sink_state = None
         # True iff the positions buffer changed since the index was refreshed
         self._positions_dirty = True
         self._reset_pending()
@@ -317,6 +347,10 @@ class KnnSession:
         """Remove a group; its rows stop being served from the next submit."""
         self._registry.drop(handle)
 
+    def set_queries(self, qpos, qid=None):
+        """Bulk staging of the whole query set; invalidates every handle."""
+        self._registry.replace_all(qpos, qid)
+
     def set_query_cost_weights(self, weights):
         """Per-query multipliers on the boundary-seeding cost (or None).
 
@@ -459,12 +493,15 @@ class KnnSession:
                                "register_queries first")
         self._finalize_through()
         t0 = time.perf_counter()
+        built0 = build_seconds()
         rebuilt_pre = False
         if self._index is None:
             self._build()
             rebuilt_pre = True
         if self._registry.rows_changed:
+            # both are row-aligned with the padded registry batch
             self._qcost = None
+            self._sink_state = None
             self._registry.rows_changed = False
         qpos_dev, qid_dev, nq, qids, owner = self._registry.staged()
         qcost_dev = self._qcost
@@ -521,6 +558,18 @@ class KnnSession:
         self._obj_bounds = (
             aux.object_bounds if self.plan.object_axis_size > 1 else None
         )
+        agg = None
+        if self._sink is not None:
+            # queued behind the step on the same stream, fed the post-step
+            # index and this tick's object boundaries
+            if (self._sink_state is None
+                    or self._sink_state.prev_idx.shape != nn_idx.shape):
+                self._sink_state = self._sink.init(int(nn_idx.shape[0]),
+                                                   spec.k, self.device)
+            self._sink_state, agg = self._sink.update(
+                self._sink_state, nn_idx, nn_dist, self._index,
+                self._obj_bounds, nq)
+        submit_s = time.perf_counter() - t0
         h = TickHandle(
             session=self,
             tick=self._tick,
@@ -532,10 +581,26 @@ class KnnSession:
             qids=qids,
             owner=owner,
             t0=t0,
-            submit_s=time.perf_counter() - t0,
+            submit_s=submit_s,
+            # the port's counterpart of a first-shape compile: the seconds
+            # this submit spent building kernels (0 once built, and on the
+            # CPU)
+            compile_s=build_seconds() - built0,
             rebuilt_pre=rebuilt_pre,
+            collect=spec.collect,
+            agg=agg,
             maintenance=mode,
         )
         self._tick += 1
         self._pending.append(h)
         return h
+
+    def process_tick(self, positions, qpos, qid=None):
+        """Blocking snapshot convenience: ingest + set_queries + submit +
+        result, with ``wall_s`` measured from the top of the call."""
+        t0 = time.perf_counter()
+        self.ingest_objects(positions)
+        self.set_queries(qpos, qid)
+        res = self.submit().result()
+        return dataclasses.replace(
+            res, wall_s=time.perf_counter() - t0 - res.compile_s)

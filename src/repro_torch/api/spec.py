@@ -3,9 +3,9 @@
 Same fields and defaults as the reference's ``repro/api/spec.py``, and the
 same eager validation.  Every plan, partitioner and merge backend runs; the
 mesh plans lay ``mesh_shape`` logical shards onto the session's one device.
-Both maintenance modes run.  ``collect`` other than ``"full"`` is not ported
-yet and raises ``NotImplementedError`` at construction, naming its ROADMAP
-item (A9b).  Both precisions run: ``"mixed"`` adds the bf16 prefilter to
+Both maintenance modes and the three collect modes run (``"full"`` copies
+the lists to the host, ``"stats"`` only the sink's aggregates, ``"none"``
+nothing).  Both precisions run: ``"mixed"`` adds the bf16 prefilter to
 every SCAN backend and gives fp32's lists bit for bit.
 """
 from __future__ import annotations
@@ -64,11 +64,3 @@ class ServiceSpec:
             raise ValueError(f"origin must be an (x, y) pair, got {self.origin!r}")
         if self.delta_pad < 1:
             raise ValueError(f"delta_pad must be >= 1, got {self.delta_pad}")
-        unported = [
-            ("collect", self.collect != "full", "A9b"),
-        ]
-        for field, bad, item in unported:
-            if bad:
-                raise NotImplementedError(
-                    f"{field}={getattr(self, field)!r} is not ported yet "
-                    f"(ROADMAP item {item})")

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from ..kernels.delta_splice import (gather_splice, searchsorted_pairs,
@@ -30,6 +31,7 @@ __all__ = [
     "leaf_of_points",
     "starts_from_pyramid",
     "local_pyramid_from_starts",
+    "ball_stab_mask",
 ]
 
 INDEX_FIELDS = ("origin", "side", "pos", "ids", "codes", "starts",
@@ -290,3 +292,113 @@ def leaf_of_points(index: QuadtreeIndex, points):
     shift = 2 * (index.l_max - lvl)
     key = (fine >> shift) << shift
     return key, lvl
+
+
+def _part1by1_np(v: np.ndarray) -> np.ndarray:
+    """numpy replica of :func:`repro_torch.core.morton.part1by1` (host-side
+    stab)."""
+    v = np.asarray(v, np.uint32)
+    v = (v | (v << 8)) & np.uint32(0x00FF00FF)
+    v = (v | (v << 4)) & np.uint32(0x0F0F0F0F)
+    v = (v | (v << 2)) & np.uint32(0x33333333)
+    v = (v | (v << 1)) & np.uint32(0x55555555)
+    return v
+
+
+def _encode_cells_np(cx: np.ndarray, cy: np.ndarray) -> np.ndarray:
+    return (_part1by1_np(cx) | (_part1by1_np(cy) << 1)).astype(np.int64)
+
+
+# conservative widening of the stored squared k-th distance: the kernels give
+# the Euclidean k-th distance in f32 (an f32 squared distance, then a
+# correctly rounded f32 root), and the cache squares it back in f64, so the
+# stored r^2 can sit a few ulps below the exact value (about 5 * 2**-23
+# relative at worst); 2**-17 leaves an order of magnitude of headroom and is
+# geometrically negligible.  At r^2 == 0 no margin is needed: an f32
+# difference is exactly 0 only for bitwise-equal coordinates (or -0 and +0).
+_STAB_MARGIN = 1.0 + 2.0**-17
+
+
+def ball_stab_mask(centers: np.ndarray, kth2: np.ndarray, moved: np.ndarray,
+                   *, origin, side, l_max: int,
+                   exact_rows: int = 64) -> np.ndarray:
+    """Which closed k-th-distance balls does a set of moved points stab?
+
+    Host numpy.  Cache entry *e* (query ``centers[e]``, squared k-th distance
+    ``kth2[e]``) can only have changed if some moved row's old or new
+    position lies in its closed ball (an object tied at exactly the k-th
+    distance can flip the lowest-id tie-break).  Returns an (E,) bool mask,
+    True = evict.  The mask is conservative: widened by ``_STAB_MARGIN``,
+    coarsened to cells on the pyramid path, and positions outside the region
+    clipped to its boundary cells; each approximation adds stabs, never
+    drops one.
+
+    Two regimes, one contract:
+
+    * at most ``exact_rows`` moved rows: the exact pairwise check in f64
+      (the squared distance of f32 inputs is exact there, so only the stored
+      radius needs the margin);
+    * more: a Morton occupancy pyramid over the moved rows' fine cells and,
+      per ball, the coarsest level whose cell side covers its diameter,
+      where four occupancy probes decide the stab.
+
+    NaN or infinite centres and NaN radii always stab (their ball is
+    undefined), and an infinite radius (fewer than k candidates) stabs on
+    any motion.
+    """
+    centers = np.asarray(centers, np.float64).reshape(-1, 2)
+    kth2 = np.asarray(kth2, np.float64).reshape(-1)
+    moved = np.asarray(moved, np.float64).reshape(-1, 2)
+    E = centers.shape[0]
+    M = moved.shape[0]
+    bad = ~(np.isfinite(centers).all(axis=1) & ~np.isnan(kth2))
+    if E == 0 or M == 0:
+        # non-finite geometry stabs even without motion to localise
+        return bad | np.isinf(kth2)
+    r2 = kth2 * _STAB_MARGIN
+    if M <= exact_rows:
+        d2 = ((centers[:, None, 0] - moved[None, :, 0]) ** 2
+              + (centers[:, None, 1] - moved[None, :, 1]) ** 2)
+        return bad | (d2 <= r2[:, None]).any(axis=1)
+    ox = float(np.asarray(origin).reshape(-1)[0])
+    oy = float(np.asarray(origin).reshape(-1)[1])
+    side = float(side)
+    n_fine = 1 << l_max
+    mx = np.clip(np.floor((moved[:, 0] - ox) / side * n_fine), 0, n_fine - 1)
+    my = np.clip(np.floor((moved[:, 1] - oy) / side * n_fine), 0, n_fine - 1)
+    occ_fine = np.zeros((n_fine * n_fine,), bool)
+    occ_fine[_encode_cells_np(mx.astype(np.int64), my.astype(np.int64))] = True
+    levels = [occ_fine]
+    cur = occ_fine
+    for _ in range(l_max):
+        cur = cur.reshape(-1, 4).any(axis=1)
+        levels.append(cur)
+    occ = np.concatenate(list(reversed(levels)))
+    # per ball: the coarsest level whose cell side is at least the diameter
+    # (r == 0: the finest)
+    r = np.sqrt(np.maximum(r2, 0.0))
+    always = bad | np.isinf(r)
+    ok = ~always
+    lvl = np.full((E,), l_max, np.int64)
+    pos_r = ok & (r > 0.0)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        want = np.floor(np.log2(side / (2.0 * np.where(pos_r, r, 1.0))))
+    lvl[pos_r] = np.clip(want[pos_r], 0, l_max).astype(np.int64)
+    n_cells = np.int64(1) << lvl
+    off = ((np.int64(1) << (2 * lvl)) - 1) // 3
+
+    def cell(coord, o):
+        c = np.floor((coord - o) / side * n_cells)
+        return np.clip(c, 0, n_cells - 1).astype(np.int64)
+
+    # finite stand-ins on the always-stab rows, for the integer casts
+    cx = np.where(ok, centers[:, 0], ox)
+    cy = np.where(ok, centers[:, 1], oy)
+    r = np.where(ok & np.isfinite(r), r, 0.0)
+    xs = (cell(cx - r, ox), cell(cx + r, ox))
+    ys = (cell(cy - r, oy), cell(cy + r, oy))
+    hit = np.zeros((E,), bool)
+    for ix in xs:
+        for iy in ys:
+            hit |= occ[off + _encode_cells_np(ix, iy)]
+    return always | (ok & hit)

@@ -137,14 +137,38 @@ class TickResult:
     nn_idx: np.ndarray | None  # (Q, k); tensors under result(materialize=False)
     nn_dist: np.ndarray | None  # (Q, k) euclidean
     rebuilt: bool
-    wall_s: float  # submit -> results materialized
+    wall_s: float  # submit -> results materialized, excluding compile_s
     candidates: float
     iterations: int
+    compile_s: float = 0.0  # kernel build seconds inside this tick's submit
     qids: np.ndarray | None = None  # (Q,) registry qids, row-aligned with nn_*
     shard_candidates: np.ndarray | None = None  # (R_total,) f32
     shard_iterations: np.ndarray | None = None  # (R_total,) i32
     collect_s: float = 0.0  # device -> host transfer time of this result
+    # the sink's TickAggregates (repro_torch.api.sink) under collect="stats";
+    # None under "full" and "none"
+    aggregates: object | None = None
     maintenance: str = "rebuild"  # how this tick's step refreshed the index
+
+    @property
+    def kth_dist(self):
+        """(Q,) Euclidean k-th distance per query row, or None.
+
+        ``nn_dist[:, -1]`` where the lists are present (host array or device
+        tensor, as the result holds them); else the sink's
+        ``aggregates.kth_dist`` sliced to the live rows.  It is the radius of
+        each row's result ball, which the serving layer's spatial cache
+        invalidation stores per entry.
+        """
+        if self.nn_dist is not None:
+            return self.nn_dist[:, -1]
+        agg = self.aggregates
+        if agg is not None and getattr(agg, "kth_dist", None) is not None:
+            kd = agg.kth_dist
+            if self.qids is not None:
+                kd = kd[: self.qids.shape[0]]
+            return kd
+        return None
 
 
 def _tick_step(index, positions, qpos, qid, qcost, work_at_build,

@@ -5,7 +5,9 @@ interface.  A library is built at first use, from the checkout's sources
 only, into ``build/torch_kernels/`` at the repository root, under a name keyed
 by a hash of the source, the shared headers (``csrc/*.cuh``) and the flags,
 so a fresh checkout builds once and an edited source or header rebuilds.
-``build_all`` starts one ``nvcc`` per source at once.
+``build_all`` starts one ``nvcc`` per source at once.  :func:`build_seconds`
+counts the seconds this process has spent building, which the session
+reports as a tick's ``compile_s``.
 
 Flags: ``sm_90a`` (Hopper), ``-O3`` and ``--fmad=false`` so that no multiply
 and add is contracted behind the source's back; the kernels spell every fused
@@ -20,10 +22,11 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 
 __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "library_path", "build_all",
-           "load"]
+           "load", "build_seconds"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fused_scan.cu", "merge_topk.cu", "pairwise_dist.cu",
@@ -35,6 +38,14 @@ NVCC_FLAGS = (
 )
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+# wall seconds this process spent in nvcc builds (the libraries it loads are
+# process-wide too)
+_BUILT_S = [0.0]
+
+
+def build_seconds() -> float:
+    """Seconds this process has spent building kernels so far."""
+    return _BUILT_S[0]
 
 
 def build_dir() -> Path:
@@ -91,10 +102,13 @@ def _finish(job, verbose: bool):
 
 def build_all(verbose: bool = False) -> dict[str, Path]:
     """Build every source that is not built yet, all ``nvcc`` runs in parallel."""
+    t0 = time.perf_counter()
     jobs = [_start(s, verbose) for s in SOURCES]
     for job in jobs:
         if job is not None:
             _finish(job, verbose)
+    if any(jobs):
+        _BUILT_S[0] += time.perf_counter() - t0
     return {s: library_path(s) for s in SOURCES}
 
 
@@ -102,9 +116,11 @@ def load(source: str) -> ctypes.CDLL:
     """The loaded library of one source, built first if needed (cached)."""
     lib = _LOADED.get(source)
     if lib is None:
+        t0 = time.perf_counter()
         job = _start(source, False)
         if job is not None:
             _finish(job, False)
+            _BUILT_S[0] += time.perf_counter() - t0
         lib = ctypes.CDLL(str(library_path(source)))
         _LOADED[source] = lib
     return lib

@@ -469,3 +469,57 @@ def test_merge_topk_lists_wide_template_matches_plain(cuda, ka, kb, k, q):
         torch.cuda.synchronize()
         assert tmt.merge_topk_lists.wide_launches == before + 1
         assert _same_nan(out, tmt.merge_topk_lists_ref(a_d, ia, db, ib, k=k))
+
+
+@pytest.mark.gpu
+def test_server_on_the_card_equals_a_solo_session(cuda):
+    """A 20,000-object server on the card (three tenants, one with rows that
+    duplicate another's, spatial invalidation) equals a solo session fed the
+    same world, bitwise, on a build, an unchanged tick served from the cache
+    and a delta tick; the solo session's ``TickHandle.done()`` turns true
+    without a ``result()``."""
+    import time
+
+    import numpy as np
+
+    from repro_torch.api import KnnSession, ServiceSpec
+    from repro_torch.data.generators import make_workload
+    from repro_torch.serve import KnnServer
+
+    n = 20_000
+    spec = ServiceSpec(backend="fused_bucket")
+    pos = make_workload(n, "uniform", seed=9, side=spec.side).positions()
+    qid = np.arange(n, dtype=np.int32)
+    srv = KnnServer(spec, invalidation="spatial")
+    srv.ingest_objects(pos)
+    tenants = [srv.admit(f"t{i}") for i in range(3)]
+    rows = [qid[i::3] for i in range(3)] + [qid[1::3][:500]]
+    groups = [t.register_queries(pos[r], r)
+              for t, r in zip(tenants, rows[:3])]
+    groups.append(tenants[0].register_queries(pos[rows[3]], rows[3]))
+    solo = KnnSession(spec)
+    solo.ingest_objects(pos)
+    solo.register_queries(pos, qid)
+    g = np.random.default_rng(1)
+    for t in range(3):
+        if t == 2:
+            ids = g.choice(n, 100, replace=False).astype(np.int32)
+            new = np.clip(pos[ids] + g.uniform(-200, 200, (ids.size, 2)), 0,
+                          spec.side - 1e-3).astype(np.float32)
+            tenants[1].update_objects(ids, new)
+            solo.update_objects(ids, new)
+        st = srv.submit()
+        res = st.result()
+        assert (res.inner is None) == (t == 1)
+        h = solo.submit()
+        deadline = time.monotonic() + 60.0
+        while not h.done():
+            assert time.monotonic() < deadline, "done() never turned true"
+            time.sleep(0.001)
+        ref = h.result()
+        for group, r in zip(groups, rows):
+            ii, dd, qq = st.result_for(group)
+            assert np.array_equal(ii, ref.nn_idx[r])
+            assert np.array_equal(dd.view(np.uint32),
+                                  ref.nn_dist[r].view(np.uint32))
+            assert np.array_equal(qq, r)

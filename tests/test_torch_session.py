@@ -130,8 +130,18 @@ def test_session_matches_jax_fused_bucket():
     ("collect", "stats", "A9"),
 ])
 def test_spec_rejects_unported_values(field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        ServiceSpec(**{field: value})
+    """No value the reference's spec takes is unported any more: the collect
+    modes that raised ``NotImplementedError`` naming their ROADMAP item
+    build as the reference's do, and a value neither takes still raises."""
+    import inspect
+
+    from repro_torch.api import spec as spec_module
+
+    assert getattr(ServiceSpec(**{field: value}), field) == getattr(
+        JaxSpec(**{field: value}), field)
+    assert item not in inspect.getsource(spec_module)
+    with pytest.raises(ValueError, match=f"unknown {field}"):
+        ServiceSpec(**{field: "bogus"})
 
 
 def test_spec_defaults_and_validation_match_jax():
@@ -154,3 +164,30 @@ def test_entry_points_need_a_card_unless_told(monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         KnnSession(ServiceSpec())
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_process_tick_and_set_queries_match_jax():
+    """The snapshot convenience (ingest + ``set_queries`` + submit + result)
+    over two ticks equals the reference's; ``set_queries`` invalidates the
+    handles registered before it, in both packages."""
+    n = 500
+    js, ts = _pair(n, "dense_topk")
+    g = np.random.default_rng(12)
+    hj = js.register_queries(g.uniform(0, SIDE, (5, 2)))
+    ht = ts.register_queries(g.uniform(0, SIDE, (5, 2)))
+    for t in range(2):
+        pos = make_workload(n, "uniform", seed=20 + t,
+                            side=SIDE).positions()
+        qid = np.arange(0, n, 3, dtype=np.int32)
+        rj = js.process_tick(pos, pos[qid], qid)
+        rt = ts.process_tick(pos, pos[qid], qid)
+        np.testing.assert_array_equal(rj.nn_idx, rt.nn_idx)
+        np.testing.assert_array_equal(rj.nn_dist.view(np.uint32),
+                                      rt.nn_dist.view(np.uint32))
+        np.testing.assert_array_equal(rj.qids, rt.qids)
+        assert (rj.iterations, rj.rebuilt) == (rt.iterations, rt.rebuilt)
+        assert rt.wall_s >= 0.0 and rt.compile_s == 0.0
+        assert ts.query_count == js.query_count == qid.size
+    for s, h in ((js, hj), (ts, ht)):
+        with pytest.raises(KeyError, match="set_queries"):
+            s.update_queries(h, np.zeros((5, 2), np.float32))
