@@ -87,7 +87,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``collect="stats"`` session whose aggregates equal what the full twin's
    lists give, at a peak within 10% of the twin's;
 13. the ``knn`` entry point (``repro_torch.launch.serve``) with four
-   tenants at N, in this process: it must return 0.
+   tenants at N, in this process: it must return 0;
+14. evaluation (:func:`evaluation`), the paper's evaluation entry points:
+   the ``network``, ``zipf`` and ``hotspot_cluster`` worlds at N through
+   ``TickEngine(EngineConfig(backend="fused_bucket")).run(w, ticks=3)``,
+   every tick launching B1 with no chunk at ``max_iters`` and 1,024 sampled
+   rows equal to the brute-force oracle bit for bit (on the network world
+   at least 256 of them objects that sit exactly on a node on ticks 1 and
+   2, and a ``dense_topk`` twin equal on every row); then
+   ``knn_query_batch_chunked`` with ``object_sharded`` 4, ``fused_multi``,
+   ``with_aux``, ``equal`` and ``cost_balanced`` on the zipf world at
+   200,000 objects, each equal to the ``single`` plan bitwise, with its
+   straggler gap; the sequential ``KDTree`` on the host over the network
+   world's first tick, held against the card's lists by the reference's
+   rule and timed beside it; and the two examples of ``examples_torch/``
+   in this process (the service at N, network, ``fused_bucket``), each
+   returning 0.
 
 Launch counts are zeroed just before each path (each tick, in the single
 and server paths) and read just after, on the path's own session only.  The
@@ -98,6 +113,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import platform
 import subprocess
 import sys
 import time
@@ -1910,6 +1927,269 @@ def entry_point(n: int):
                                  "seconds": time.perf_counter() - t0}))
 
 
+# the paper's three evaluation families at the Table 1 scale; the skewed
+# presets with the reference's defaults spelled out
+EVAL_WORLDS = (("network", {}),
+               ("zipf", {"zipf_a": 1.6, "clusters": 12}),
+               ("hotspot_cluster", {"cluster_frac": 0.75, "clusters": 12}))
+
+
+def _eval_rows(g, pos, nodes, size: int = 1024):
+    """``size`` sampled query rows; with ``nodes`` (the network's node
+    positions) half of them, as far as there are, objects that sit exactly
+    on a node.  Returns (rows, node-coincident rows among them)."""
+    if nodes is None:
+        return g.choice(pos.shape[0], size, replace=False), 0
+    on = np.isin(pos.view(np.uint64).ravel(), nodes.view(np.uint64).ravel())
+    on_rows, off_rows = np.flatnonzero(on), np.flatnonzero(~on)
+    take = min(size // 2, on_rows.size)
+    rows = np.concatenate([g.choice(on_rows, take, replace=False),
+                           g.choice(off_rows, size - take, replace=False)])
+    return rows, take
+
+
+def _cpu_model() -> str:
+    """The host CPU's model name where the machine reports one, and its
+    core count."""
+    name = ""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.split(":")[0].strip() in ("model name", "Model name"):
+                    name = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    if not name:
+        try:
+            out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                                 timeout=10).stdout
+            name = next((line.split(":", 1)[1].strip()
+                         for line in out.splitlines()
+                         if line.startswith("Model name")), "")
+        except (OSError, subprocess.SubprocessError):
+            pass
+    return (f"{name or platform.machine() or 'unknown'}, "
+            f"{os.cpu_count()} logical cores")
+
+
+def _check_kdtree(ii, dd, ri, rd, k: int):
+    """The reference's rule for the kd-tree (``tests/test_backends.py``):
+    distances within rtol 1e-5, atol 1e-3, and the id sets equal where the
+    distance is strictly below the k-th."""
+    np.testing.assert_allclose(dd, rd, rtol=1e-5, atol=1e-3)
+    for r in range(ii.shape[0]):
+        kth = rd[r, k - 1]
+        want = set(ri[r][rd[r] < kth * (1 - 1e-6)].tolist()) - {-1}
+        got = set(ii[r][dd[r] < kth * (1 - 1e-6)].tolist()) - {-1}
+        if want != got:
+            raise AssertionError(f"kd-tree row {r}: {want} != {got}")
+
+
+def _run_example(name: str, argv: list) -> dict:
+    """``examples_torch/<name>.py``'s ``main(argv)``, in this process; it
+    must return 0.  Returns its kernel launches."""
+    import importlib.util
+
+    path = ROOT / "examples_torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"example_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    _zero_counts()
+    t0 = time.perf_counter()
+    rc = mod.main(argv)
+    counts = _read_counts()
+    if rc != 0:
+        raise AssertionError(f"examples_torch/{name}.py returned {rc}")
+    print("example " + json.dumps({"example": name, "argv": argv, "rc": rc,
+                                   "seconds": time.perf_counter() - t0,
+                                   "b1_launches":
+                                       counts["fused_scan_merge"]}))
+    return counts
+
+
+def evaluation(dev, n: int, n_probe: int, card: str, seed: int = 0):
+    """The paper's evaluation entry points on the card; returns the engine
+    paths' B1 launches and the probe's B2 launches.
+
+    1. Each world of :data:`EVAL_WORLDS` at ``n`` objects through
+       ``TickEngine(EngineConfig(backend="fused_bucket")).run(w, ticks=3)``:
+       every object moves on each ``advance()``, one query per object.  On
+       every tick B1 launches, no chunk reaches ``max_iters`` (a spy on the
+       plan's sweep reads the slowest chunk's trips), and 1,024 sampled rows
+       equal the brute-force oracle bit for bit; on the network world half
+       the sample sits exactly on a node where it can (at least 256 rows on
+       ticks 1 and 2), and a ``dense_topk`` twin equals every row.
+    2. The object-axis probe: ``knn_query_batch_chunked`` with
+       ``object_sharded`` 4, ``fused_multi``, ``with_aux`` on the zipf world
+       at ``n_probe`` objects, ``equal`` and ``cost_balanced``, each equal
+       to the ``single`` plan bitwise; straggler gaps printed.
+    3. The sequential kd-tree on the host over the network world's tick-0
+       positions, queried at that tick's 1,024 rows and held against the
+       card's lists by the reference's rule; its queries/s beside the
+       card's.
+    4. ``examples_torch/quickstart.py`` and ``moving_objects_service.py``
+       (1M-scale network world, ``fused_bucket``), each returning 0.
+    """
+    import warnings
+
+    from repro_torch.core import (KDTree, EngineConfig, TickEngine,
+                                  build_index, knn_query_batch_chunked,
+                                  straggler_gap)
+    from repro_torch.core import plan as plan_mod
+    from repro_torch.data import make_workload
+
+    g = np.random.default_rng(seed + 7)
+    b1_total = 0
+    kd = {}  # the network world's tick 0, for the kd-tree
+    trips = []
+    sweep = plan_mod._knn_sorted_impl
+
+    def spy(*a, **kw):  # the slowest chunk's trips of each sweep
+        out = sweep(*a, **kw)
+        trips.append(int(out[2].iterations.max()))
+        return out
+
+    plan_mod._knn_sorted_impl = spy
+    try:
+        for fam, kw in EVAL_WORLDS:
+            w = make_workload(n, fam, seed=seed, **kw)
+            with warnings.catch_warnings():
+                warnings.simplefilter("ignore", DeprecationWarning)
+                engine = TickEngine(EngineConfig(backend="fused_bucket"))
+                twin = (TickEngine(EngineConfig()) if fam == "network"
+                        else None)
+            k, max_iters = engine.cfg.k, engine.cfg.max_iters
+            nodes = w.net_nodes if fam == "network" else None
+            walls = []
+
+            def on_tick(res):
+                counts = _read_counts()  # this tick of the engine only
+                peak = torch.cuda.max_memory_allocated()
+                t = len(walls)
+                walls.append(res.wall_s)
+                launches = counts["fused_scan_merge"]
+                if launches < 1:
+                    raise AssertionError(f"{fam} tick {t}: B1 idle")
+                slowest = max(trips)
+                if slowest >= max_iters:
+                    raise AssertionError(f"{fam} tick {t}: a chunk ran "
+                                         f"{slowest} trips")
+                pos = w.positions()
+                if res.nn_idx.shape != (n, k) or not np.isfinite(
+                        res.nn_dist).all():
+                    raise AssertionError(f"{fam} tick {t}: malformed result")
+                rows, on_node = _eval_rows(g, pos, nodes)
+                if nodes is not None and t > 0 and on_node < 256:
+                    raise AssertionError(f"network tick {t}: only {on_node} "
+                                         "sampled rows sit on a node")
+                oracle_check(torch.tensor(pos, device=dev), rows, res.nn_idx,
+                             res.nn_dist, k, dev)
+                rec = {"world": fam, "tick": t, "n_objects": n,
+                       "wall_ms": res.wall_s * 1e3,
+                       "iterations": res.iterations,
+                       "slowest_chunk_trips": slowest,
+                       "candidates": res.candidates, "launches": launches,
+                       "rebuilt": res.rebuilt,
+                       "maintenance": res.maintenance,
+                       "max_memory_allocated": peak, "oracle_rows": 1024,
+                       "node_rows": on_node, "oracle": "bitwise"}
+                if twin is not None:
+                    ref = twin.process_tick(pos, *w.query_batch(1.0))
+                    bad = _same_lists(res, ref)
+                    if bad.any():
+                        raise AssertionError(f"network tick {t}: "
+                                             f"{int(bad.sum())} rows differ "
+                                             "from the dense_topk twin")
+                    rec["dense_topk_twin"] = "bitwise, all rows"
+                    rec["dense_topk_wall_ms"] = ref.wall_s * 1e3
+                if fam == "network" and t == 0:
+                    kd.update(pos=pos.copy(), rows=rows,
+                              ii=res.nn_idx[rows], dd=res.nn_dist[rows])
+                print("eval " + json.dumps(rec))
+                nonlocal b1_total
+                b1_total += launches
+                trips.clear()
+                _zero_counts()  # the next tick's counts start here
+                torch.cuda.reset_peak_memory_stats()
+
+            trips.clear()
+            _zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            engine.run(w, ticks=3, on_tick=on_tick)
+            if fam == "network":
+                kd["card_qps"] = [n / s for s in walls]
+            engine.session.finalize_pending()
+    finally:
+        plan_mod._knn_sorted_impl = sweep
+
+    # the object-axis probe (study S7's straggler measurement)
+    w = make_workload(n_probe, "zipf", seed=seed, zipf_a=1.6, clusters=12)
+    pos = w.positions()
+    qid = np.arange(n_probe, dtype=np.int32)
+    index = build_index(torch.tensor(pos, device=dev), (0.0, 0.0), 22_500.0,
+                        l_max=8, th_quad=192)
+    kw = dict(k=32, window=256, chunk=8192, backend="fused_bucket")
+    ii, dd, st = knn_query_batch_chunked(index, pos, qid, **kw)
+    b2_total = 0
+    for part in ("equal", "cost_balanced"):
+        _zero_counts()
+        t0 = time.perf_counter()
+        oi, od, ost, aux = knn_query_batch_chunked(
+            index, pos, qid, plan="object_sharded", num_devices=4,
+            merge="fused_multi", partitioner=part, with_aux=True, **kw)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = _read_counts()
+        if counts["fused_scan_merge"] < 1 or counts["merge_topk_multi"] != 1:
+            raise AssertionError(f"probe {part}: launched {counts}")
+        bad = (oi != ii).any(1) | (od.view(np.uint32)
+                                   != dd.view(np.uint32)).any(1)
+        if bad.any():
+            raise AssertionError(f"probe {part}: {int(bad.sum())} rows "
+                                 "differ from the single plan")
+        sc = aux.shard_candidates
+        if _fold_f32(sc) != np.float32(ost.candidates):
+            raise AssertionError(f"probe {part}: shard candidates "
+                                 f"{sc.tolist()} do not sum to "
+                                 f"{ost.candidates}")
+        b2_total += counts["merge_topk_multi"]
+        print("probe " + json.dumps({
+            "world": "zipf", "n_objects": n_probe, "partitioner": part,
+            "wall_ms": wall_ms, "iterations": ost.iterations,
+            "single_iterations": st.iterations,
+            "shard_candidates": sc.tolist(),
+            "shard_iterations": aux.shard_iterations.tolist(),
+            "object_bounds": aux.object_bounds.tolist(),
+            "straggler_gap": straggler_gap(sc),
+            "b1_launches": counts["fused_scan_merge"],
+            "b2_launches": counts["merge_topk_multi"],
+            "single_twin": "bitwise, all rows"}))
+    del index
+
+    # the sequential competitor of study S3, on the host
+    pos0, rows = kd["pos"], kd["rows"]
+    t0 = time.perf_counter()
+    tree = KDTree(pos0)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ri, rd = tree.query_batch(pos0[rows], 32, qid=rows)
+    query_s = time.perf_counter() - t0
+    _check_kdtree(kd["ii"], kd["dd"], ri, rd, 32)
+    print("kdtree " + json.dumps({
+        "n_objects": n, "rows": int(rows.size), "build_s": build_s,
+        "query_s": query_s, "host_queries_per_s": rows.size / query_s,
+        "card_tick_queries_per_s": kd["card_qps"], "cpu": _cpu_model(),
+        "card": card, "rule": "reference: allclose, id sets below kth"}))
+
+    _run_example("quickstart", ["--device", "cuda"])
+    counts = _run_example("moving_objects_service", [
+        "--objects", str(n), "--ticks", "3", "--backend", "fused_bucket",
+        "--distribution", "network"])
+    if counts["fused_scan_merge"] < 1:
+        raise AssertionError("the service example did not launch B1")
+    return b1_total, b2_total
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-objects", type=int, default=1_000_000)
@@ -1986,6 +2266,9 @@ def main() -> int:
     lap("server")
     entry_point(n)
     lap("entry_point")
+    rec["evaluation_launches"], rec_multi["evaluation_launches"] = (
+        evaluation(dev, n, min(n, 200_000), card))
+    lap("evaluation")
     narrow = ("topk_select", "bucket_kselect", "pairwise_dist")
     records = [rec, rec_mixed, rec_multi, rec_lists,
                *(api[name] for name in narrow), *wide.values(),

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 
-from ..core.ticks import validate_engine_params
+from ..core.ticks import EngineConfig, validate_engine_params
 
 __all__ = ["ServiceSpec", "COLLECT_MODES"]
 
@@ -64,3 +64,37 @@ class ServiceSpec:
             raise ValueError(f"origin must be an (x, y) pair, got {self.origin!r}")
         if self.delta_pad < 1:
             raise ValueError(f"delta_pad must be >= 1, got {self.delta_pad}")
+
+    def engine_config(self) -> EngineConfig:
+        """The EngineConfig subset of this spec (for core-layer consumers)."""
+        return EngineConfig(
+            k=self.k, th_quad=self.th_quad, l_max=self.l_max,
+            window=self.window, chunk=self.chunk,
+            rebuild_factor=self.rebuild_factor, region_pad=self.region_pad,
+            backend=self.backend, plan=self.plan, mesh_shape=self.mesh_shape,
+            partitioner=self.partitioner, precision=self.precision,
+            merge=self.merge, maintenance=self.maintenance,
+            churn_budget=self.churn_budget, max_iters=self.max_iters,
+        )
+
+    @classmethod
+    def from_engine(
+        cls,
+        cfg: EngineConfig,
+        *,
+        origin: tuple[float, float] = (0.0, 0.0),
+        side: float = SIDE_DEFAULT,
+        delta_pad: int = 1024,
+    ) -> "ServiceSpec":
+        """Lift an EngineConfig (and the region's geometry) into a spec."""
+        return cls(
+            k=cfg.k, th_quad=cfg.th_quad, l_max=cfg.l_max, window=cfg.window,
+            chunk=cfg.chunk, rebuild_factor=cfg.rebuild_factor,
+            region_pad=cfg.region_pad, backend=cfg.backend, plan=cfg.plan,
+            mesh_shape=cfg.mesh_shape, partitioner=cfg.partitioner,
+            precision=cfg.precision, merge=cfg.merge,
+            maintenance=cfg.maintenance, churn_budget=cfg.churn_budget,
+            max_iters=cfg.max_iters,
+            origin=(float(origin[0]), float(origin[1])), side=float(side),
+            delta_pad=delta_pad,
+        )

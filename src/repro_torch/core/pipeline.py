@@ -30,6 +30,7 @@ from .quadtree import QuadtreeIndex
 
 __all__ = [
     "knn_query_batch",
+    "knn_query_batch_chunked",
     "default_max_nav",
     "KnnStats",
 ]
@@ -254,6 +255,10 @@ def default_max_nav(l_max: int) -> int:
     return 2 * l_max + 4
 
 
+def _resolve_max_nav(index: QuadtreeIndex, max_nav):
+    return default_max_nav(index.l_max) if max_nav is None else max_nav
+
+
 def knn_query_batch(
     index: QuadtreeIndex,
     qpos,
@@ -281,9 +286,19 @@ def knn_query_batch(
     order, inv = _sort_unsort(index, qpos)
     idx_s, d2_s, st, _ = _knn_sorted_impl(
         index, qpos[order], qid[order], k, window,
-        default_max_nav(index.l_max) if max_nav is None else max_nav,
-        max_iters, executor,
+        _resolve_max_nav(index, max_nav), max_iters, executor,
     )
     stats = KnnStats(st.iterations.sum(dtype=torch.int32),
                      st.candidates.sum(), st.leaves_visited.sum(dtype=torch.int32))
     return idx_s[inv], sqrt(d2_s[inv]), stats
+
+
+def knn_query_batch_chunked(index, qpos, qid=None, **kw):
+    """Delegates to :func:`repro_torch.core.plan.knn_query_batch_chunked`:
+    chunking and device layout live behind the ExecutionPlan seam.  Kept
+    here, as in the reference, so a test can pin that a tick never routes
+    through this host-side chunk driver.  The import is lazy because
+    ``plan.py`` imports this module."""
+    from .plan import knn_query_batch_chunked as impl
+
+    return impl(index, qpos, qid, **kw)

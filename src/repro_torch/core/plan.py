@@ -32,6 +32,13 @@ Results never depend on the partition (the composition law of DESIGN.md
 per-shard capacities exist for ``jit``; the port sweeps each query shard's
 owned chunks directly, which is the reference's masked sweep without its
 dead chunks (those give zero stats and are never gathered).
+
+The drivers below the plans are the reference's: :func:`run_plan_device`
+(padded tensors in, one plan's sweep), its two fixed-plan forms
+:func:`knn_chunked_device` and :func:`knn_sharded_device`, and the host
+wrapper :func:`knn_query_batch_chunked` (numpy in, numpy out).  Each takes
+``device=``: ``None`` is the card, and the index must live on the device
+named.
 """
 from __future__ import annotations
 
@@ -42,10 +49,12 @@ import numpy as np
 import torch
 
 from ..kernels.ops import get_merge_backend, tree_merge_lists
-from ..runtime import fma, sqrt
+from ..runtime import fma, resolve_device, sqrt
 from . import morton
 from .balance import EqualPartitioner, Partitioner, resolve_partitioner
-from .pipeline import KnnStats, _knn_sorted_impl, _sort_unsort
+from .executor import resolve_executor
+from .pipeline import (KnnStats, _knn_sorted_impl, _resolve_max_nav,
+                       _sort_unsort)
 from .quadtree import (
     QuadtreeIndex,
     _leaf_levels,
@@ -68,6 +77,10 @@ __all__ = [
     "pad_capacity",
     "pad_queries",
     "object_shard_capacity",
+    "run_plan_device",
+    "knn_chunked_device",
+    "knn_sharded_device",
+    "knn_query_batch_chunked",
 ]
 
 # EMA weight of the measured per-query candidate volume when the plan's
@@ -627,3 +640,133 @@ def resolve_plan(plan, *, num_devices=None, partitioner=None,
             f"unknown execution plan {plan!r}; registered: {plan_names()}"
         ) from None
     return factory(num_devices, partitioner, merge)
+
+
+# --------------------------------------------------------------------------
+# drivers
+# --------------------------------------------------------------------------
+
+
+def _index_device(index: QuadtreeIndex, device) -> torch.device:
+    """The device a driver runs on: ``device`` resolved (``None`` is the
+    card, which raises without one), and it must be where the index lives."""
+    dev = resolve_device(device)
+    have = index.device
+    if have.type != dev.type or (dev.index is not None
+                                 and have.index != dev.index):
+        raise ValueError(f"the index lives on {have}, not on {dev}; build it "
+                         f"there or pass device={str(have)!r}")
+    return have
+
+
+def run_plan_device(index: QuadtreeIndex, qpos: torch.Tensor,
+                    qid: torch.Tensor, qcost: torch.Tensor | None = None,
+                    qweight: torch.Tensor | None = None, *, k: int,
+                    window: int, chunk: int, max_nav: int, max_iters: int,
+                    executor, plan: ExecutionPlan,
+                    maintenance: str = "rebuild", device=None):
+    """Memory-bounded batch k-NN, laid out by ``plan``, on the index's device.
+
+    ``Q`` must already be a whole number of ``plan.pad_multiple(chunk)``
+    rows (callers pad on the host with :func:`pad_queries`).  ``qcost`` is
+    the (Q,) per-query cost EMA (None: no history), ``qweight`` the optional
+    (Q,) weights of the query boundaries' seed, ``maintenance`` the tick's
+    refresh mode forwarded to the plan (see :meth:`ExecutionPlan.run`).
+
+    Returns (nn_idx (Q, k) i32, nn_dist (Q, k) f32 euclidean, aux
+    :class:`PlanAux`) in the caller's query order, padding rows included.
+    """
+    dev = _index_device(index, device)
+    nq = qpos.shape[0]
+    assert nq % plan.pad_multiple(chunk) == 0, (nq, chunk, plan)
+    if qcost is None:
+        qcost = torch.zeros((nq,), dtype=torch.float32, device=dev)
+    return plan.run(
+        index,
+        qpos.to(device=dev, dtype=torch.float32),
+        qid.to(device=dev, dtype=torch.int32),
+        qcost.to(device=dev, dtype=torch.float32),
+        k=k, window=window, chunk=chunk, max_nav=max_nav,
+        max_iters=max_iters, executor=executor,
+        qweight=None if qweight is None else qweight.to(
+            device=dev, dtype=torch.float32),
+        maintenance=maintenance,
+    )
+
+
+def knn_chunked_device(index, qpos, qid, *, k, window, chunk, max_nav,
+                       max_iters, executor, device=None):
+    """The single plan's sweep, with the reference's 3-tuple return
+    ``(nn_idx, nn_dist, stats)``."""
+    ii, dd, aux = run_plan_device(
+        index, qpos, qid, k=k, window=window, chunk=chunk, max_nav=max_nav,
+        max_iters=max_iters, executor=executor, plan=SinglePlan(),
+        device=device,
+    )
+    return ii, dd, aux.stats
+
+
+def knn_sharded_device(index, qpos, qid, *, k, window, chunk, max_nav,
+                       max_iters, executor, num_devices, device=None):
+    """The sharded plan's sweep over ``num_devices`` logical query shards."""
+    ii, dd, aux = run_plan_device(
+        index, qpos, qid, k=k, window=window, chunk=chunk, max_nav=max_nav,
+        max_iters=max_iters, executor=executor,
+        plan=ShardedPlan(num_devices=num_devices), device=device,
+    )
+    return ii, dd, aux.stats
+
+
+def knn_query_batch_chunked(index: QuadtreeIndex, qpos, qid=None, *,
+                            k: int = 32, window: int = 128, chunk: int = 8192,
+                            max_nav: int | None = None,
+                            max_iters: int = 100_000, backend=None,
+                            precision=None, plan=None,
+                            num_devices: int | None = None, partitioner=None,
+                            merge=None, maintenance: str = "rebuild",
+                            with_aux: bool = False, device=None):
+    """Host-friendly wrapper over :func:`run_plan_device` (numpy in and out).
+
+    ``plan``/``num_devices``/``partitioner``/``merge`` select the execution
+    plan by name (default ``single`` / ``equal`` / ``dense_merge``);
+    ``backend``/``precision`` the executor (default ``dense_topk`` /
+    ``fp32``).  ``qid=None`` marks every query external (-2).  The batch is
+    padded here and the padding stripped, on the host.  ``maintenance``
+    forwards the local-tree path to the object-axis plans (``"incremental"``
+    derives them from the index's order, which a built index is current
+    for).  ``with_aux=True`` appends the host :class:`PlanAux` (per-shard
+    counters as numpy arrays, the cost EMA, object boundaries; ``stats`` as
+    Python numbers): the straggler-gap probe.
+    """
+    dev = _index_device(index, device)
+    nq = qpos.shape[0]
+    if qid is None:
+        qid = np.full((nq,), -2, np.int32)
+    plan = resolve_plan(plan, num_devices=num_devices, partitioner=partitioner,
+                        merge=merge)
+    qpos_p, qid_p = pad_queries(np.asarray(qpos), np.asarray(qid),
+                                plan.pad_multiple(chunk))
+    ii, dd, aux = run_plan_device(
+        index,
+        torch.tensor(np.asarray(qpos_p, np.float32), device=dev),
+        torch.tensor(np.asarray(qid_p, np.int32), device=dev),
+        k=k, window=window, chunk=chunk,
+        max_nav=_resolve_max_nav(index, max_nav), max_iters=max_iters,
+        executor=resolve_executor(backend, precision), plan=plan,
+        maintenance=maintenance, device=dev,
+    )
+    stats = KnnStats(
+        iterations=int(aux.stats.iterations),
+        candidates=float(aux.stats.candidates),
+        leaves_visited=int(aux.stats.leaves_visited),
+    )
+    out = (ii[:nq].cpu().numpy(), dd[:nq].cpu().numpy(), stats)
+    if with_aux:
+        out += (PlanAux(
+            stats=stats,
+            shard_candidates=aux.shard_candidates.cpu().numpy(),
+            shard_iterations=aux.shard_iterations.cpu().numpy(),
+            qcost_next=aux.qcost_next[:nq].cpu().numpy(),
+            object_bounds=aux.object_bounds.cpu().numpy(),
+        ),)
+    return out

@@ -4,11 +4,15 @@ Counterpart of ``repro/core/ticks.py``: the engine configuration and its
 eager validation, the per-tick result record, the device-side delta scatter
 and its routing by owning object shard, the per-shard churn accounting of
 incremental maintenance, and the per-tick step (index refresh, the plan's
-sweep, the drift check).
+sweep, the drift check).  :class:`TickEngine` is the reference's deprecation
+shim over a session: a blocking snapshot-per-tick loop through
+:meth:`repro_torch.api.KnnSession.process_tick`.
 """
 from __future__ import annotations
 
 import dataclasses
+import warnings
+from typing import Callable
 
 import numpy as np
 import torch
@@ -20,6 +24,7 @@ from .plan import ExecutionPlan, object_shard_capacity, plan_names
 from .quadtree import QuadtreeIndex, reindex_objects, reindex_objects_delta
 
 __all__ = [
+    "TickEngine",
     "TickResult",
     "EngineConfig",
     "MAINTENANCE_MODES",
@@ -306,3 +311,73 @@ def scatter_positions(positions: torch.Tensor, ids: torch.Tensor,
     keep = (ids >= 0) & (ids < positions.shape[0])
     positions[ids[keep]] = new_pos[keep].to(positions.dtype)
     return positions
+
+
+class TickEngine:
+    """Deprecation shim: the snapshot-per-tick API over a session.
+
+    ``process_tick`` stages a full position snapshot and a full query batch
+    and blocks for the results, through :class:`repro_torch.api.KnnSession`
+    (snapshot ingest, bulk ``set_queries``, ``submit().result()``), as the
+    reference's shim does.  ``device=None`` runs on the card (and raises
+    without one).  New code should build a ``KnnSession`` from a
+    ``ServiceSpec`` and use persistent query handles and delta updates.
+    """
+
+    def __init__(self, cfg: EngineConfig, origin=(0.0, 0.0),
+                 side: float = 22_500.0, device=None):
+        warnings.warn(
+            "TickEngine is a deprecation shim over "
+            "repro_torch.api.KnnSession; migrate to the session API "
+            "(ServiceSpec + KnnSession)",
+            DeprecationWarning,
+            stacklevel=2,
+        )
+        from ..api import KnnSession, ServiceSpec  # lazy: api sits above core
+
+        self.cfg = cfg
+        self.origin = np.asarray(origin, np.float32)
+        self.side = float(side)
+        self.session = KnnSession(
+            ServiceSpec.from_engine(
+                cfg, origin=(float(self.origin[0]), float(self.origin[1])),
+                side=self.side,
+            ),
+            device=device,
+        )
+        self.tick = 0
+        self.history: list[TickResult] = []
+
+    # the reference's attribute surface (benchmarks and examples read these)
+    @property
+    def executor(self) -> QueryExecutor:
+        return self.session.executor
+
+    @property
+    def plan(self) -> ExecutionPlan:
+        return self.session.plan
+
+    @property
+    def index(self):
+        return self.session.index
+
+    def process_tick(self, positions: np.ndarray, qpos: np.ndarray,
+                     qid: np.ndarray | None) -> TickResult:
+        """One iteration of the repeated spatial join: (P, Q) -> R."""
+        res = self.session.process_tick(positions, qpos, qid)
+        self.tick += 1
+        self.history.append(res)
+        return res
+
+    def run(self, workload, ticks: int, query_rate: float = 1.0,
+            on_tick: Callable[[TickResult], None] | None = None):
+        """Drive a MovingObjectWorkload for ``ticks`` ticks (paper: 30)."""
+        out = []
+        for _ in range(ticks):
+            qpos, qid = workload.query_batch(query_rate)
+            res = self.process_tick(workload.positions(), qpos, qid)
+            out.append(res)
+            if on_tick:
+                on_tick(res)
+            workload.advance()
+        return out

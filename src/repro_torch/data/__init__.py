@@ -1,1 +1,4 @@
 """Synthetic workloads (numpy)."""
+from .generators import MovingObjectWorkload, WorkloadConfig, make_workload
+
+__all__ = ["MovingObjectWorkload", "WorkloadConfig", "make_workload"]

@@ -523,3 +523,35 @@ def test_server_on_the_card_equals_a_solo_session(cuda):
             assert np.array_equal(dd.view(np.uint32),
                                   ref.nn_dist[r].view(np.uint32))
             assert np.array_equal(qq, r)
+
+
+@pytest.mark.gpu
+def test_network_engine_tick_on_the_card_equals_the_cpu(cuda):
+    """Two ``TickEngine`` ticks (``fused_bucket``) over a 20,000-object road
+    network on the card equal the same ticks on the CPU, bitwise: lists,
+    iterations, candidates and rebuild decisions.  The second tick piles
+    objects onto the network's nodes, where lists tie at distance 0."""
+    import warnings
+
+    import numpy as np
+
+    from repro_torch.core import EngineConfig, TickEngine
+    from repro_torch.data import make_workload
+
+    out = []
+    for device in ("cuda", "cpu"):
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            engine = TickEngine(EngineConfig(backend="fused_bucket"),
+                                device=device)
+        before = tfs.fused_scan_merge.launches
+        out.append(engine.run(make_workload(20_000, "network", seed=4),
+                              ticks=2))
+        launched = tfs.fused_scan_merge.launches - before
+        assert (launched >= 2) == (device == "cuda"), launched
+    for rc, rp in zip(*out):
+        assert np.array_equal(rc.nn_idx, rp.nn_idx)
+        assert np.array_equal(rc.nn_dist.view(np.uint32),
+                              rp.nn_dist.view(np.uint32))
+        assert (rc.iterations, rc.candidates, rc.rebuilt) == (
+            rp.iterations, rp.candidates, rp.rebuilt)
