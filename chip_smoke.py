@@ -65,10 +65,11 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. object-axis paths at the same N, each session beside a ``single`` twin
    fed the same data, whose lists it must equal bit for bit on every row of
    every tick: (a) ``object_sharded``, 4 shards, ``equal``, ``fused_multi``
-   over uniform, a 1% move and an unchanged (``skip``) tick; (b) ``hybrid``
-   (2, 3), ``cost_balanced``, ``fused_merge`` over the gaussian snapshot, a
-   1% move and a ``skip`` tick.  ``fused_multi`` must launch once per tick
-   in (a), ``fused_merge`` twice per query shard that owns rows in (b);
+   over uniform and a 1% move; (b) ``hybrid`` (2, 3), ``cost_balanced``,
+   ``fused_merge`` over the gaussian snapshot and a 1% move (the
+   object-axis ``skip`` route runs in phase 15's maintenance draw).
+   ``fused_multi`` must launch once per tick in (a), ``fused_merge`` twice
+   per query shard that owns rows in (b);
 10. wide sessions (:func:`wide_sessions`): specs that raised on the card
    before the wide templates, each equal to its oracle or twin and
    launching the wide template it exists for; the ``single`` ones at
@@ -90,11 +91,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    tenants at N, in this process: it must return 0;
 14. evaluation (:func:`evaluation`), the paper's evaluation entry points:
    the ``network``, ``zipf`` and ``hotspot_cluster`` worlds at N through
-   ``TickEngine(EngineConfig(backend="fused_bucket")).run(w, ticks=3)``,
+   ``TickEngine(EngineConfig(backend="fused_bucket")).run(w, ticks=2)``,
    every tick launching B1 with no chunk at ``max_iters`` and 1,024 sampled
    rows equal to the brute-force oracle bit for bit (on the network world
-   at least 256 of them objects that sit exactly on a node on ticks 1 and
-   2, and a ``dense_topk`` twin equal on every row); then
+   at least 256 of them objects that sit exactly on a node on tick 1, and
+   a ``dense_topk`` twin equal on every row); then
    ``knn_query_batch_chunked`` with ``object_sharded`` 4, ``fused_multi``,
    ``with_aux``, ``equal`` and ``cost_balanced`` on the zipf world at
    200,000 objects, each equal to the ``single`` plan bitwise, with its
@@ -102,7 +103,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    world's first tick, held against the card's lists by the reference's
    rule and timed beside it; and the two examples of ``examples_torch/``
    in this process (the service at N, network, ``fused_bucket``), each
-   returning 0.
+   returning 0;
+15. properties (:func:`properties`): the reference's property harness
+   (``repro_torch.properties``, its draws from ``repro_torch.testing``) on
+   the card. Part A at the reference's shapes (96 to 128 objects, k = 6,
+   window 16, chunk 16; mesh plans on 4 logical shards, both
+   partitioners): the full, mixed and n < k matrices, maintenance and
+   server draws, the pinned mover and the R-way composition through B1,
+   B1 mixed, B2 and B3, every cell equal to the ``single`` plan's bits and
+   each drawn cloud's lists to the oracle; Part B at 1M (two skewed
+   clouds with coincident duplicates: fp32, ``mixed`` and ``dense_topk``
+   equal on every row, 1,024 rows to the oracle, ``object_sharded`` 4 at
+   200,000 equal to ``single``); Part C, the kernel API (B1-B6) on drawn
+   shapes against the plain versions.
 
 Launch counts are zeroed just before each path (each tick, in the single
 and server paths) and read just after, on the path's own session only.  The
@@ -272,7 +285,7 @@ def kernel_inputs(q: int, w: int, k: int, dev, seed: int = 0,
     cut[:4 * e] = True  # the edge bands start from empty lists
     bd = torch.where(cut, float("inf"), full_d).contiguous()
     bi = torch.where(cut, -1, full_i).to(torch.int32).contiguous()
-    if k >= 5:  # full lists on a bucket edge, merged with an empty window
+    if k >= 5 and e:  # full lists on a bucket edge, with an empty window
         valid[4 * e:5 * e] = False
         bd[4 * e:5 * e] = torch.tensor(edge_lists(e, k, seed), device=dev)
         bi[4 * e:5 * e] = torch.arange(e * k, device=dev,
@@ -1171,21 +1184,24 @@ def baseline_check(dev, n: int, sample: int = 128, k: int = 32,
 
 
 def oracle_check(pos_t, qrows, nn_idx, nn_dist, k, dev, batch=128,
-                 qpos_t=None):
+                 qpos_t=None, qid=None):
     """Brute force on the card: full distance rows, lexicographic (d2, id)
     order, the query's own object excluded; ids and distances bitwise.
-    Query row i stands at object i's position, or at ``qpos_t[i]``."""
+    Query row i stands at object i's position, or at ``qpos_t[i]``, and
+    excludes object i, or ``qid[i]`` (-2: none)."""
     from repro_torch.runtime import fma, sqrt
 
     px, py = pos_t[:, 0], pos_t[:, 1]
     qx, qy = (px, py) if qpos_t is None else (qpos_t[:, 0], qpos_t[:, 1])
     ids = torch.arange(pos_t.shape[0], device=dev)
+    own = None if qid is None else torch.tensor(qid, device=dev)
     for b in range(0, qrows.shape[0], batch):
         rows = torch.tensor(qrows[b:b + batch], device=dev)
         dx = px[None, :] - qx[rows][:, None]
         dy = py[None, :] - qy[rows][:, None]
         d2 = fma(dx, dx, dy * dy)
-        d2[ids[None, :] == rows[:, None]] = float("inf")
+        d2[ids[None, :] == (rows if own is None else own[rows])[:, None]] = \
+            float("inf")
         sd, order = torch.sort(d2, dim=1, stable=True)  # ids ascend already
         want_i = order[:, :k].to(torch.int32).cpu().numpy()
         want_d = sqrt(sd[:, :k]).cpu().numpy()
@@ -1448,8 +1464,8 @@ def _fold_f32(values) -> np.float32:
 
 
 def object_path(dev, n: int, label: str, first: str, seed: int, **plan_kw):
-    """An object-axis session beside a ``single`` twin, over three ticks:
-    ``first`` (uniform or gaussian snapshot), a 1% move, an unchanged tick.
+    """An object-axis session beside a ``single`` twin, over two ticks:
+    ``first`` (uniform or gaussian snapshot) and a 1% move.
     Returns the path's kernel launches (its own session only) and ticks."""
     from repro_torch.api import KnnSession, ServiceSpec
     from repro_torch.core.balance import straggler_gap
@@ -1472,7 +1488,7 @@ def object_path(dev, n: int, label: str, first: str, seed: int, **plan_kw):
     print(f"path {label}: {plan.describe()}, N={n}")
     totals = {name: 0 for name in _counters()}
     ticks = []
-    for t, step in enumerate([first, "move 1%", "unchanged"]):
+    for t, step in enumerate([first, "move 1%"]):
         if step == "move 1%":
             ids = g.choice(n, n // 100, replace=False).astype(np.int32)
             ang = g.uniform(0, 2 * np.pi, ids.size)
@@ -2013,13 +2029,13 @@ def evaluation(dev, n: int, n_probe: int, card: str, seed: int = 0):
     paths' B1 launches and the probe's B2 launches.
 
     1. Each world of :data:`EVAL_WORLDS` at ``n`` objects through
-       ``TickEngine(EngineConfig(backend="fused_bucket")).run(w, ticks=3)``:
+       ``TickEngine(EngineConfig(backend="fused_bucket")).run(w, ticks=2)``:
        every object moves on each ``advance()``, one query per object.  On
        every tick B1 launches, no chunk reaches ``max_iters`` (a spy on the
        plan's sweep reads the slowest chunk's trips), and 1,024 sampled rows
        equal the brute-force oracle bit for bit; on the network world half
        the sample sits exactly on a node where it can (at least 256 rows on
-       ticks 1 and 2), and a ``dense_topk`` twin equals every row.
+       tick 1), and a ``dense_topk`` twin equals every row.
     2. The object-axis probe: ``knn_query_batch_chunked`` with
        ``object_sharded`` 4, ``fused_multi``, ``with_aux`` on the zipf world
        at ``n_probe`` objects, ``equal`` and ``cost_balanced``, each equal
@@ -2116,7 +2132,7 @@ def evaluation(dev, n: int, n_probe: int, card: str, seed: int = 0):
             trips.clear()
             _zero_counts()
             torch.cuda.reset_peak_memory_stats()
-            engine.run(w, ticks=3, on_tick=on_tick)
+            engine.run(w, ticks=2, on_tick=on_tick)
             if fam == "network":
                 kd["card_qps"] = [n / s for s in walls]
             engine.session.finalize_pending()
@@ -2188,6 +2204,328 @@ def evaluation(dev, n: int, n_probe: int, card: str, seed: int = 0):
     if counts["fused_scan_merge"] < 1:
         raise AssertionError("the service example did not launch B1")
     return b1_total, b2_total
+
+
+# the properties phase's kernel merges
+PROPERTY_MERGES = ("fused_multi", "fused_merge")
+
+
+def _property_draw(name: str, draw, run):
+    """Print one drawn example, run it, print its result line."""
+    print("properties draw " + json.dumps({"property": name, "draw": draw}),
+          flush=True)
+    t0 = time.perf_counter()
+    cells = run()
+    print("properties " + json.dumps({
+        "property": name, "draw": draw, "cells": cells, "equal": True,
+        "seconds": time.perf_counter() - t0}), flush=True)
+
+
+def properties_reference_shapes(dev):
+    """Part A: the reference's property harness (``repro_torch.properties``)
+    on the card at its own shapes, with its draws (``repro_torch.testing``,
+    seeded by each property's name).  At these shapes a tick is host-bound
+    (0.5 to 0.95 s on an H100 at 128 objects), so the part puts the
+    draws through the card's kernels and leaves the plain backends' grids
+    to the CPU tests:
+    - every draw of the full and mixed matrices with the grid through
+      ``fused_bucket`` (every backend's ``single`` lists cross-checked on
+      each full draw), the kernel merges alternating draw by draw on the
+      object-axis plans; each drawn cloud's ``fused_bucket`` ``single``
+      lists equal the brute-force oracle on the card, bit for bit;
+    - every n < k draw, ``fused_bucket`` with both kernel merges (the
+      sentinel-only object shards);
+    - the first maintenance draw on ``hybrid`` (2, 2) ``equal`` with
+      ``fused_merge``, and the first server draw on ``object_sharded`` 4
+      ``cost_balanced`` with ``fused_multi``;
+    - the pinned mover (``object_sharded`` 4 ``cost_balanced``,
+      ``fused_multi``) and the R-way composition (both kernel merges).
+    Returns the part's kernel launches."""
+    from repro_torch import properties as P
+    from repro_torch.testing import draws
+
+    fused = ("fused_bucket",)
+    # the maintenance and server draws' cells: the mover holds incremental
+    # object_sharded with fused_multi
+    hybrid = (("hybrid", P.PLAN_GRID[-1][1], "equal"),)
+    sharded = (("object_sharded", P.NDEV, "cost_balanced"),)
+
+    def matrix(fn, draw, i):  # the kernel merges alternate draw by draw
+        pts, qpos, qid, singles, cells = fn(
+            *draw, device=dev, backends=fused,
+            merges=(PROPERTY_MERGES[i % 2],))
+        oracle_check(torch.tensor(pts, device=dev), np.arange(len(qpos)),
+                     *singles["fused_bucket"], 6, dev,
+                     qpos_t=torch.tensor(qpos, device=dev), qid=qid)
+        return cells
+
+    # property -> (draws run on the card, None: all; run(draw, index))
+    plan = {
+        "test_full_matrix_bit_identical": (
+            None, lambda d, i: matrix(P.full_matrix, d, i)),
+        "test_mixed_precision_bit_identical": (
+            None, lambda d, i: matrix(P.mixed_matrix, d, i)),
+        "test_fewer_objects_than_k_all_plans": (
+            None, lambda d, i: P.fewer_objects_than_k(
+                *d, device=dev, backends=fused, merges=PROPERTY_MERGES)[-1]),
+        "test_maintenance_axis_bit_identical": (
+            1, lambda d, i: P.maintenance_axis(
+                *d, device=dev, backend="fused_bucket",
+                merges=("fused_merge",), grid=hybrid)),
+        "test_server_axis_bit_identical": (
+            1, lambda d, i: P.server_axis(
+                *d, device=dev, backend="fused_bucket",
+                merges=("fused_multi",), grid=sharded)),
+    }
+    _zero_counts()
+    for name, (strats, n) in P.PROPERTIES.items():
+        count, run = plan[name]
+        for i, draw in enumerate(draws(name, strats, n)[:count]):
+            _property_draw(name, {"values": list(draw), "index": i},
+                           lambda: run(draw, i))
+    _property_draw("test_mover_crosses_moving_cost_balanced_boundary",
+                   {"merge": "fused_multi"},
+                   lambda: P.mover_crosses_boundary(
+                       device=dev, backend="fused_bucket",
+                       merge="fused_multi"))
+    for r in (2, 3, 8):
+        _property_draw("test_pipeline_r_way_partition_composes",
+                       {"r": r, "merges": PROPERTY_MERGES},
+                       lambda: sum(P.r_way_partition(
+                           r, device=dev, backend="fused_bucket", merge=m)
+                           for m in PROPERTY_MERGES))
+    torch.cuda.synchronize()
+    counts = _read_counts()
+    for name in ("fused_scan_merge", "fused_scan_merge_mixed",
+                 "merge_topk_multi", "merge_topk_lists"):
+        if counts[name] < 1:
+            raise AssertionError(f"properties part A: {name} never launched")
+    return counts
+
+
+def properties_full_width(dev, n: int, n_axis: int):
+    """Part B: two of the harness's clouds at ``n`` objects with its
+    duplicate overlay (``dup_every`` drawn from 2 to 6): the ``zipf``
+    world as the evaluation phase runs it (``zipf_a`` 1.6, 12 clusters, the
+    generator's own sigma) and the gaussian-hotspot family.  Spec defaults,
+    one query per object: ``fused_bucket`` fp32, ``mixed`` and a
+    ``dense_topk`` twin equal on every row; 1,024 sampled rows, each with a
+    coincident duplicate, equal to the oracle; then, on the gaussian draw,
+    ``object_sharded`` 4 ``fused_multi`` at ``n_axis`` objects equal to
+    the ``single`` plan on every row (the evaluation phase's probe holds
+    zipf there).  Returns the part's kernel launches."""
+    from repro_torch import properties as P
+    from repro_torch.core import build_index, knn_query_batch_chunked
+    from repro_torch.testing import draws, strategies as st
+
+    kw = dict(k=32, window=256, chunk=8192, device=dev)
+    total = dict.fromkeys(_counters(), 0)
+    worlds = (("zipf", 2, {"clusters": 12}), ("gaussian", 1, None))
+    picks = draws("properties_full_width",
+                  (st.integers(0, 10_000), st.integers(2, 6)), len(worlds))
+    for (world, family, zkw), (cseed, dup) in zip(worlds, picks):
+        draw = {"world": world, "seed": cseed, "dup_every": dup, "n": n}
+        print("properties draw " + json.dumps({"property": "full_width",
+                                                "draw": draw}), flush=True)
+        pts = P.cloud(cseed, n, family, dup, 1.6, zipf_kw=zkw)
+        qid = np.arange(n, dtype=np.int32)
+        index = build_index(torch.tensor(pts, device=dev), (0.0, 0.0),
+                            P.SIDE, l_max=8, th_quad=192)
+        out, walls, launches = {}, {}, {}
+        for label, extra in (("fp32", {"backend": "fused_bucket"}),
+                             ("mixed", {"backend": "fused_bucket",
+                                        "precision": "mixed"}),
+                             ("dense_topk", {"backend": "dense_topk"})):
+            _zero_counts()
+            t0 = time.perf_counter()
+            ii, dd, st_ = knn_query_batch_chunked(index, pts, qid, **kw,
+                                                  **extra)
+            walls[label] = (time.perf_counter() - t0) * 1e3
+            counts = _read_counts()
+            for name, c in counts.items():
+                total[name] += c
+            launches[label] = {"b1": counts["fused_scan_merge"],
+                               "b1_mixed": counts["fused_scan_merge_mixed"]}
+            out[label] = (ii, dd, st_.iterations)
+        ref = out["fp32"]
+        if ref[0].shape != (n, 32) or not np.isfinite(ref[1]).all():
+            raise AssertionError(f"{world}: malformed result")
+        for label in ("mixed", "dense_topk"):
+            got = out[label]
+            bad = (got[0] != ref[0]).any(1) | (
+                got[1].view(np.uint32) != ref[1].view(np.uint32)).any(1)
+            if bad.any():
+                raise AssertionError(f"{world}: {label} differs from fp32 on "
+                                     f"{int(bad.sum())} rows")
+        if launches["fp32"]["b1"] < 1 or launches["mixed"]["b1_mixed"] < 1:
+            raise AssertionError(f"{world}: B1 idle {launches}")
+        # the sample: rows whose position another object shares
+        _, inv, cnt = np.unique(pts.view(np.uint64).ravel(),
+                                return_inverse=True, return_counts=True)
+        g = np.random.default_rng(cseed + 1)
+        rows = g.choice(n, 1024, replace=False)
+        dup_rows = int((cnt[inv[rows]] > 1).sum())
+        if dup_rows < 512:
+            raise AssertionError(f"{world}: {dup_rows} sampled rows have a "
+                                 "coincident duplicate")
+        oracle_check(torch.tensor(pts, device=dev), rows, ref[0], ref[1], 32,
+                     dev)
+        del index
+        rec = {"property": "full_width", "draw": draw, "equal": True,
+               "wall_ms": walls,
+               "iterations": {k_: v[2] for k_, v in out.items()},
+               "launches": launches, "oracle_rows": 1024,
+               "duplicate_rows": dup_rows}
+        if world != "gaussian":
+            print("properties " + json.dumps(rec), flush=True)
+            continue
+
+        # the object axis at n_axis objects of the same draw
+        pts_a = P.cloud(cseed, n_axis, family, dup, 1.6, zipf_kw=zkw)
+        qid_a = np.arange(n_axis, dtype=np.int32)
+        index = build_index(torch.tensor(pts_a, device=dev), (0.0, 0.0),
+                            P.SIDE, l_max=8, th_quad=192)
+        si, sd, _ = knn_query_batch_chunked(index, pts_a, qid_a, **kw,
+                                            backend="fused_bucket")
+        _zero_counts()
+        t0 = time.perf_counter()
+        oi, od, ost = knn_query_batch_chunked(
+            index, pts_a, qid_a, **kw, backend="fused_bucket",
+            plan="object_sharded", num_devices=4, merge="fused_multi")
+        axis_ms = (time.perf_counter() - t0) * 1e3
+        counts = _read_counts()
+        for name, c in counts.items():
+            total[name] += c
+        bad = (oi != si).any(1) | (od.view(np.uint32)
+                                   != sd.view(np.uint32)).any(1)
+        if bad.any() or counts["merge_topk_multi"] != 1:
+            raise AssertionError(f"{world} object_sharded: {int(bad.sum())} "
+                                 f"rows differ; launches {counts}")
+        del index
+        rec.update(object_sharded_n=n_axis, object_sharded_ms=axis_ms,
+                   object_sharded_iterations=ost.iterations,
+                   object_sharded_b1=counts["fused_scan_merge"],
+                   object_sharded_b2=counts["merge_topk_multi"])
+        print("properties " + json.dumps(rec), flush=True)
+    return total
+
+
+def properties_kernel_api(dev, q_max: int = 4096, c_max: int = 40_000):
+    """Part C: the kernel API on drawn shapes (``repro_torch.testing``'s
+    strategies under a fixed seed), six draws of Q from 1 to ``q_max``, C
+    from 1 to ``c_max``, k from 1 to 600 and R from 2 to 8, and one more
+    with C < k.
+    B1 (fp32 and mixed) on :func:`kernel_inputs`' rows (the NaN, negative,
+    duplicate and unsorted bands), B2 and B3 on :func:`merge_inputs`'
+    ascending lists (ties and duplicates across lists, empty and
+    (inf, id)-padded lists), B4 on :func:`topk_inputs`' rows with
+    :func:`odd_values`' bands, B5 and B6 on :func:`window_inputs`' (a NaN
+    band, negative coordinates): each through its ``*_op`` wrapper,
+    the narrow or the wide template as the shape falls, held against its
+    plain version by :func:`same_values`, B5 also by its guarantee.
+    Returns the number of shapes each kernel was held on."""
+    from repro_torch.kernels import bucket_kselect as bk
+    from repro_torch.kernels import fused_scan as fs
+    from repro_torch.kernels import merge_topk as mt
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pairwise_dist as pd
+    from repro_torch.kernels.refine import masked_argmin_rounds
+    from repro_torch.testing import draws, strategies as st
+
+    shape = (st.integers(1, q_max), st.integers(1, c_max),
+             st.integers(1, 600), st.integers(2, 8))
+    shapes = draws("properties_kernel_api", shape, 6)
+    # one more draw with fewer candidates than k
+    q, _, k, r = draws("properties_kernel_api_c_below_k", shape, 1)[0]
+    shapes.append((q, int(np.random.default_rng(k).integers(1, max(2, k))),
+                   k, r))
+    held = {}
+
+    def check(name, out, want, seed_shape):
+        if not (same_values(out[0], want[0]) and torch.equal(out[1],
+                                                             want[1])):
+            raise AssertionError(f"{name} != plain version at {seed_shape}")
+        held[name] = held.get(name, 0) + 1
+
+    for i, (q, c, k, r) in enumerate(shapes):
+        tag = {"Q": q, "C": c, "k": k, "R": r}
+        print("properties draw " + json.dumps({"property": "kernel_api",
+                                                "draw": tag}), flush=True)
+        t0 = time.perf_counter()
+        # B1, fp32 and mixed: a window of W = C entries per row
+        args = kernel_inputs(q, c, k, dev, seed=i)
+        for precision in ("fp32", "mixed"):
+            out = ops.fused_scan_merge_op(
+                torch.stack(args[:2], 1), torch.stack(args[2:4], 2),
+                *args[4:], k=k, precision=precision)
+            want = fs.fused_scan_merge_ref(*args, k=k, precision=precision)
+            check("fused_scan_merge" + ("_mixed" if precision == "mixed"
+                                        else ""), out, want, tag)
+        del args
+        # B2: R ascending lists of k; B3: ascending lists of ka <= k and k
+        d, ids = merge_inputs(r, q, k, dev, seed=i, inf_ids=True)
+        out = ops.multi_merge_lists_op(d, ids, k=k)
+        cat = lambda t: t.transpose(0, 1).reshape(q, r * k).contiguous()
+        check("merge_topk_multi", out,
+              mt.merge_topk_multi_ref(cat(d), cat(ids), k=k), tag)
+        ka = int(np.random.default_rng(i).integers(1, k + 1))
+        lists = (d[0, :, :ka].contiguous(), ids[0, :, :ka].contiguous(),
+                 d[1].contiguous(), ids[1].contiguous())
+        check("merge_topk_lists", ops.merge_topk_lists_op(*lists, k=k),
+              mt.merge_topk_lists_ref(*lists, k=k), tag)
+        del d, ids, lists
+        # B4
+        d, ids = topk_inputs(q, c, k, dev, seed=i)
+        d = odd_values(d)
+        check("topk_select", ops.topk_select_op(d, ids, k=k),
+              masked_argmin_rounds(d, ids, k), tag)
+        del d, ids
+        # B5 and B6: one shared window of C
+        qpos, ppos, valid = window_inputs(q, c, dev, seed=i)
+        qx, qy = qpos[:, 0].contiguous(), qpos[:, 1].contiguous()
+        px, py = ppos[:, 0].contiguous(), ppos[:, 1].contiguous()
+        d2 = pd.pairwise_dist_ref(qx, qy, px, py, valid)
+        if not same_values(ops.pairwise_dist_op(qpos, ppos, valid), d2):
+            raise AssertionError(f"pairwise_dist != plain version at {tag}")
+        held["pairwise_dist"] = held.get("pairwise_dist", 0) + 1
+        rad = ops.bucket_kselect_op(qpos, ppos, valid, k=k)
+        if not same_values(rad, bk.bucket_kselect_ref(qx, qy, px, py, valid,
+                                                      k=k)):
+            raise AssertionError(f"bucket_kselect != plain version at {tag}")
+        if not _guarantee(d2, rad, k, int(valid.sum())):
+            raise AssertionError(f"bucket_kselect: the guarantee fails at "
+                                 f"{tag}")
+        held["bucket_kselect"] = held.get("bucket_kselect", 0) + 1
+        del d2, qpos, ppos, valid
+        torch.cuda.synchronize()
+        print("properties " + json.dumps({
+            "property": "kernel_api", "draw": tag, "equal": True,
+            "kernels": sorted(held), "seconds": time.perf_counter() - t0}),
+            flush=True)
+    return held
+
+
+def properties(dev, n: int, n_axis: int, short: bool = False):
+    """The properties phase: Parts A, B and C (Part C at an eighth of its
+    widths with ``short``).  Returns the launches of B1, B1 mixed, B2 and
+    B3 in Parts A and B, and the shapes Part C held each kernel on."""
+    t0 = time.perf_counter()
+    counts_a = properties_reference_shapes(dev)
+    t_a = time.perf_counter() - t0
+    counts_b = properties_full_width(dev, n, n_axis)
+    t_b = time.perf_counter() - t0 - t_a
+    held = (properties_kernel_api(dev, q_max=512, c_max=5000) if short
+            else properties_kernel_api(dev))
+    names = ("fused_scan_merge", "fused_scan_merge_mixed",
+             "merge_topk_multi", "merge_topk_lists")
+    launches = {name: {"reference_shapes": counts_a[name],
+                       "full_width": counts_b[name]} for name in names}
+    print("properties " + json.dumps({
+        "property": "summary", "seconds": {
+            "reference_shapes": t_a, "full_width": t_b,
+            "kernel_api": time.perf_counter() - t0 - t_a - t_b},
+        "launches": launches, "kernel_api_shapes": held}), flush=True)
+    return launches, held
 
 
 def main() -> int:
@@ -2269,6 +2607,11 @@ def main() -> int:
     rec["evaluation_launches"], rec_multi["evaluation_launches"] = (
         evaluation(dev, n, min(n, 200_000), card))
     lap("evaluation")
+    prop_launches, prop_shapes = properties(dev, n, min(n, 200_000),
+                                            short=args.short_api)
+    for r in (rec, rec_mixed, rec_multi, rec_lists):
+        r["properties_launches"] = prop_launches[r["name"]]
+    lap("properties")
     narrow = ("topk_select", "bucket_kselect", "pairwise_dist")
     records = [rec, rec_mixed, rec_multi, rec_lists,
                *(api[name] for name in narrow), *wide.values(),
@@ -2276,6 +2619,8 @@ def main() -> int:
     for r in records:
         if not r["launches"] or r["launches"] < 1:
             raise AssertionError(f"{r['name']}: no launch on its path")
+        if r["name"] in prop_shapes:
+            r["properties_shapes"] = prop_shapes[r["name"]]
         r["card"] = card
     print("phases " + json.dumps(phases))
     print(json.dumps({"kernels": records}))

@@ -16,7 +16,10 @@ __all__ = [
     "QueryExecutor",
     "resolve_executor",
     "available_backends",
+    "available_plans",
+    "available_partitioners",
     "available_precisions",
+    "resolve_plan",
 ]
 
 
@@ -24,8 +27,30 @@ def available_backends() -> tuple[str, ...]:
     return scan_backend_names()
 
 
+def available_plans() -> tuple[str, ...]:
+    from .plan import plan_names  # lazy: plan.py imports pipeline -> executor
+
+    return plan_names()
+
+
+def available_partitioners() -> tuple[str, ...]:
+    from .balance import partitioner_names
+
+    return partitioner_names()
+
+
 def available_precisions() -> tuple[str, ...]:
     return PRECISIONS
+
+
+def __getattr__(name):
+    # ``resolve_plan`` is an alias of ``plan.resolve_plan``, resolved lazily
+    # (plan.py imports this module) and returned as the same function object
+    if name == "resolve_plan":
+        from .plan import resolve_plan
+
+        return resolve_plan
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 @dataclasses.dataclass(frozen=True)

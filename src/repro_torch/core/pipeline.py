@@ -104,6 +104,10 @@ def _navigate(index, qx, qy, kth2, cl, cr, act_l, act_r, next_right, s_cur,
     found_any = torch.zeros_like(act_l)
     for _ in range(max_nav):
         pending = ~found_any & (act_l | act_r)
+        # no row pending: the remaining steps change nothing.  Read on the
+        # CPU only, where it costs no device synchronisation.
+        if pending.device.type == "cpu" and not pending.any():
+            break
         go_right = act_r & (next_right | ~act_l)
         run = pending & (go_right | act_l)
         cursor = torch.where(go_right, cr, cl)

@@ -60,6 +60,11 @@ class QuadtreeIndex:
     l_max: int
     th_quad: int
 
+    def level_counts(self, level: int) -> torch.Tensor:
+        """Populations of the 4**level quadrants at ``level`` (view of pyramid)."""
+        off = pyramid_offset(level)
+        return self.pyramid[off : off + 4**level]
+
     @property
     def n_objects(self) -> int:
         return self.pos.shape[0]

@@ -6,6 +6,13 @@ mixed-precision prefilter and the SCAN / MERGE registries.  The CUDA sources
 are built at first use (``build.py``), never at import.
 """
 from .bucket_kselect import bucket_kselect_ref
+from .delta_splice import (
+    gather_splice,
+    merge_ranks,
+    searchsorted_pairs,
+    sparse_splice_plan,
+    splice_payload,
+)
 from .merge_topk import merge_topk_lists_ref
 from .ops import (
     bucket_kselect_op,
@@ -46,4 +53,9 @@ __all__ = [
     "register_merge_backend",
     "merge_backend_names",
     "tree_merge_lists",
+    "merge_ranks",
+    "searchsorted_pairs",
+    "splice_payload",
+    "sparse_splice_plan",
+    "gather_splice",
 ]

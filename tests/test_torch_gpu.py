@@ -555,3 +555,29 @@ def test_network_engine_tick_on_the_card_equals_the_cpu(cuda):
                               rp.nn_dist.view(np.uint32))
         assert (rc.iterations, rc.candidates, rc.rebuilt) == (
             rp.iterations, rp.candidates, rp.rebuilt)
+
+
+@pytest.mark.gpu
+def test_property_draws_on_the_card(cuda):
+    """One full-matrix draw and one n < k draw of the property harness
+    (``repro_torch.properties``, the reference's first draw of each) on
+    the card, ``fused_bucket`` with both kernel merges on the object-axis
+    plans: every plan x partitioner x merge cell equals the ``single``
+    plan's bits, the (-1, inf) padding included; B1, B2 and B3 launch."""
+    from repro_torch import properties as P
+    from repro_torch.testing import draws
+
+    merges = ("fused_multi", "fused_merge")
+    counters = (tfs.fused_scan_merge, tmt.merge_topk_multi,
+                tmt.merge_topk_lists)
+    before = [fn.launches for fn in counters]
+    for name, run in (
+            ("test_full_matrix_bit_identical", P.full_matrix),
+            ("test_fewer_objects_than_k_all_plans", P.fewer_objects_than_k)):
+        strats, _ = P.PROPERTIES[name]
+        (draw,) = draws(name, strats, 1)
+        *_, cells = run(*draw, device=cuda, backends=("fused_bucket",),
+                        merges=merges)
+        assert cells == 10, (name, cells)
+    torch.cuda.synchronize()
+    assert all(fn.launches > b for fn, b in zip(counters, before))

@@ -5,6 +5,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = """
@@ -28,7 +30,50 @@ def test_port_imports_no_jax_and_no_reference():
     expected = {m.name for m in pkgutil.walk_packages(
         [str(ROOT / "src" / "repro_torch")], "repro_torch.")}
     assert int(n_modules) == len(expected) >= 15
+    assert {"repro_torch.testing", "repro_torch.properties"} <= expected
     assert leaked == "[]", leaked
+
+
+def test_public_names_match_reference():
+    """The reference's public names of ``repro.core``, ``repro.kernels``
+    (less ``default_interpret``: the port has no interpret mode) and
+    ``repro.core.executor`` all exist in the port; ``executor.resolve_plan``
+    is ``plan.resolve_plan`` itself; ``level_counts`` equals the
+    reference's at every level of one index."""
+    import jax.numpy as jnp
+    import numpy as np
+    import torch
+
+    import repro.core as rc
+    import repro.core.executor as rex
+    import repro.kernels as rk
+    import repro_torch.core as tc
+    import repro_torch.core.executor as tex
+    import repro_torch.kernels as tk
+    from repro_torch.core import plan as tplan
+
+    assert set(rc.__all__) <= set(tc.__all__)
+    assert set(rk.__all__) - {"default_interpret"} <= set(tk.__all__)
+    assert set(rex.__all__) <= set(tex.__all__)
+    for mod in (tc, tk, tex):
+        missing = [name for name in mod.__all__ if not hasattr(mod, name)]
+        assert not missing, (mod.__name__, missing)
+    assert tex.resolve_plan is tplan.resolve_plan
+    assert tc.available_plans() == tplan.plan_names() == rc.available_plans()
+    assert (tc.available_partitioners() == tc.partitioner_names()
+            == rc.available_partitioners())
+    with pytest.raises(AttributeError):
+        tex.no_such_name  # noqa: B018
+
+    pts = np.random.default_rng(0).uniform(0, 1000, (700, 2)).astype(
+        np.float32)
+    jidx = rc.build_index(jnp.asarray(pts), jnp.zeros(2), 1000.0, l_max=5,
+                          th_quad=8)
+    tidx = tc.build_index(torch.tensor(pts), torch.zeros(2), 1000.0,
+                          l_max=5, th_quad=8)
+    for level in range(6):
+        np.testing.assert_array_equal(np.asarray(jidx.level_counts(level)),
+                                      tidx.level_counts(level).numpy())
 
 
 def test_chip_smoke_imports_no_jax():

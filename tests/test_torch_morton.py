@@ -9,6 +9,11 @@ import numpy as np
 import pytest
 import torch
 
+try:
+    from hypothesis import given, settings, strategies as st
+except ModuleNotFoundError:
+    from repro_torch.testing import given, settings, strategies as st
+
 from repro.core import morton as jm
 from repro_torch.core import morton as tm
 
@@ -102,3 +107,60 @@ def test_block_distance_matches_jax(side):
     td = tm.point_to_block_dist2(_t(px), _t(py), _t(code), _t(a), _t(origin),
                                  _t(s), l_max)
     _bits_equal(jd, td.numpy())
+
+
+# The reference's property tests (tests/test_morton.py), same names and
+# strategies: each drawn input goes through both packages.
+coords = st.integers(min_value=0, max_value=(1 << 15) - 1)
+
+
+@settings(max_examples=50, deadline=None)
+@given(st.lists(st.tuples(coords, coords), min_size=1, max_size=64))
+def test_encode_decode_roundtrip(cells):
+    """Codes bitwise equal to JAX's; decoding gives the cells back."""
+    cx = np.asarray([c[0] for c in cells], np.int32)
+    cy = np.asarray([c[1] for c in cells], np.int32)
+    tz = tm.encode_cells(_t(cx), _t(cy))
+    _bits_equal(jm.encode_cells(jnp.asarray(cx), jnp.asarray(cy)),
+                tz.numpy())
+    dx, dy = tm.decode_code(tz)
+    np.testing.assert_array_equal(dx.numpy(), cx)
+    np.testing.assert_array_equal(dy.numpy(), cy)
+
+
+@settings(max_examples=30, deadline=None)
+@given(st.tuples(coords, coords), st.integers(0, 7))
+def test_ancestor_prefix_property(cell, up):
+    """z >> 2u decodes to the ancestor u levels up, as in JAX."""
+    cx, cy = cell
+    tz = tm.encode_cells(_t(np.int32([cx])), _t(np.int32([cy]))) >> (2 * up)
+    jz = jm.encode_cells(jnp.asarray([cx]), jnp.asarray([cy])) >> (2 * up)
+    ax, ay = tm.decode_code(tz)
+    for a, b in zip(jm.decode_code(jz), (ax, ay)):
+        _bits_equal(a, b.numpy())
+    assert int(ax[0]) == cx >> up
+    assert int(ay[0]) == cy >> up
+
+
+@settings(max_examples=30, deadline=None)
+@given(
+    st.lists(
+        st.tuples(st.floats(0, 999.99), st.floats(0, 999.99)),
+        min_size=2,
+        max_size=64,
+    ),
+    st.integers(2, 8),
+)
+def test_same_cell_same_code(points, level):
+    """Codes bitwise equal to JAX's; points share a code iff they share a
+    grid cell."""
+    pts = np.asarray(points, np.float32)
+    origin = np.zeros(2, np.float32)
+    z = tm.morton_encode_points(_t(pts), _t(origin), _t(np.float32(1000.0)),
+                                level).numpy()
+    _bits_equal(jm.morton_encode_points(jnp.asarray(pts), jnp.zeros(2),
+                                        1000.0, level), z)
+    n = 1 << level
+    cell = np.floor(pts / 1000.0 * n).clip(0, n - 1).astype(int)
+    same_cell = (cell[:, None, :] == cell[None, :, :]).all(-1)
+    np.testing.assert_array_equal(z[:, None] == z[None, :], same_cell)

@@ -10,6 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+try:
+    from hypothesis import given, settings, strategies as st
+except ModuleNotFoundError:
+    from repro_torch.testing import given, settings, strategies as st
+
 from repro.core import pipeline as jp
 from repro.core import plan as jplan
 from repro.core import quadtree as jq
@@ -18,6 +23,7 @@ from repro.data.generators import make_workload
 from repro_torch import convert
 from repro_torch.core import pipeline as tp
 from repro_torch.core import plan as tplan
+from repro_torch.core import quadtree as tq
 from repro_torch.core.executor import resolve_executor as t_executor
 
 torch.set_num_threads(2)
@@ -137,3 +143,31 @@ def test_unported_plans_raise():
         tplan.resolve_plan("nope")
     with pytest.raises(ValueError, match="unknown execution plan"):
         ServiceSpec(plan="nope")
+
+
+@settings(max_examples=15, deadline=None)
+@given(
+    st.lists(st.tuples(st.floats(0, 999.9), st.floats(0, 999.9)),
+             min_size=3, max_size=200),
+    st.integers(1, 12),
+    st.integers(2, 5),
+    st.integers(2, 24),
+)
+def test_property_random_sets(points, k, l_max, th):
+    """The reference's property (tests/test_pipeline.py), same name and
+    strategies: any point set, any k and tree shape, every object a query;
+    the port's sweep equals JAX's bitwise, ids, distances and stats, on
+    indexes built by each package."""
+    pts = np.asarray(points, np.float32)
+    qid = np.arange(len(pts), dtype=np.int32)
+    jidx = jq.build_index(jnp.asarray(pts), jnp.zeros(2), SIDE, l_max=l_max,
+                          th_quad=th)
+    tidx = tq.build_index(torch.tensor(pts), torch.zeros(2), SIDE,
+                          l_max=l_max, th_quad=th)
+    ji, jd, jst = jp.knn_query_batch(jidx, pts, qid, k=k, window=16,
+                                     backend="dense_topk")
+    ti, td, tst = tp.knn_query_batch(tidx, pts, qid, k=k, window=16,
+                                     backend="dense_topk")
+    _bits_equal(ji, ti.numpy(), "ids")
+    _bits_equal(jd, td.numpy(), "dist")
+    _stats_equal(jst, tst)

@@ -8,6 +8,11 @@ import numpy as np
 import pytest
 import torch
 
+try:
+    from hypothesis import given, settings, strategies as st
+except ModuleNotFoundError:
+    from repro_torch.testing import given, settings, strategies as st
+
 from repro.core import quadtree as jq
 from repro_torch import convert
 from repro_torch.core import quadtree as tq
@@ -117,3 +122,74 @@ def test_local_pyramid_from_starts_matches_jax(lo, own, capo):
                                         own, clone, capo, 5)
     got = tq.local_pyramid_from_starts(idx.starts, lo, own, clone, capo, 5)
     np.testing.assert_array_equal(np.asarray(want), got.numpy())
+
+
+# The reference's property tests (tests/test_quadtree.py), same names and
+# strategies: each drawn point set is indexed by both packages.
+pointsets = st.lists(
+    st.tuples(st.floats(0, 999.9), st.floats(0, 999.9)), min_size=1,
+    max_size=300)
+
+
+def _both(points, l_max=5, th=8):
+    pts = np.asarray(points, np.float32)
+    jidx = jq.build_index(jnp.asarray(pts), jnp.zeros(2), SIDE, l_max=l_max,
+                          th_quad=th)
+    tidx = tq.build_index(torch.tensor(pts), torch.zeros(2), SIDE,
+                          l_max=l_max, th_quad=th)
+    _assert_index_equal(jidx, tidx)
+    return pts, jidx, tidx
+
+
+def _leaves(idx):
+    """Leaves as (key, level, span), walking the fine cells."""
+    ll = idx.leaf_level.numpy()
+    leaves, c = [], 0
+    while c < len(ll):
+        span = 4 ** (idx.l_max - int(ll[c]))
+        leaves.append((c, int(ll[c]), span))
+        c += span
+    return leaves
+
+
+@settings(max_examples=25, deadline=None)
+@given(pointsets, st.integers(2, 6), st.integers(2, 32))
+def test_leaves_partition_domain_and_objects(points, l_max, th):
+    """Every index field equal to JAX's; the leaves tile the domain and
+    their intervals the objects, each leaf above l_max holding <= th."""
+    _, _, idx = _both(points, l_max, th)
+    leaves = _leaves(idx)
+    assert sum(s for _, _, s in leaves) == 4**idx.l_max
+    starts = idx.starts.numpy()
+    total = 0
+    for key, lvl, span in leaves:
+        cnt = starts[key + span] - starts[key]
+        total += cnt
+        if lvl < idx.l_max:
+            assert cnt <= th, (key, lvl, cnt)
+    assert total == len(points)
+    for level in range(idx.l_max + 1):
+        np.testing.assert_array_equal(
+            idx.level_counts(level).numpy(),
+            np.bincount(idx.codes.numpy() >> (2 * (idx.l_max - level)),
+                        minlength=4**level))
+
+
+@settings(max_examples=25, deadline=None)
+@given(pointsets)
+def test_leaf_alignment_and_zmap(points):
+    """Leaves aligned; ``leaf_of_points`` equal to JAX's, and each point's
+    leaf holds its fine cell."""
+    pts, jidx, idx = _both(points)
+    for key, lvl, span in _leaves(idx):
+        assert key % span == 0
+    key, lvl = tq.leaf_of_points(idx, torch.tensor(pts))
+    for a, b in zip(jq.leaf_of_points(jidx, jnp.asarray(pts)), (key, lvl)):
+        np.testing.assert_array_equal(np.asarray(a), b.numpy())
+    from repro_torch.core import morton as tm
+
+    fine = tm.morton_encode_points(torch.tensor(pts), idx.origin, idx.side,
+                                   idx.l_max).numpy()
+    span = 4 ** (idx.l_max - lvl.numpy())
+    assert ((key.numpy() <= fine) & (fine < key.numpy() + span)).all()
+    np.testing.assert_array_equal(idx.leaf_level.numpy()[fine], lvl.numpy())
