@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times of one source tree's B1, B4 and B5 kernels on this checkout's inputs.
+"""Times of one source tree's B1-B5 kernels on this checkout's inputs.
 
 Run from the repository root on a machine with a CUDA card:
 
@@ -13,7 +13,11 @@ made by the plain versions of the tree under test, so two trees whose plain
 versions agree time the same work:
 
 - B1 ``fused_scan_merge``, fp32 and mixed, W = 256, k = 32, at Q = 8192 and
-  Q = 1,007,616 (the 1M path's first trip);
+  Q = 1,007,616 (the 1M path's first trip); and past the narrow row at
+  Q = 8192: W = 1024, k = 32; W = 256, k = 512; W = 256, k = 384;
+- B3 ``merge_topk_lists`` past the narrow row, ka = kb = k = 384, and B2
+  ``merge_topk_multi`` past it, R = 8, k = 128, at Q = 65,536 on
+  ``merge_inputs``' edge rows;
 - B5 ``bucket_kselect``, Q = 1,000,000 against one window of C = 2048, at
   k = 32 and 256;
 - B4 ``topk_select``, k = 32, at Q = 1,000,000, C = 288 and Q = 8192,
@@ -61,6 +65,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import bucket_kselect as bk
     from repro_torch.kernels import fused_scan as fs
+    from repro_torch.kernels import merge_topk as mt
     from repro_torch.kernels import topk_select as tk
     from repro_torch.kernels.refine import masked_argmin_rounds
 
@@ -86,6 +91,34 @@ def main() -> int:
             times[f"B1 {label} Q={q}"] = (cs.time_graph_ms(run) if q <= 8192
                                           else cs.time_ms(run, reps=10))
         del base
+
+    for w, kk in ((1024, 32), (256, 512), (256, 384)):
+        base = cs.kernel_inputs(8192, w, kk, dev, seed=w + kk, odd=False)
+        for label, kw in (("fp32", dict(k=kk)),
+                          ("mixed", dict(k=kk, precision="mixed"))):
+            cs._check_lists(f"B1 wide {label} W={w} k={kk} != plain version",
+                            fs.fused_scan_merge(*base, **kw),
+                            fs.fused_scan_merge_ref(*base, **kw))
+            times[f"B1 wide {label} W={w} k={kk}"] = cs.time_graph_ms(
+                lambda: fs.fused_scan_merge(*base, **kw))
+        del base
+
+    q, r = 65536, 8
+    d, i = cs.merge_inputs(r, q, 128, dev, seed=8, inf_ids=True)
+    cat = (d.transpose(0, 1).reshape(q, r * 128).contiguous(),
+           i.transpose(0, 1).reshape(q, r * 128).contiguous())
+    d, i = cs.merge_inputs(2, q, 384, dev, seed=9, inf_ids=True)
+    lists = (d[0], i[0], d[1], i[1])
+    del d, i
+    for name, fn, plain, a, kk in (
+            ("B2 wide R=8 k=128", mt.merge_topk_multi,
+             mt.merge_topk_multi_ref, cat, 128),
+            ("B3 wide k=384", mt.merge_topk_lists, mt.merge_topk_lists_ref,
+             lists, 384)):
+        cs._check_lists(f"{name} != plain version", fn(*a, k=kk),
+                        plain(*a, k=kk))
+        times[name] = cs.time_ms(lambda: fn(*a, k=kk), reps=20)
+    del cat, lists
 
     qpos, ppos, valid = cs.window_inputs(1_000_000, 2048, dev, seed=5,
                                          odd=False)

@@ -742,61 +742,78 @@ def merge_kernel_phase(dev, q_multi=1_007_616, q_lists=503_808, k=32):
 
 
 def wide_kernel_phase(dev, q_b1=8192, q_merge=65536):
-    """The wide templates of B1 (fp32 and mixed), B2 and B3, past the
-    narrow templates' 512-entry rows: each launched once (its wide counter
-    read), held bitwise against its plain version on every row, and timed
-    beside its bound, the plain version and the two-sort merge.
+    """The wide routes of B1 (fp32 and mixed), B2 and B3, past the narrow
+    templates' 512-entry rows: each launched once (its wide and route
+    counters read), held bitwise against its plain version on every row,
+    and timed beside its bound, the plain version and the two-sort merge,
+    on the rows without the odd bands (``ms``) and with them
+    (``odd_rows_ms``).
     - B1 at Q = ``q_b1`` on :func:`kernel_inputs`' rows (edge, NaN,
-      negative and unsorted bands) at W = 1024, k = 32 and W = 256, k = 512;
-    - B2 at R = 8, k = 128 (``object_sharded`` 8's merge) and B3 at
-      ka = kb = k = 384 (``fused_merge`` at k = 384), Q = ``q_merge``, on
-      :func:`merge_inputs`' edge rows with :func:`odd_values`' NaN, -inf,
-      -0 and negative bands.
+      negative and unsorted bands) at W = 1024, k = 32 (the wide queue)
+      and W = 256, k = 512 and 384 (the wide merge; k = 384 is the hybrid
+      session's row), in CUDA graphs;
+    - B2 at R = 8, k = 128 (``object_sharded`` 8's merge, the wide
+      template) and B3 at ka = kb = k = 384 (``fused_merge`` at k = 384,
+      the wide merge), Q = ``q_merge``, on :func:`merge_inputs`' edge rows
+      with :func:`odd_values`' NaN, -inf, -0 and negative bands (B3 also
+      with its first list out of order in one band).
     Returns the records by name (``launches`` filled in from the wide
-    sessions)."""
+    sessions; B1 mixed at k = 384 is an ``other_shapes`` entry of the
+    k = 512 record, as no mixed session runs that row)."""
     from repro_torch.kernels import fused_scan as fs
     from repro_torch.kernels import merge_topk as mt
     from repro_torch.kernels.ops import _lex_sort_merge, topk_select_ref
 
     recs = {}
-    for w, k in ((1024, 32), (256, 512)):
+    for w, k in ((1024, 32), (256, 512), (256, 384)):
         args = kernel_inputs(q_b1, w, k, dev, seed=w + k)
+        base = kernel_inputs(q_b1, w, k, dev, seed=w + k, odd=False)
+        route = "wide_queue" if k <= 256 else "wide_merge"
         for prefix, precision, line in (("fused_scan_merge", "fp32", 126),
                                         ("fused_scan_merge_mixed", "mixed",
                                          52)):
             kw = dict(k=k, precision=precision)
             name = f"{prefix}_wide_w{w}_k{k}"
-            fs.fused_scan_merge.wide_launches = 0
-            out = fs.fused_scan_merge(*args, **kw)
+            fn = fs.fused_scan_merge
+            fn.wide_launches = 0
+            setattr(fn, f"{route}_launches", 0)
+            out = fn(*args, **kw)
             torch.cuda.synchronize()
-            if fs.fused_scan_merge.wide_launches != 1:
-                raise AssertionError(f"{name}: the wide template did not run")
+            if (fn.wide_launches, getattr(fn, f"{route}_launches")) != (1, 1):
+                raise AssertionError(f"{name}: the {route} route did not run")
             ref = fs.fused_scan_merge_ref(*args, **kw)
             _check_lists(f"{name} != plain version", out, ref)
+            _check_lists(f"{name} != plain version (base rows)",
+                         fn(*base, **kw), fs.fused_scan_merge_ref(*base, **kw))
             fin = torch.isfinite(ref[0])
             err = float((out[0][fin] - ref[0][fin]).abs().max())
-            ms = time_ms(lambda: fs.fused_scan_merge(*args, **kw), reps=10)
-            plain_ms = time_ms(lambda: fs.fused_scan_merge_ref(*args, **kw),
+            ms = time_graph_ms(lambda: fn(*base, **kw))
+            odd_ms = time_graph_ms(lambda: fn(*args, **kw))
+            plain_ms = time_ms(lambda: fs.fused_scan_merge_ref(*base, **kw),
                                reps=1, warmup=1)
             library_ms = time_ms(lambda: _lex_sort_merge(
-                torch.stack(args[:2], 1), torch.stack(args[2:4], 2),
-                *args[4:], k, precision=precision), reps=3, warmup=1)
+                torch.stack(base[:2], 1), torch.stack(base[2:4], 2),
+                *base[4:], k, precision=precision), reps=3, warmup=1)
             nbytes = q_b1 * (8 + 13 * w + 8 * k) + q_b1 * 8 * k
             ops = q_b1 * (6 * w + (k + w))
             if precision == "mixed":
                 ops += q_b1 * w * 6  # the prefilter
-            recs[name] = _record(
+            rec = _record(
                 name, "fused_scan.cu", f"src/repro/kernels/fused_scan.py:{line}",
                 None, ms, plain_ms, nbytes, ops, library_ms, err,
-                shape=f"Q={q_b1} W={w} k={k}", template="wide")
-            print(f"kernel: {name} Q={q_b1} W={w} k={k} (wide template) "
+                shape=f"Q={q_b1} W={w} k={k}", template="wide",
+                wide_route=route, odd_rows_ms=odd_ms, timing="cuda graph")
+            key = (f"{prefix}_wide_w256_k512"
+                   if precision == "mixed" and k == 384 else name)
+            _add_shape(recs, key, rec)
+            print(f"kernel: {name} Q={q_b1} W={w} k={k} ({route} route) "
                   f"bitwise equal to its plain version on every row (NaN, "
                   f"negative and unsorted bands included); {ms:.4f} ms "
-                  f"(plain {plain_ms:.3f} ms, two-sort {library_ms:.3f} ms, "
-                  f"bound {recs[name]['bound_ms']:.4f} ms by "
-                  f"{recs[name]['bound_by']})")
+                  f"({odd_ms:.4f} ms with the odd bands; plain "
+                  f"{plain_ms:.3f} ms, two-sort {library_ms:.3f} ms, bound "
+                  f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})")
             del out, ref
-        del args
+        del args, base
 
     q = q_merge
     r, k = 8, 128
@@ -806,44 +823,64 @@ def wide_kernel_phase(dev, q_b1=8192, q_merge=65536):
     del d, i
     ka = kb = k3 = 384
     d, i = merge_inputs(2, q, ka, dev, seed=9, inf_ids=True)
-    lists = (odd_values(d[0]), i[0].contiguous(), d[1].contiguous(),
+    clean = (d[0].contiguous(), i[0].contiguous(), d[1].contiguous(),
              i[1].contiguous())
+    lists = (odd_values(d[0]), i[0].clone(), d[1].contiguous(),
+             i[1].contiguous())
+    e = q // 16  # the first list out of order, after the odd bands
+    perm = torch.argsort(torch.rand((e, ka), device=dev), dim=1)
+    for t in range(2):
+        rows = lists[t][13 * e:14 * e]
+        rows.copy_(torch.gather(rows, 1, perm))
     del d, i
-    cat = (torch.cat([lists[0], lists[2]], 1), torch.cat([lists[1], lists[3]],
-                                                         1))
-    for name, fn, run_args, kk, line, row in (
-            ("merge_topk_multi_wide", mt.merge_topk_multi, (d_cat, i_cat), k,
-             75, r * k),
-            ("merge_topk_lists_wide", mt.merge_topk_lists, lists, k3, 119,
-             ka + kb)):
+    for name, fn, run_args, base, kk, line, row, route in (
+            ("merge_topk_multi_wide", mt.merge_topk_multi, (d_cat, i_cat),
+             None, k, 75, r * k, "wide_template"),
+            ("merge_topk_lists_wide", mt.merge_topk_lists, lists, clean, k3,
+             119, ka + kb, "wide_merge")):
         fn.wide_launches = 0
+        if route == "wide_merge":
+            fn.wide_merge_launches = 0
         out = fn(*run_args, k=kk)
         torch.cuda.synchronize()
-        if fn.wide_launches != 1:
-            raise AssertionError(f"{name}: the wide template did not run")
+        if fn.wide_launches != 1 or (route == "wide_merge" and
+                                     fn.wide_merge_launches != 1):
+            raise AssertionError(f"{name}: the {route} route did not run")
         plain_fn = (mt.merge_topk_multi_ref if fn is mt.merge_topk_multi
                     else mt.merge_topk_lists_ref)
         ref = plain_fn(*run_args, k=kk)
         _check_lists(f"{name} != plain version", out, ref)
         fin = torch.isfinite(ref[0])
         err = float((out[0][fin] - ref[0][fin]).abs().max())
-        ms = time_ms(lambda: fn(*run_args, k=kk), reps=5)
-        plain_ms = time_ms(lambda: plain_fn(*run_args, k=kk), reps=1,
+        extra = {}
+        timed_args = run_args
+        if base is not None:
+            _check_lists(f"{name} != plain version (base rows)",
+                         fn(*base, **dict(k=kk)), plain_fn(*base, k=kk))
+            extra["odd_rows_ms"] = time_ms(lambda: fn(*run_args, k=kk),
+                                           reps=5)
+            timed_args = base
+        ms = time_ms(lambda: fn(*timed_args, k=kk), reps=5)
+        plain_ms = time_ms(lambda: plain_fn(*timed_args, k=kk), reps=1,
                            warmup=1)
-        two = (d_cat, i_cat) if fn is mt.merge_topk_multi else cat
+        two = (d_cat, i_cat) if fn is mt.merge_topk_multi else (
+            torch.cat([base[0], base[2]], 1), torch.cat([base[1], base[3]], 1))
         library_ms = time_ms(lambda: topk_select_ref(*two, kk), reps=3,
                              warmup=1)
         recs[name] = _record(
             name, "merge_topk.cu", f"src/repro/kernels/merge_topk.py:{line}",
             None, ms, plain_ms, q * row * 8 + q * kk * 8, q * (row + kk),
             library_ms, err,
-            shape=f"Q={q} row={row} k={kk}", template="wide")
-        print(f"kernel: {name} Q={q} row={row} k={kk} (wide template) "
+            shape=f"Q={q} row={row} k={kk}", template="wide",
+            wide_route=route, **extra)
+        odd_note = (f"; {extra['odd_rows_ms']:.4f} ms with the odd bands"
+                    if extra else "")
+        print(f"kernel: {name} Q={q} row={row} k={kk} ({route} route) "
               f"bitwise equal to its plain version on every row (NaN, -inf, "
-              f"-0 and negative bands included); {ms:.4f} ms (plain "
+              f"-0 and negative bands included); {ms:.4f} ms{odd_note} (plain "
               f"{plain_ms:.3f} ms, two-sort {library_ms:.3f} ms, bound "
               f"{recs[name]['bound_ms']:.4f} ms by {recs[name]['bound_by']})")
-        del out, ref
+        del out, ref, two
     return recs
 
 
@@ -856,7 +893,8 @@ def _add_shape(recs: dict, name: str, rec: dict):
     recs[name]["other_shapes"].append(
         {key: rec[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
                                    "bound_by", "library_ms", "worst_rows",
-                                   "odd_rows_ms", "pruned_share", "timing")
+                                   "odd_rows_ms", "pruned_share", "timing",
+                                   "wide_route")
          if key in rec})
 
 
@@ -1431,10 +1469,16 @@ def _counters():
     return {"fused_scan_merge": (fs.fused_scan_merge, "launches"),
             "fused_scan_merge_mixed": (fs.fused_scan_merge, "mixed_launches"),
             "fused_scan_merge_wide": (fs.fused_scan_merge, "wide_launches"),
+            "fused_scan_merge_wide_queue": (fs.fused_scan_merge,
+                                            "wide_queue_launches"),
+            "fused_scan_merge_wide_merge": (fs.fused_scan_merge,
+                                            "wide_merge_launches"),
             "merge_topk_multi": (mt.merge_topk_multi, "launches"),
             "merge_topk_multi_wide": (mt.merge_topk_multi, "wide_launches"),
             "merge_topk_lists": (mt.merge_topk_lists, "launches"),
             "merge_topk_lists_wide": (mt.merge_topk_lists, "wide_launches"),
+            "merge_topk_lists_wide_merge": (mt.merge_topk_lists,
+                                            "wide_merge_launches"),
             "topk_select": (tk.topk_select, "launches"),
             "topk_select_wide": (tk.topk_select, "wide_launches"),
             "topk_select_queue": (tk.topk_select, "queue_launches"),
@@ -1575,7 +1619,9 @@ def wide_sessions(dev, n: int, n_axis: int, seed: int = 0):
         1024) against a ``single`` twin on every row;
     (d) ``hybrid`` (2, 3), ``cost_balanced``, ``fused_merge``, k = 384 (B3
         wide, ka + kb = 768) against a ``single`` twin on every row.
-    Returns each wide template's launches on its session."""
+    Checks that every wide launch took its route (the wide queue at
+    k = 32, the wide merge past k = 256, B3's wide merge) and returns each
+    wide record's launches on its session (B1 at k = 384 from (d))."""
     from repro_torch.api import KnnSession, ServiceSpec
     from repro_torch.data.generators import make_workload
 
@@ -1608,9 +1654,12 @@ def wide_sessions(dev, n: int, n_axis: int, seed: int = 0):
         w = kw.get("window", 256)
         k = kw.get("k", 32)
         key = f"w{w}_k{k}"
-        if counts["fused_scan_merge_wide"] < 1 or \
-                counts_m["fused_scan_merge_wide"] < 1:
-            raise AssertionError(f"{label}: the wide template did not run")
+        route = "fused_scan_merge_wide_" + ("queue" if k <= 256 else "merge")
+        for c in (counts, counts_m):
+            if c["fused_scan_merge_wide"] < 1 or \
+                    c[route] != c["fused_scan_merge_wide"]:
+                raise AssertionError(f"{label}: not every wide launch took "
+                                     f"{route}")
         launches[f"fused_scan_merge_wide_{key}"] = counts[
             "fused_scan_merge_wide"]
         launches[f"fused_scan_merge_mixed_wide_{key}"] = counts_m[
@@ -1639,6 +1688,15 @@ def wide_sessions(dev, n: int, n_axis: int, seed: int = 0):
         if counts[kernel] < 1:
             raise AssertionError(f"{label}: {kernel} never launched")
         launches[kernel] = counts[kernel]
+        if kernel == "merge_topk_lists_wide":  # B1 and B3 take wide merges
+            for wide, route in (
+                    ("fused_scan_merge_wide", "fused_scan_merge_wide_merge"),
+                    ("merge_topk_lists_wide", "merge_topk_lists_wide_merge")):
+                if counts[wide] < 1 or counts[route] != counts[wide]:
+                    raise AssertionError(f"{label}: not every {wide} launch "
+                                         f"took {route}")
+            launches["fused_scan_merge_wide_w256_k384"] = counts[
+                "fused_scan_merge_wide"]
         bad = _same_lists(res, ref)
         if bad.any():
             raise AssertionError(f"{label}: {int(bad.sum())} rows differ "

@@ -51,14 +51,35 @@
 //   prune then drops every entry, as the plain version's does, or, with
 //   fewer than k entries below +inf, only the NaN ones.
 // - k > 256 runs the refinement path on every row (the rounds template).
-// - k + W > 512 (the ladder's P = 16 a lane) runs the wide template: one
-//   block of 256 threads a row, the plain version's steps at block level
-//   (block_select.cuh): d2 of the window (+inf where invalid; under MIXED
-//   the bf16 prefilter first), appended to the list, the refinement, the
-//   prune, then the k smallest of what the prune keeps.  Where the row and
-//   its keys fit in shared memory it is staged and the kept entries' keys
-//   are sorted (k + W up to about 9,000 on an H100); else the row is
-//   recomputed from the inputs on every pass and the rounds select.
+// - k + W > 512 (the ladder's P = 16 a lane) takes one of three wide
+//   routes; the entry point reports which.
+//   - The wide queue (k <= 256): the fast path above over the whole row,
+//     which the warp queue streams at any width.  A row that fails the
+//     vote cannot take the refinement path (its registers stop at 512
+//     columns): after a block barrier, the block's 256 threads run the
+//     wide template below on each such row of the block in turn, the row
+//     staged in shared memory up to k + W = 4,096.
+//   - The wide merge (k > 256): one block a row.  On a row with no odd
+//     entry whose list is ascending (its +inf entries all equal, as
+//     merge_topk.cu stages them), the k smallest of list ++ window are
+//     the list merged with the window entries whose key is below the
+//     list's k-th (an equal key is an exact duplicate, as in the queue's
+//     threshold).  Those survivors are compacted into shared memory
+//     through a ballot, bitonic-sorted (block_sort_keys over the next
+//     power of two, few keys once the sweep's lists have filled), and
+//     output j is merged_at(list, survivors, j).  Any other row, or one
+//     whose survivors pass the shared room, takes the wide template in
+//     the same block.
+//   - The wide template (the rows of the two routes above that they
+//     cannot take, and every row where not even k keys fit in shared
+//     memory): the plain version's steps at block level (block_select.cuh):
+//     d2 of the window (+inf where invalid; under MIXED the bf16 prefilter
+//     first), appended to the list, the refinement, the prune, then the k
+//     smallest of what the prune keeps.  Where the row and its keys fit in
+//     shared memory it is staged and the kept entries' keys are sorted or
+//     the rounds run over it (k + W up to about 28,000 on an H100); else
+//     the row is recomputed from the inputs on every pass and the rounds
+//     select.
 //
 // Bound on an H100: memory.  Per row the kernel reads W*13 + k*8 + 8 bytes
 // and writes k*8 (about 3.6 KB + 0.26 KB at W=256, k=32); its arithmetic is
@@ -78,6 +99,7 @@
 // intrinsic, and the build passes --fmad=false.
 #include <cuda_bf16.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "block_select.cuh"
@@ -316,19 +338,17 @@ struct PrunedRow {
   }
 };
 
+// One row of the wide template, by the whole block; `smem` is the dynamic
+// shared memory wide_plan sizes for MODE (unused by kGlobal).
 template <bool MIXED, Wide MODE>
-__global__ void __launch_bounds__(kBlockThreads)
-fused_scan_wide_kernel(const Args a) {
-  extern __shared__ Key wide_keys[];
-  __shared__ BlockScratch s;
-  const int row = blockIdx.x;
+__device__ void wide_row(const Args& a, int row, Key* smem, BlockScratch& s) {
   const RowIn<MIXED> in(a, row);
   const int n = a.k + a.w;
   const RefineConsts rc{a.iters, a.hi_mul, a.hi_add, a.slop_mul, a.tiny};
   float* out_d = a.out_d + in.brow;
   int* out_i = a.out_i + in.brow;
   if constexpr (MODE == Wide::kRounds) {
-    float* sd = reinterpret_cast<float*>(wide_keys);
+    float* sd = reinterpret_cast<float*>(smem);
     const StagedRow st =
         stage_row(in, n, sd, reinterpret_cast<int*>(sd + n));
     const float radius = block_refine_radius(st, n, a.k, rc, s);
@@ -339,7 +359,7 @@ fused_scan_wide_kernel(const Args a) {
     block_rounds(st, n, a.k, out_d, out_i, s);
   } else if constexpr (MODE == Wide::kSort) {
     const int p = static_cast<int>(pow2_at_least(n));
-    Key* keys = wide_keys;
+    Key* keys = smem;
     float* sd = reinterpret_cast<float*>(keys + p);
     int* si = reinterpret_cast<int*>(sd + n);
     const StagedRow st = stage_row(in, n, sd, si);
@@ -353,6 +373,126 @@ fused_scan_wide_kernel(const Args a) {
   } else {
     const float radius = block_refine_radius(in, n, a.k, rc, s);
     block_rounds(PrunedRow<MIXED>{in, radius}, n, a.k, out_d, out_i, s);
+  }
+}
+
+template <bool MIXED, Wide MODE>
+__global__ void __launch_bounds__(kBlockThreads)
+fused_scan_wide_kernel(const Args a) {
+  extern __shared__ Key wide_keys[];
+  __shared__ BlockScratch s;
+  wide_row<MIXED, MODE>(a, blockIdx.x, wide_keys, s);
+}
+
+// The wide queue: the fast path of fused_scan_queue_kernel over a row of
+// any width, 8 rows a block; the block's odd rows then take the wide
+// template one after another, staged in shared memory (MODE kRounds)
+// where the row takes at most kStagedRowBytes, else over global memory
+// (kGlobal).  Every warp reaches the barrier.
+static_assert(kBlockThreads == kWarp * kRowsPerBlock, "a warp a row");
+
+// 32 KB of staged row beside the kernel's 4.5 KB of static shared memory
+// stays under the 48 KB a block takes without opting in, and 4 such
+// blocks (the launch bounds' occupancy at N <= 2) fit in an SM's 227 KB.
+constexpr size_t kStagedRowBytes = 32 * 1024;
+
+template <int N, bool MIXED, Wide MODE>
+__global__ void __launch_bounds__(kBlockThreads, N <= 2 ? 4 : 1)
+fused_scan_wide_queue_kernel(const Args a) {
+  extern __shared__ Key wide_keys[];
+  __shared__ Key ring[kRowsPerBlock][kRing];
+  __shared__ BlockScratch s;
+  __shared__ int odd_row[kRowsPerBlock];
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int row = blockIdx.x * kRowsPerBlock + warp;
+  bool odd = false;
+  if (row < a.q) {  // the whole warp together
+    const RowIn<MIXED> in(a, row);
+    Key wq[N];  // the warp queue
+    warp_queue_select<N>(
+        [&](int j) {
+          float d;
+          int id;
+          in.entry(j, d, id);
+          odd |= odd_entry(d);
+          return make_key(d, id);
+        },
+        a.k + a.w, a.k, ring[warp], lane, wq);
+    odd = __any_sync(kFull, odd);  // one vote for the row
+    if (!odd) store_queue<N>(wq, a.k, lane, a.out_d + in.brow,
+                             a.out_i + in.brow);
+  }
+  if (lane == 0) odd_row[warp] = odd;
+  __syncthreads();
+  for (int w = 0; w < kRowsPerBlock; ++w) {
+    if (odd_row[w]) {
+      wide_row<MIXED, MODE>(a, blockIdx.x * kRowsPerBlock + w, wide_keys,
+                            s);
+      __syncthreads();
+    }
+  }
+}
+
+// The wide merge: one block a row (see the header).  `cap`, a power of
+// two, is the survivors' room after the list's k keys.
+template <bool MIXED, Wide MODE>
+__global__ void __launch_bounds__(kBlockThreads)
+fused_scan_wide_merge_kernel(const Args a, int cap) {
+  extern __shared__ Key wide_keys[];
+  __shared__ BlockScratch s;
+  __shared__ int count;
+  const int row = blockIdx.x;
+  const int lane = threadIdx.x % kWarp;
+  const RowIn<MIXED> in(a, row);
+  const int k = a.k;
+  Key* list = wide_keys;
+  Key* surv = wide_keys + k;
+  if (threadIdx.x == 0) count = 0;
+  bool odd = false;
+  for (int j = threadIdx.x; j < k; j += kBlockThreads) {
+    float d;
+    int id;
+    in.entry(j, d, id);
+    odd |= odd_entry(d);
+    list[j] = run_key(d, id);
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j + 1 < k; j += kBlockThreads) {
+    odd |= list[j + 1] < list[j];
+  }
+  const Key kth = list[k - 1];
+  for (int base = 0; base < a.w; base += kBlockThreads) {
+    const int j = base + threadIdx.x;
+    Key key = kNoKey;
+    if (j < a.w) {
+      float d;
+      int id;
+      in.entry(k + j, d, id);
+      odd |= odd_entry(d);
+      key = run_key(d, id);
+    }
+    const bool take = key < kth;
+    const unsigned m = __ballot_sync(kFull, take);
+    if (m == 0) continue;
+    int at = 0;
+    if (lane == 0) at = atomicAdd(&count, __popc(m));
+    at = __shfl_sync(kFull, at, 0) + __popc(m & ((1u << lane) - 1u));
+    if (take && at < cap) surv[at] = key;
+  }
+  if (__syncthreads_or(odd) || count > cap) {
+    wide_row<MIXED, MODE>(a, row, wide_keys, s);
+    return;
+  }
+  const int m = count;
+  const int p = static_cast<int>(pow2_at_least(m));
+  for (int j = m + threadIdx.x; j < p; j += kBlockThreads) surv[j] = kNoKey;
+  __syncthreads();
+  block_sort_keys(surv, p);
+  float* out_d = a.out_d + in.brow;
+  int* out_i = a.out_i + in.brow;
+  for (int j = threadIdx.x; j < k; j += kBlockThreads) {
+    key_pair(merged_at(list, k, surv, m, j), out_d[j], out_i[j]);
   }
 }
 
@@ -375,6 +515,70 @@ cudaError_t launch_wide_as(const Args& a, cudaStream_t stream) {
     default:
       return launch_wide<fused_scan_wide_kernel<MIXED, Wide::kGlobal>>(
           w, a.q, stream, a);
+  }
+}
+
+// The wide queue, N by k as the narrow ladder takes it.
+template <bool MIXED, Wide MODE>
+cudaError_t launch_wide_queue_as(const Args& a, size_t bytes,
+                                 cudaStream_t stream) {
+  const int blocks = (a.q + kRowsPerBlock - 1) / kRowsPerBlock;
+  auto go = [&](auto kernel) {
+    kernel<<<blocks, kBlockThreads, bytes, stream>>>(a);
+    return cudaGetLastError();
+  };
+  if (a.k <= 32) return go(fused_scan_wide_queue_kernel<1, MIXED, MODE>);
+  if (a.k <= 64) return go(fused_scan_wide_queue_kernel<2, MIXED, MODE>);
+  if (a.k <= 128) return go(fused_scan_wide_queue_kernel<4, MIXED, MODE>);
+  return go(fused_scan_wide_queue_kernel<8, MIXED, MODE>);
+}
+
+template <bool MIXED>
+cudaError_t launch_wide_queue(const Args& a, cudaStream_t stream) {
+  const size_t row_bytes =
+      (sizeof(float) + sizeof(int)) * (static_cast<size_t>(a.k) + a.w);
+  return row_bytes <= kStagedRowBytes
+             ? launch_wide_queue_as<MIXED, Wide::kRounds>(a, row_bytes, stream)
+             : launch_wide_queue_as<MIXED, Wide::kGlobal>(a, 0, stream);
+}
+
+// The wide merge, where the list's k keys and one survivor fit in the
+// shared room; its shared memory is the wide template's (for the rows it
+// hands over) or the list and the next power of two above W, the larger.
+// Sets *taken to false, and launches nothing, where they do not fit.
+template <bool MIXED>
+cudaError_t launch_wide_merge(const Args& a, cudaStream_t stream,
+                              bool* taken) {
+  // The kernel's static shared memory (its three modes declare the same),
+  // with the dynamic memory's alignment: read from the kernel itself.
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(
+      &attr, reinterpret_cast<const void*>(
+                 fused_scan_wide_merge_kernel<MIXED, Wide::kGlobal>));
+  if (err != cudaSuccess) return err;
+  const long long n = static_cast<long long>(a.k) + a.w;
+  const size_t row_bytes = (sizeof(float) + sizeof(int)) * n;
+  WidePlan w;
+  const size_t fixed = (attr.sharedSizeBytes + 15) & ~static_cast<size_t>(15);
+  err = wide_plan(n, a.k, sizeof(Key) * pow2_at_least(n) + row_bytes,
+                  row_bytes, fixed, w);
+  if (err != cudaSuccess) return err;
+  const size_t want = sizeof(Key) * (a.k + pow2_at_least(a.w));
+  w.bytes = std::max(w.bytes, std::min(want, w.room));
+  *taken = w.bytes >= sizeof(Key) * (a.k + 1);
+  if (!*taken) return cudaSuccess;
+  int cap = 1;
+  while (sizeof(Key) * (a.k + 2ll * cap) <= w.bytes) cap *= 2;
+  switch (w.mode) {
+    case Wide::kSort:
+      return launch_wide<fused_scan_wide_merge_kernel<MIXED, Wide::kSort>>(
+          w, a.q, stream, a, cap);
+    case Wide::kRounds:
+      return launch_wide<fused_scan_wide_merge_kernel<MIXED, Wide::kRounds>>(
+          w, a.q, stream, a, cap);
+    default:
+      return launch_wide<fused_scan_wide_merge_kernel<MIXED, Wide::kGlobal>>(
+          w, a.q, stream, a, cap);
   }
 }
 
@@ -429,8 +633,12 @@ cudaError_t launch_ladder(const Args& a, bool mixed, cudaStream_t stream) {
 }
 
 // The widest k + W row the narrow templates take (P = 16 elements a lane);
-// a wider row takes the wide template.
+// a wider row takes a wide route.
 constexpr long long kNarrowRow = kWarp * 16;
+
+// The entry point's route codes.
+enum Route : int { kNarrow = 0, kWideTemplate = 1, kWideQueue = 2,
+                   kWideMerge = 3 };
 
 }  // namespace
 
@@ -438,15 +646,16 @@ extern "C" {
 
 // Returns a cudaError_t (0 = launched).  All pointers are device pointers;
 // q, w, k, iters > 0; mixed != 0 runs the bf16 prefilter with the widening
-// factor `widen`.  *wide is set to 1 where the row took the wide template,
-// else to 0.
+// factor `widen`.  *route is set to the route the launch took: 0 the
+// narrow templates (k + W <= 512), 1 the wide template, 2 the wide queue,
+// 3 the wide merge.
 int fused_scan_merge_f32(const void* qx, const void* qy, const void* cx,
                          const void* cy, const void* cids, const void* valid,
                          const void* best_d, const void* best_i, void* out_d,
                          void* out_i, int q, int w, int k, int iters,
                          int mixed, float hi_mul, float hi_add, float slop_mul,
                          float tiny, float widen, void* stream,
-                         int* wide) {
+                         int* route) {
   if (q <= 0 || w <= 0 || k <= 0 || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{static_cast<const float*>(qx), static_cast<const float*>(qy),
@@ -459,9 +668,21 @@ int fused_scan_merge_f32(const void* qx, const void* qy, const void* cx,
   const bool mx = mixed != 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  *wide = static_cast<long long>(k) + w > kNarrowRow;
-  if (*wide) {
-    err = mx ? launch_wide_as<true>(a, s) : launch_wide_as<false>(a, s);
+  *route = kNarrow;
+  if (static_cast<long long>(k) + w > kNarrowRow) {
+    bool taken = k <= 256;
+    if (taken) {
+      *route = kWideQueue;
+      err = mx ? launch_wide_queue<true>(a, s) : launch_wide_queue<false>(a, s);
+    } else {
+      *route = kWideMerge;
+      err = mx ? launch_wide_merge<true>(a, s, &taken)
+               : launch_wide_merge<false>(a, s, &taken);
+    }
+    if (err == cudaSuccess && !taken) {
+      *route = kWideTemplate;
+      err = mx ? launch_wide_as<true>(a, s) : launch_wide_as<false>(a, s);
+    }
   } else if (k <= 32) {
     err = launch_ladder<1>(a, mx, s);
   } else if (k <= 64) {

@@ -34,13 +34,24 @@
 //   equal keys at every level.
 // There is no float arithmetic, only comparisons, so no rounding hazard.
 //
-// Wide template: a row of more than 512 entries (R * k for merge_topk_multi,
-// ca + cb for merge_topk_lists, or k > 512) goes to block_select.cuh's
-// select_wide_kernel, one block of 256 threads a row: a block bitonic sort
-// of the row's keys in shared memory where they fit, else (and on a row
-// holding a NaN) the plain version's masked_argmin_rounds over the whole
-// row.  It needs no ascending input; merge_topk_multi's C % k == 0 stays
-// the wrapper's precondition on the card.
+// Wide routes: a row of more than 512 entries (R * k for merge_topk_multi,
+// ca + cb for merge_topk_lists, or k > 512) needs no ascending input.
+// - merge_topk_lists takes the wide merge, one block of 256 threads a row:
+//   the keys of a[0, min(ca, k)) and b[0, min(cb, k)) staged in shared
+//   memory, and a vote over both whole lists: no NaN and both ascending.
+//   Such a row is merged as the narrow kernel merges it, thread t writing
+//   outputs t, t + 256, ... from merged_at.  A NaN in a[0] alone, the
+//   rest ascending, is merged too: the rounds emit (NaN, INT_MAX) first
+//   and mask column 0, then select from the rest.  The key orders every
+//   other d2 as the rounds do, -inf and negative ones included (a -0
+//   leaves as +0, as from every key path; select_keys.cuh).  Any other
+//   row takes, in the same block, what select_wide_kernel gives it.
+// - merge_topk_multi, and merge_topk_lists where not even the staged keys
+//   fit in shared memory, take block_select.cuh's select_wide_kernel: a
+//   block bitonic sort of the row's keys in shared memory where they fit,
+//   else (and on a row holding a NaN) the plain version's
+//   masked_argmin_rounds over the whole row.  merge_topk_multi's
+//   C % k == 0 stays the wrapper's precondition on the card.
 //
 // Bound on an H100: memory.  Per row it reads (ca + cb) * 8 bytes and writes
 // k * 8: at Q = 1,007,616, R = 4, k = 32 that is 1.29 GB, about 0.385 ms at
@@ -51,11 +62,6 @@
 #include "warp_select.cuh"
 
 namespace {
-
-// A staged entry: +inf keys all equal, so +inf padding stays ascending.
-__device__ __forceinline__ Key run_key(float d, int id) {
-  return make_key(d, isinf(d) && d > 0.f ? -1 : id);
-}
 
 // Stages n entries of a list, four slabs' loads in flight before any store.
 __device__ __forceinline__ void stage(const float* __restrict__ d,
@@ -155,6 +161,137 @@ merge_multi_kernel(const float* __restrict__ d, const int* __restrict__ id,
   }
 }
 
+// select_wide_kernel's work on one row, by the whole block, for the rows
+// the wide merge hands over (the same modes, so the same bits).
+template <Wide MODE>
+__device__ void select_row(const TwoLists& in, int n, int k, float* od,
+                           int* oi, Key* smem, BlockScratch& s) {
+  if constexpr (MODE == Wide::kRounds) {
+    float* sd = reinterpret_cast<float*>(smem);
+    block_rounds(stage_row(in, n, sd, reinterpret_cast<int*>(sd + n)), n, k,
+                 od, oi, s);
+  } else if constexpr (MODE == Wide::kSort) {
+    const int p = static_cast<int>(pow2_at_least(n));
+    bool nan = false;
+    for (int j = threadIdx.x; j < p; j += kBlockThreads) {
+      Key key = kNoKey;
+      if (j < n) {
+        float d;
+        int id;
+        in.entry(j, d, id);
+        nan |= d != d;
+        key = make_key(d, id);
+      }
+      smem[j] = key;
+    }
+    if (__syncthreads_or(nan)) {
+      block_rounds(in, n, k, od, oi, s);
+      return;
+    }
+    block_sort_keys(smem, p);
+    store_sorted(smem, p, k, od, oi);
+  } else {
+    block_rounds(in, n, k, od, oi, s);
+  }
+}
+
+// Stages the keys of d[0, l) into dst and votes over the whole list of c:
+// `bad` where an entry is NaN (but for column 0 of the lead list, which
+// sets `nan0`) or the list does not ascend.
+__device__ __forceinline__ void stage_vote(const float* __restrict__ d,
+                                           const int* __restrict__ id, int c,
+                                           int l, Key* dst, bool lead,
+                                           bool& bad, bool& nan0) {
+  for (int j = threadIdx.x; j < c; j += kBlockThreads) {
+    const float x = d[j];
+    const Key key = run_key(x, id[j]);
+    if (j < l) dst[j] = key;
+    if (x != x) {
+      if (lead && j == 0) {
+        nan0 = true;
+      } else {
+        bad = true;
+      }
+    } else if (j + 1 < c && run_key(d[j + 1], id[j + 1]) < key) {
+      bad = true;
+    }
+  }
+}
+
+// The wide merge of merge_topk_lists (see the header); MODE is the one
+// wide_plan picks for the rows handed over.
+template <Wide MODE>
+__global__ void __launch_bounds__(kBlockThreads)
+merge_lists_wide_kernel(const float* __restrict__ da,
+                        const int* __restrict__ ia, int ca,
+                        const float* __restrict__ db,
+                        const int* __restrict__ ib, int cb,
+                        float* __restrict__ out_d, int* __restrict__ out_i,
+                        int k) {
+  extern __shared__ Key wide_keys[];
+  __shared__ BlockScratch s;
+  const size_t row = blockIdx.x;
+  const TwoLists in{da + row * ca, ia + row * ca, ca, db + row * cb,
+                    ib + row * cb};
+  float* od = out_d + row * k;
+  int* oi = out_i + row * k;
+  const int la = min(ca, k);
+  const int lb = min(cb, k);
+  Key* a = wide_keys;
+  Key* b = a + la;
+  bool bad = false;
+  bool nan0 = false;
+  stage_vote(in.da, in.ia, ca, la, a, true, bad, nan0);
+  stage_vote(in.db, in.ib, cb, lb, b, false, bad, nan0);
+  if (__syncthreads_or(bad)) {
+    select_row<MODE>(in, ca + cb, k, od, oi, wide_keys, s);
+    return;
+  }
+  // a[0] the only NaN: it leaves first, and the rest merge after it
+  const int skip = __syncthreads_or(nan0) ? 1 : 0;
+  if (skip && threadIdx.x == 0) {
+    od[0] = CUDART_NAN_F;
+    oi[0] = INT_MAX;
+  }
+  for (int j = skip + threadIdx.x; j < k; j += kBlockThreads) {
+    const int t = j - skip;
+    const Key key = t < la - skip + lb ? merged_at(a + skip, la - skip, b, lb, t)
+                                       : kNoKey;
+    store_pair(key, od + j, oi + j);
+  }
+}
+
+// merge_topk_lists' wide merge, where the staged keys fit in shared memory:
+// its room is select_wide_kernel's or theirs, the larger.  Sets *taken to
+// false, and launches nothing, where they do not fit.
+cudaError_t launch_lists_wide(const float* da, const int* ia, int ca,
+                              const float* db, const int* ib, int cb,
+                              float* out_d, int* out_i, int q, int k,
+                              cudaStream_t stream, bool* taken) {
+  const long long n = static_cast<long long>(ca) + cb;
+  WidePlan w;
+  const cudaError_t err =
+      wide_plan(n, k, sizeof(Key) * pow2_at_least(n),
+                (sizeof(float) + sizeof(int)) * n, sizeof(BlockScratch), w);
+  if (err != cudaSuccess) return err;
+  const size_t staged = sizeof(Key) * (static_cast<size_t>(min(ca, k)) +
+                                       static_cast<size_t>(min(cb, k)));
+  *taken = staged <= w.room;
+  if (!*taken) return cudaSuccess;
+  if (staged > w.bytes) w.bytes = staged;
+  switch (w.mode) {
+    case Wide::kSort:
+      return launch_wide<merge_lists_wide_kernel<Wide::kSort>>(
+          w, q, stream, da, ia, ca, db, ib, cb, out_d, out_i, k);
+    case Wide::kRounds:
+      return launch_wide<merge_lists_wide_kernel<Wide::kRounds>>(
+          w, q, stream, da, ia, ca, db, ib, cb, out_d, out_i, k);
+    default:
+      return launch_wide<merge_lists_wide_kernel<Wide::kGlobal>>(
+          w, q, stream, da, ia, ca, db, ib, cb, out_d, out_i, k);
+  }
+}
+
 // Dynamic shared memory above 48 KB must be asked for first.
 cudaError_t launch_with_smem(const void* fn, size_t smem) {
   if (smem > 48 * 1024) {
@@ -204,21 +341,35 @@ int merge_topk_multi_f32(const void* d, const void* id, int runs,
 
 // Returns a cudaError_t (0 = launched).  All pointers are device pointers;
 // a is (q, ca), b is (q, cb), out (q, k), a and b ascending; q > 0;
-// ca, cb >= 0; k > 0.  *wide is set to 1 where the row took the wide
-// template, else to 0.
+// ca, cb >= 0; k > 0.  *route is set to the route the launch took: 0 the
+// narrow kernel, 1 the wide template (select_wide_kernel), 3 the wide
+// merge.
 int merge_topk_lists_f32(const void* da, const void* ia, int ca,
                          const void* db, const void* ib, int cb, void* out_d,
-                         void* out_i, int q, int k, void* stream, int* wide) {
+                         void* out_i, int q, int k, void* stream,
+                         int* route) {
   if (ca < 0 || cb < 0 || k <= 0 ||
       static_cast<long long>(ca) + cb > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  *wide = ca + cb > kNarrowRow || k > kNarrowRow;
-  if (*wide) {
-    return static_cast<int>(launch_select_wide(
-        static_cast<const float*>(da), static_cast<const int*>(ia), ca,
-        static_cast<const float*>(db), static_cast<const int*>(ib), cb,
-        static_cast<float*>(out_d), static_cast<int*>(out_i), q, k,
-        static_cast<cudaStream_t>(stream)));
+  *route = 0;
+  if (ca + cb > kNarrowRow || k > kNarrowRow) {
+    const float* fa = static_cast<const float*>(da);
+    const int* ja = static_cast<const int*>(ia);
+    const float* fb = static_cast<const float*>(db);
+    const int* jb = static_cast<const int*>(ib);
+    float* od = static_cast<float*>(out_d);
+    int* oi = static_cast<int*>(out_i);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    bool taken = false;
+    const cudaError_t err = launch_lists_wide(fa, ja, ca, fb, jb, cb, od, oi,
+                                              q, k, st, &taken);
+    if (err != cudaSuccess || taken) {
+      *route = 3;
+      return static_cast<int>(err);
+    }
+    *route = 1;
+    return static_cast<int>(
+        launch_select_wide(fa, ja, ca, fb, jb, cb, od, oi, q, k, st));
   }
   const size_t smem = sizeof(Key) * kRowsPerBlock * 2 * k;
   const cudaError_t err =

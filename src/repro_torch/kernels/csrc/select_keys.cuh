@@ -43,6 +43,12 @@ __device__ __forceinline__ Key make_key(float d, int id) {
          (static_cast<unsigned>(id) ^ 0x80000000u);
 }
 
+// A list entry's key as the merges stage it: +inf keys all equal, so a
+// list padded with (inf, id) for any id is still ascending.
+__device__ __forceinline__ Key run_key(float d, int id) {
+  return make_key(d, isinf(d) && d > 0.f ? -1 : id);
+}
+
 // The pair a key stands for, as the output row holds it.
 __device__ __forceinline__ void key_pair(Key key, float& d, int& id) {
   const unsigned hi = static_cast<unsigned>(key >> 32);

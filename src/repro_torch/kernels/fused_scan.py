@@ -12,11 +12,20 @@ on an H100: memory — per row it reads ``W*13 + k*8 + 8`` bytes and writes
 ``k*8``, about 31 MB per launch at Q=8192, W=256, k=32, so about 9.4 us at
 3.35 TB/s.  The kernel keeps the (k+W) distance row and the queue on chip,
 so only the window and the lists cross device memory.  A row wider than
-the narrow templates' 512 (``k + W``) takes the kernel's wide template:
-one thread block a row running the plain version's refinement and prune,
-then a sort of the kept entries' keys or the rounds
-(``csrc/block_select.cuh``), so no width raises.  The kernel's entry point
-says which template it took.
+the narrow templates' 512 (``k + W``) takes a wide route, so no width
+raises; the kernel's entry point says which:
+
+- **wide queue** (k <= 256): the warp queue over the whole row, 8 rows a
+  block; the block's rows holding a NaN or a set sign bit (a negative
+  entry, -inf or -0) then take the wide template one after another;
+- **wide merge** (k > 256): one thread block a row; a row with no NaN and
+  no set sign bit whose list is ascending is the list merged with the
+  sorted window entries below its k-th key (``merged_at``); any other row
+  takes the wide template in the same block;
+- **wide template** (those rows, and every row where not even the list's
+  k keys fit in shared memory): the plain version's refinement and prune
+  at block level, then a sort of the kept entries' keys or the rounds
+  (``csrc/block_select.cuh``).
 
 :func:`fused_scan_merge` launches the kernel for CUDA tensors (or raises) and
 runs :func:`fused_scan_merge_ref`, the plain PyTorch version, for CPU
@@ -25,9 +34,10 @@ widened-radius prefilter (:func:`~repro_torch.kernels.refine.mixed_prune_keep`,
 the reference's branch at ``fused_scan.py:52``); the pruned entries leave the
 refinement population too, and the merged lists equal fp32's bit for bit.
 ``fused_scan_merge.launches`` counts fp32 kernel launches,
-``fused_scan_merge.mixed_launches`` the mixed ones, and
-``fused_scan_merge.wide_launches`` those of either that took the wide
-template.
+``fused_scan_merge.mixed_launches`` the mixed ones,
+``fused_scan_merge.wide_launches`` those of either past ``k + W = 512``,
+and ``wide_queue_launches`` and ``wide_merge_launches`` those of them that
+took the wide queue or the wide merge.
 """
 from __future__ import annotations
 
@@ -51,6 +61,10 @@ HI_ADD = float(np.float32(1e-30))
 SLOP_MUL = float(np.float32(1e-6))
 TINY = float(np.float32(1e-30))
 PRECISIONS = ("fp32", "mixed")
+# The C entry point's route codes past the narrow templates, and the
+# counter each one adds to (code 1, the wide template, only to
+# ``wide_launches``).
+WIDE_ROUTES = {2: "wide_queue_launches", 3: "wide_merge_launches"}
 
 
 def fused_scan_merge_ref(qx, qy, cx, cy, cids, valid, best_d, best_i, *,
@@ -163,7 +177,7 @@ def fused_scan_merge(qx, qy, cx, cy, cids, valid, best_d, best_i, *, k: int,
     out_i = torch.empty((q, k), dtype=torch.int32, device=qx.device)
     if q == 0:
         return out_d, out_i
-    wide = ctypes.c_int(0)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(qx.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.fused_scan_merge_f32(
@@ -171,7 +185,7 @@ def fused_scan_merge(qx, qy, cx, cy, cids, valid, best_d, best_i, *, k: int,
             cids.data_ptr(), valid.data_ptr(), best_d.data_ptr(),
             best_i.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
             q, w, k, iters, int(mixed), HI_MUL, HI_ADD, SLOP_MUL, TINY,
-            MIXED_WIDEN, stream, ctypes.byref(wide))
+            MIXED_WIDEN, stream, ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"fused_scan_merge: kernel launch failed with "
                            f"cudaError {err}")
@@ -179,11 +193,17 @@ def fused_scan_merge(qx, qy, cx, cy, cids, valid, best_d, best_i, *, k: int,
         fused_scan_merge.mixed_launches += 1
     else:
         fused_scan_merge.launches += 1
-    if wide.value:
+    if route.value:
         fused_scan_merge.wide_launches += 1
+    counter = WIDE_ROUTES.get(route.value)
+    if counter:
+        setattr(fused_scan_merge, counter,
+                getattr(fused_scan_merge, counter) + 1)
     return out_d, out_i
 
 
 fused_scan_merge.launches = 0
 fused_scan_merge.mixed_launches = 0
 fused_scan_merge.wide_launches = 0
+fused_scan_merge.wide_queue_launches = 0
+fused_scan_merge.wide_merge_launches = 0

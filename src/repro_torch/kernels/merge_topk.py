@@ -24,10 +24,14 @@ as the plain version compares them, and a zero distance leaves as ``+0``.
 A warp stages its row in shared memory; each output is found by a
 merge-path co-rank binary search, and ``merge_topk_multi`` merges its R
 lists pairwise in ceil(log2 R) levels.  A row wider than 512 entries (or
-k above it) takes the kernels' wide template instead: one thread block a
-row sorting the row's keys in shared memory, or running the plain
-version's rounds (``csrc/block_select.cuh``), so no width raises; the
-entry point says which template it took.  On the card ``merge_topk_multi`` needs the row to be R
+k above it) takes a wide route instead, so no width raises; the entry
+point says which.  ``merge_topk_lists`` takes the wide merge: one thread
+block a row merging the two lists by the same co-rank search, where both
+whole lists ascend and hold no NaN (a lone NaN in the first list's first
+column is emitted first, as the rounds emit it); any other row, and
+``merge_topk_multi``'s wide rows, take the wide template: one thread
+block a row sorting the row's keys in shared memory, or running the plain
+version's rounds (``csrc/block_select.cuh``).  On the card ``merge_topk_multi`` needs the row to be R
 whole lists of k (C % k == 0) and raises otherwise; the plain version on
 the CPU takes any row.  Bound on an H100: memory,
 ``(row width + k) * 8`` bytes per row (about 0.385 ms for B2 at
@@ -35,7 +39,9 @@ Q = 1,007,616, R = 4, k = 32 at 3.35 TB/s).
 
 CUDA tensors launch a kernel (or raise); CPU tensors run the plain
 version.  Each wrapper counts its kernel launches in ``.launches``, and
-those that took the wide template also in ``.wide_launches``.
+those past the narrow row also in ``.wide_launches``;
+``merge_topk_lists.wide_merge_launches`` counts those of them that took
+the wide merge.
 """
 from __future__ import annotations
 
@@ -120,8 +126,9 @@ def _check(fn: str, pairs, k: int):
 def _launch(wrapper, q: int, dev, k: int, a, b):
     """One kernel launch over the lists ``a`` and ``b`` (``b`` None: the R
     lists of k side by side in ``a``); counts it on ``wrapper.launches``,
-    and on ``wrapper.wide_launches`` where the kernel says it took the
-    wide template."""
+    on ``wrapper.wide_launches`` where the kernel says it took a wide
+    route, and on ``wrapper.wide_merge_launches`` where that was the wide
+    merge (route 3)."""
     fn = wrapper.__name__
     lib = _kernel()
     ca = a[0].shape[1]
@@ -135,23 +142,25 @@ def _launch(wrapper, q: int, dev, k: int, a, b):
     if q == 0:
         return out_d, out_i
     outs = (out_d.data_ptr(), out_i.data_ptr())
-    wide = ctypes.c_int(0)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         if b is None:
             err = lib.merge_topk_multi_f32(a[0].data_ptr(), a[1].data_ptr(),
                                            ca // k, *outs, q, k, stream,
-                                           ctypes.byref(wide))
+                                           ctypes.byref(route))
         else:
             err = lib.merge_topk_lists_f32(
                 a[0].data_ptr(), a[1].data_ptr(), ca,
                 b[0].data_ptr(), b[1].data_ptr(), cb, *outs, q, k, stream,
-                ctypes.byref(wide))
+                ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"{fn}: kernel launch failed with cudaError {err}")
     wrapper.launches += 1
-    if wide.value:
+    if route.value:
         wrapper.wide_launches += 1
+    if route.value == 3:
+        wrapper.wide_merge_launches += 1
     return out_d, out_i
 
 
@@ -188,3 +197,4 @@ merge_topk_multi.launches = 0
 merge_topk_multi.wide_launches = 0
 merge_topk_lists.launches = 0
 merge_topk_lists.wide_launches = 0
+merge_topk_lists.wide_merge_launches = 0

@@ -404,27 +404,109 @@ def test_bucket_kselect_wide_template_matches_plain(cuda, k, c):
 
 
 # (k, W) past the narrow templates' k + W <= 512: the main path's k with a
-# wide window, k = 512 at window 256, a row past shared memory
+# wide window, k = 512 at window 256, a row past shared memory, the wide
+# queue's last rung and the wide merge's first k, the hybrid session's row
 _B1_WIDE = [(32, 1024), (512, 256), (1, 600), (300, 300), (33, 2000),
-            (32, 30_000)]
+            (32, 30_000), (256, 1024), (257, 1024), (384, 256)]
+
+
+def _b1_wide_route(k):
+    """The counter of the wide route B1 takes at k: the wide queue up to
+    the queue's 256, the wide merge above."""
+    return "wide_queue_launches" if k <= 256 else "wide_merge_launches"
+
+
+def _b1_wide_launch(args, k, precision="fp32"):
+    """One B1 launch past the narrow row, held bitwise against the plain
+    version and counted once as wide and once on its route."""
+    fn = tfs.fused_scan_merge
+    route = _b1_wide_route(k)
+    before = (fn.wide_launches, getattr(fn, route))
+    out = fn(*args, k=k, precision=precision)
+    torch.cuda.synchronize()
+    assert (fn.wide_launches, getattr(fn, route)) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert _same(out, tfs.fused_scan_merge_ref(*args, k=k,
+                                               precision=precision))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("precision", ["fp32", "mixed"])
 @pytest.mark.parametrize("k,w", _B1_WIDE)
 def test_fused_scan_wide_template_matches_plain(cuda, k, w, precision):
-    """B1's wide template, fp32 and mixed, bitwise equal to the plain
+    """B1 past k + W = 512, fp32 and mixed, bitwise equal to the plain
     version on every band of ``chip_smoke.kernel_inputs`` (bucket-edge
     lists, lists in any order, NaN window and list entries, negative
-    entries, -inf and -0), counted as a wide launch."""
+    entries, -inf and -0), counted as a wide launch on its route: the
+    wide queue for k <= 256, the wide merge above."""
     q = 256 if w < 10_000 else 32
-    args = kernel_inputs(q, w, k, cuda, seed=k + w)
-    before = tfs.fused_scan_merge.wide_launches
-    out = tfs.fused_scan_merge(*args, k=k, precision=precision)
+    _b1_wide_launch(kernel_inputs(q, w, k, cuda, seed=k + w), k, precision)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["fp32", "mixed"])
+@pytest.mark.parametrize("k,w", [(32, 1024), (256, 300), (384, 256)])
+def test_fused_scan_wide_routes_hand_rows_over(cuda, k, w, precision):
+    """Blocks that mix rows each wide route takes with rows it hands to
+    the wide template: one odd row among seven clean ones (a NaN window
+    entry, a -0 list entry, a negative list), and lists out of order, all
+    in one launch, bitwise equal to the plain version."""
+    args = [a.clone() for a in kernel_inputs(32, w, k, cuda, seed=k,
+                                             odd=False)]
+    qx, qy, cx, cy, cids, valid, bd, bi = args
+    valid[3, 7] = True  # block 0: one NaN window entry
+    cx[3, 7] = float("nan")
+    bd[10, 0] = -0.0  # block 1: a -0 as the list's first entry
+    bd[21] = bd[21] - 1.0e6  # block 2: a negative list
+    n = int(torch.isfinite(bd[25]).sum())  # block 3: a list out of order
+    if n > 1:
+        bd[25, :n] = bd[25, :n].flip(0).clone()
+        bi[25, :n] = bi[25, :n].flip(0).clone()
+    _b1_wide_launch(args, k, precision)
+
+
+@pytest.mark.gpu
+def test_fused_scan_wide_merge_survivors_past_shared_memory(cuda):
+    """k = 300 at W = 30,000: the wide merge's shared room holds 16,384
+    survivors, so rows with a short list (every valid window entry below
+    its +inf k-th key) take the wide template over global memory in the
+    same launch as the full lists' merges; bitwise equal to the plain
+    version."""
+    k, w = 300, 30_000
+    args = list(kernel_inputs(8, w, k, cuda, seed=11, odd=False))
+    full = tfs.fused_scan_merge_ref(*args, k=k)  # full lists: rows 0 to 3
+    args[6][:4], args[7][:4] = full[0][:4], full[1][:4]
+    args[6][4:] = float("inf")  # empty lists: rows 4 to 7
+    args[7][4:] = -1
+    assert torch.isfinite(args[6][:4]).all()
+    _b1_wide_launch(args, k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["b1", "b3"])
+def test_wide_template_past_the_merges_shared_room(cuda, kernel):
+    """Where not even the keys a wide merge stages fit in the 227 KB of
+    shared memory (B1's k = 29,000 list; B3's two lists of 15,000), the
+    launch takes the wide template, counted as wide and on no route,
+    bitwise equal to the plain version."""
+    if kernel == "b1":
+        k, fn = 29_000, tfs.fused_scan_merge
+        args = kernel_inputs(8, 16, k, cuda, seed=5, odd=False)
+        plain = lambda: tfs.fused_scan_merge_ref(*args, k=k)
+        counters = ("wide_launches", "wide_queue_launches",
+                    "wide_merge_launches")
+    else:
+        k, fn = 15_000, tmt.merge_topk_lists
+        d, i = merge_inputs(2, 8, k, cuda, seed=5, inf_ids=True)
+        args = (d[0], i[0], d[1], i[1])
+        plain = lambda: tmt.merge_topk_lists_ref(*args, k=k)
+        counters = ("wide_launches", "wide_merge_launches")
+    before = [getattr(fn, c) for c in counters]
+    out = fn(*args, k=k)
     torch.cuda.synchronize()
-    assert tfs.fused_scan_merge.wide_launches == before + 1
-    assert _same(out, tfs.fused_scan_merge_ref(*args, k=k,
-                                               precision=precision))
+    assert [getattr(fn, c) for c in counters] == [before[0] + 1,
+                                                   *before[1:]]
+    assert _same(out, plain())
 
 
 @pytest.mark.gpu
@@ -457,18 +539,32 @@ def test_merge_topk_multi_wide_template_matches_plain(cuda, r, k, q):
 def test_merge_topk_lists_wide_template_matches_plain(cuda, ka, kb, k, q):
     """B3 past a row of 512 (ka = kb = 384 is ``fused_merge`` at k = 384),
     past k = 512, and past shared memory, bitwise equal to its plain
-    version on ``chip_smoke.merge_inputs``' edge rows and on NaN, -inf, -0
-    and negative rows."""
+    version on ``chip_smoke.merge_inputs``' edge rows, on NaN (a lone one
+    in column 0, which the wide merge takes, and later ones), -inf, -0 and
+    negative rows, and on a first list out of order; every launch takes
+    the wide merge, which hands the rows it cannot merge over."""
     d, i = merge_inputs(2, q, max(ka, kb), cuda, seed=ka + kb + k,
                         inf_ids=True)
     da, ia = d[0, :, :ka].contiguous(), i[0, :, :ka].contiguous()
     db, ib = d[1, :, :kb].contiguous(), i[1, :, :kb].contiguous()
-    for a_d in ((da, _odd_band(da)) if ka else (da,)):
-        before = tmt.merge_topk_lists.wide_launches
-        out = tmt.merge_topk_lists(a_d, ia, db, ib, k=k)
+    cases = [(da, ia)]
+    if ka:
+        # and the first list out of order on rows 4 to 7 of every 16
+        perm = torch.argsort(torch.rand((q, ka), device=cuda), dim=1)
+        shuf = torch.zeros(q, dtype=torch.bool, device=cuda)
+        shuf[4::16] = shuf[5::16] = shuf[6::16] = shuf[7::16] = True
+        sd = torch.where(shuf[:, None], torch.gather(da, 1, perm), da)
+        si = torch.where(shuf[:, None], torch.gather(ia, 1, perm), ia)
+        cases += [(_odd_band(da), ia), (sd.contiguous(), si.contiguous())]
+    fn = tmt.merge_topk_lists
+    for a_d, a_i in cases:
+        before = (fn.wide_launches, fn.wide_merge_launches)
+        out = fn(a_d, a_i, db, ib, k=k)
         torch.cuda.synchronize()
-        assert tmt.merge_topk_lists.wide_launches == before + 1
-        assert _same_nan(out, tmt.merge_topk_lists_ref(a_d, ia, db, ib, k=k))
+        assert (fn.wide_launches, fn.wide_merge_launches) == (
+            before[0] + 1, before[1] + 1)
+        assert _same_nan(out, tmt.merge_topk_lists_ref(a_d, a_i, db, ib,
+                                                        k=k))
 
 
 @pytest.mark.gpu
