@@ -19,7 +19,9 @@ versions agree time the same work:
   ``merge_topk_multi`` past it, R = 8, k = 128, at Q = 65,536 on
   ``merge_inputs``' edge rows;
 - B5 ``bucket_kselect``, Q = 1,000,000 against one window of C = 2048, at
-  k = 32 and 256;
+  k = 32 and 256; and past the narrow window (``B5_WIDE``), at k = 32, 256
+  and 2000: Q = 65,536 against C = 16,384 (the staged route), 19,360 and
+  20,288, and Q = 8192 against C = 25,000 and 40,000 (the wide template);
 - B4 ``topk_select``, k = 32, at Q = 1,000,000, C = 288 and Q = 8192,
   C = 2048 (the warp queue); and beside one ``torch.topk`` call on the same
   distances, at the shapes past the queue: C = 8192, k = 32 (Q = 8192);
@@ -47,6 +49,12 @@ ROOT = Path(__file__).resolve().parents[1]
 # (Q, C, k) of B4 past its warp queue, timed beside torch.topk
 B4_WIDE = ((8192, 8192, 32), (2048, 40_000, 32), (8192, 3000, 300),
            (2048, 8192, 512), (2048, 12_000, 600), (8192, 2048, 512))
+# (Q, C, k) of B5 past its 4096-candidate window: the staged route's window
+# and three past it
+B5_WIDE = tuple((q, c, k) for q, c in ((65536, 16_384), (65536, 19_360),
+                                       (65536, 20_288), (8192, 25_000),
+                                       (8192, 40_000))
+                for k in (32, 256, 2000))
 
 
 def main() -> int:
@@ -120,20 +128,19 @@ def main() -> int:
         times[name] = cs.time_ms(lambda: fn(*a, k=kk), reps=20)
     del cat, lists
 
-    qpos, ppos, valid = cs.window_inputs(1_000_000, 2048, dev, seed=5,
-                                         odd=False)
-    xy = (qpos[:, 0].contiguous(), qpos[:, 1].contiguous(),
-          ppos[:, 0].contiguous(), ppos[:, 1].contiguous(), valid)
-    for kk in (32, 256):
-        out = bk.bucket_kselect(*xy, k=kk)
-        ref = cs._in_blocks(
-            lambda qx, qy: (bk.bucket_kselect_ref(qx, qy, *xy[2:], k=kk),),
-            xy[:2])[0]
-        if not cs.same_values(out, ref):
-            raise AssertionError(f"B5 k={kk} != plain version")
-        times[f"B5 k={kk}"] = cs.time_ms(lambda: bk.bucket_kselect(*xy, k=kk),
-                                         reps=5)
-    del qpos, ppos, valid, xy
+    for name, q, c, seed, kk in (
+            ("B5 k=32", 1_000_000, 2048, 5, 32),
+            ("B5 k=256", 1_000_000, 2048, 5, 256),
+            *((f"B5 wide Q={q} C={c} k={kk}", q, c, c + kk, kk)
+              for q, c, kk in B5_WIDE)):
+        qpos, ppos, valid = cs.window_inputs(q, c, dev, seed=seed, odd=False)
+        xy = (qpos[:, 0].contiguous(), qpos[:, 1].contiguous(),
+              ppos[:, 0].contiguous(), ppos[:, 1].contiguous(), valid)
+        if not cs.same_values(bk.bucket_kselect(*xy, k=kk), torch.cat(
+                cs._b5_plain(qpos, ppos, valid, kk))):
+            raise AssertionError(f"{name} != plain version")
+        times[name] = cs.time_ms(lambda: bk.bucket_kselect(*xy, k=kk), reps=5)
+        del qpos, ppos, valid, xy
 
     for i, (q, c) in enumerate(((1_000_000, 288), (8192, 2048))):
         d, ids = cs.topk_inputs(q, c, k, dev, seed=4 + i)

@@ -28,8 +28,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 6. wide templates (:func:`wide_kernel_phase`), past the narrow templates'
    widths: B1 fp32 and mixed at Q = 8192 with W = 1024, k = 32 and W = 256,
    k = 512 on :func:`kernel_inputs`' bands; B2 at R = 8, k = 128 and B3 at
-   ka = kb = k = 384 with NaN, -inf, -0 and negative bands; each bitwise
-   against its plain version and timed;
+   ka = kb = k = 384 (both the wide merge) with NaN, -inf, -0, negative and
+   unsorted-list bands; each bitwise against its plain version and timed;
 7. kernel API path (:func:`kernel_api_path`): ``pairwise_dist_op``,
    ``topk_select_op`` and ``bucket_kselect_op`` at the S2 / S3 studies'
    sizes, each bitwise against its kernel's plain version on the card
@@ -40,8 +40,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    version is) and timed; with them B4's radix select past its warp queue
    (k = 32 at C = 8192 and 40,000; C = 3000, k = 300; C = 8192, k = 512;
    C = 12,000, k = 600; C = 2048, k = 512; NaN, -inf, -0 and negative
-   bands), each timed beside ``torch.topk``, and B5's wide template
-   (C = 16,384, tiled through shared memory);
+   bands), each timed beside ``torch.topk``, and B5's wide routes (the
+   staged route at C = 16,384, the wide template at C = 25,000), with and
+   without the odd bands;
    then the brute-force baseline ``knn_bruteforce_chunked`` over 128
    queries of the 1M uniform set, on the card bitwise equal to the same
    call on the CPU;
@@ -752,11 +753,11 @@ def wide_kernel_phase(dev, q_b1=8192, q_merge=65536):
       negative and unsorted bands) at W = 1024, k = 32 (the wide queue)
       and W = 256, k = 512 and 384 (the wide merge; k = 384 is the hybrid
       session's row), in CUDA graphs;
-    - B2 at R = 8, k = 128 (``object_sharded`` 8's merge, the wide
-      template) and B3 at ka = kb = k = 384 (``fused_merge`` at k = 384,
-      the wide merge), Q = ``q_merge``, on :func:`merge_inputs`' edge rows
-      with :func:`odd_values`' NaN, -inf, -0 and negative bands (B3 also
-      with its first list out of order in one band).
+    - B2 at R = 8, k = 128 (``object_sharded`` 8's merge) and B3 at
+      ka = kb = k = 384 (``fused_merge`` at k = 384), both the wide merge,
+      Q = ``q_merge``, on :func:`merge_inputs`' edge rows with
+      :func:`odd_values`' NaN, -inf, -0 and negative bands and one list
+      out of order in one band (B2's fourth, B3's first).
     Returns the records by name (``launches`` filled in from the wide
     sessions; B1 mixed at k = 384 is an ``other_shapes`` entry of the
     k = 512 record, as no mixed session runs that row)."""
@@ -818,8 +819,14 @@ def wide_kernel_phase(dev, q_b1=8192, q_merge=65536):
     q = q_merge
     r, k = 8, 128
     d, i = merge_inputs(r, q, k, dev, seed=8, inf_ids=True)
-    d_cat = odd_values(d.transpose(0, 1).reshape(q, r * k))
-    i_cat = i.transpose(0, 1).reshape(q, r * k).contiguous()
+    multi_clean = (d.transpose(0, 1).reshape(q, r * k).contiguous(),
+                   i.transpose(0, 1).reshape(q, r * k).contiguous())
+    multi = (odd_values(multi_clean[0]), multi_clean[1].clone())
+    e = q // 16  # the fourth list out of order, after the odd bands
+    perm = torch.argsort(torch.rand((e, k), device=dev), dim=1)
+    for t in multi:
+        rows = t[13 * e:14 * e, 3 * k:4 * k]
+        rows.copy_(torch.gather(rows, 1, perm))
     del d, i
     ka = kb = k3 = 384
     d, i = merge_inputs(2, q, ka, dev, seed=9, inf_ids=True)
@@ -827,24 +834,21 @@ def wide_kernel_phase(dev, q_b1=8192, q_merge=65536):
              i[1].contiguous())
     lists = (odd_values(d[0]), i[0].clone(), d[1].contiguous(),
              i[1].contiguous())
-    e = q // 16  # the first list out of order, after the odd bands
+    # the first list out of order, after the odd bands
     perm = torch.argsort(torch.rand((e, ka), device=dev), dim=1)
     for t in range(2):
         rows = lists[t][13 * e:14 * e]
         rows.copy_(torch.gather(rows, 1, perm))
     del d, i
     for name, fn, run_args, base, kk, line, row, route in (
-            ("merge_topk_multi_wide", mt.merge_topk_multi, (d_cat, i_cat),
-             None, k, 75, r * k, "wide_template"),
+            ("merge_topk_multi_wide", mt.merge_topk_multi, multi,
+             multi_clean, k, 75, r * k, "wide_merge"),
             ("merge_topk_lists_wide", mt.merge_topk_lists, lists, clean, k3,
              119, ka + kb, "wide_merge")):
-        fn.wide_launches = 0
-        if route == "wide_merge":
-            fn.wide_merge_launches = 0
+        fn.wide_launches = fn.wide_merge_launches = 0
         out = fn(*run_args, k=kk)
         torch.cuda.synchronize()
-        if fn.wide_launches != 1 or (route == "wide_merge" and
-                                     fn.wide_merge_launches != 1):
+        if (fn.wide_launches, fn.wide_merge_launches) != (1, 1):
             raise AssertionError(f"{name}: the {route} route did not run")
         plain_fn = (mt.merge_topk_multi_ref if fn is mt.merge_topk_multi
                     else mt.merge_topk_lists_ref)
@@ -852,18 +856,12 @@ def wide_kernel_phase(dev, q_b1=8192, q_merge=65536):
         _check_lists(f"{name} != plain version", out, ref)
         fin = torch.isfinite(ref[0])
         err = float((out[0][fin] - ref[0][fin]).abs().max())
-        extra = {}
-        timed_args = run_args
-        if base is not None:
-            _check_lists(f"{name} != plain version (base rows)",
-                         fn(*base, **dict(k=kk)), plain_fn(*base, k=kk))
-            extra["odd_rows_ms"] = time_ms(lambda: fn(*run_args, k=kk),
-                                           reps=5)
-            timed_args = base
-        ms = time_ms(lambda: fn(*timed_args, k=kk), reps=5)
-        plain_ms = time_ms(lambda: plain_fn(*timed_args, k=kk), reps=1,
-                           warmup=1)
-        two = (d_cat, i_cat) if fn is mt.merge_topk_multi else (
+        _check_lists(f"{name} != plain version (base rows)",
+                     fn(*base, k=kk), plain_fn(*base, k=kk))
+        odd_ms = time_ms(lambda: fn(*run_args, k=kk), reps=5)
+        ms = time_ms(lambda: fn(*base, k=kk), reps=5)
+        plain_ms = time_ms(lambda: plain_fn(*base, k=kk), reps=1, warmup=1)
+        two = base if fn is mt.merge_topk_multi else (
             torch.cat([base[0], base[2]], 1), torch.cat([base[1], base[3]], 1))
         library_ms = time_ms(lambda: topk_select_ref(*two, kk), reps=3,
                              warmup=1)
@@ -872,12 +870,11 @@ def wide_kernel_phase(dev, q_b1=8192, q_merge=65536):
             None, ms, plain_ms, q * row * 8 + q * kk * 8, q * (row + kk),
             library_ms, err,
             shape=f"Q={q} row={row} k={kk}", template="wide",
-            wide_route=route, **extra)
-        odd_note = (f"; {extra['odd_rows_ms']:.4f} ms with the odd bands"
-                    if extra else "")
+            wide_route=route, odd_rows_ms=odd_ms)
         print(f"kernel: {name} Q={q} row={row} k={kk} ({route} route) "
               f"bitwise equal to its plain version on every row (NaN, -inf, "
-              f"-0 and negative bands included); {ms:.4f} ms{odd_note} (plain "
+              f"-0, negative and unsorted bands included); {ms:.4f} ms "
+              f"({odd_ms:.4f} ms with the odd bands; plain "
               f"{plain_ms:.3f} ms, two-sort {library_ms:.3f} ms, bound "
               f"{recs[name]['bound_ms']:.4f} ms by {recs[name]['bound_by']})")
         del out, ref, two
@@ -925,17 +922,19 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
     ``bucket_kselect_op`` (Q = 1,000,000 queries against one shared window
     of C = 2048 with 10% invalid and 40 coincident points, k = 32 and 256),
     B4 past its warp queue (the radix select) at ``tkw_shapes`` with
-    :func:`odd_values`' bands, and ``bucket_kselect_op`` with 65,536
-    queries against a window of 16,384, with every launch count zeroed just
-    before and read just after (B4's radix launches also around each
-    shape's own call).  Then
+    :func:`odd_values`' bands, and B5's wide routes: ``bucket_kselect_op``
+    with 65,536 queries against a window of 16,384 (the staged route) and
+    8192 against one of 25,000 (the wide template), with every launch
+    count zeroed just before and read just after (B4's radix launches also
+    around each shape's own call).  Then
     each output is held bit for bit against its kernel's plain version on
     the card (in row blocks where the plain version's temporaries would be
     large), B4 also against the two-sort merge and B5 against its
-    guarantee on every row, and each kernel is timed.  ``full=False`` runs
-    the same checks at a few percent of the sizes.
+    guarantee on every row, and each kernel is timed (B5's wide routes on
+    the rows without the odd bands, ``ms``, and with them,
+    ``odd_rows_ms``, both held bitwise).  ``full=False`` runs the same
+    checks at a few percent of the sizes.
     """
-    from repro_torch.kernels import bucket_kselect as bk
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise_dist as pd
     from repro_torch.kernels import topk_select as tk
@@ -951,7 +950,9 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
         (8192, 8192, k), (2048, 40_000, k), (8192, 3000, 300),
         (2048, 8192, 512), (2048, 12_000, 600), (8192, 2048, 512)))
     q5, c5, k5s = n, 2048, (k, 256)
-    q5w, c5w = (65536 if full else 8192), 16_384
+    # B5 wide: (Q, C, route, seed), the staged route and the wide template
+    b5w_shapes = ((65536 if full else 8192, 16_384, "wide_staged", 15),
+                  (8192 if full else 1024, 25_000, "wide_template", 16))
     qpos6, ppos6, valid6 = window_inputs(q6, c6, dev, seed=6)
     tk_in = [topk_inputs(q, c, k, dev, seed=4 + i)
              for i, (q, c) in enumerate(tk_shapes)]
@@ -960,7 +961,8 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
         d, ids = topk_inputs(q, c, kk, dev, seed=10 + i)
         tkw_in.append((odd_values(d), ids))
     qpos5, ppos5, valid5 = window_inputs(q5, c5, dev, seed=5)
-    qpos5w, ppos5w, valid5w = window_inputs(q5w, c5w, dev, seed=15)
+    b5w_in = [window_inputs(q, c, dev, seed=sd)
+              for q, c, _, sd in b5w_shapes]
 
     _zero_counts()  # the kernel API path's counts start here
     out6 = ops.pairwise_dist_op(qpos6, ppos6, valid6)
@@ -971,14 +973,15 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
         out4w.append(ops.topk_select_op(d, i, k=kk))
         radix4.append(tk.topk_select.radix_launches - before)
     out5 = [ops.bucket_kselect_op(qpos5, ppos5, valid5, k=kk) for kk in k5s]
-    out5w = ops.bucket_kselect_op(qpos5w, ppos5w, valid5w, k=k)
+    out5w = [ops.bucket_kselect_op(*a, k=k) for a in b5w_in]
     torch.cuda.synchronize()
     counts = _read_counts()
     n4w = len(tkw_shapes)
     for name, want in (("pairwise_dist", 1), ("topk_select", 2 + n4w),
                        ("topk_select_queue", 2), ("topk_select_radix", n4w),
-                       ("topk_select_wide", n4w), ("bucket_kselect", 3),
-                       ("bucket_kselect_wide", 1)):
+                       ("topk_select_wide", n4w), ("bucket_kselect", 4),
+                       ("bucket_kselect_wide", 2),
+                       ("bucket_kselect_wide_staged", 1)):
         if counts[name] != want:
             raise AssertionError(f"kernel API path: {name} launched "
                                  f"{counts[name]} times, want {want}")
@@ -1098,32 +1101,14 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
               f"{recs[name]['bound_ms']:.4f} ms by {recs[name]['bound_by']})")
     del tkw_in, out4w
 
-    # ---- B5: bitwise in blocks of 65536 query rows, and the guarantee.
-    qx, qy = qpos5[:, 0].contiguous(), qpos5[:, 1].contiguous()
-    px, py = ppos5[:, 0].contiguous(), ppos5[:, 1].contiguous()
-    n_valid = int(valid5.sum())
-    blk = 65536
+    # ---- B5: bitwise in row blocks, and the guarantee.
     for kk, out in zip(k5s, out5):
-        def plain5():
-            return [bk.bucket_kselect_ref(qx[r:r + blk], qy[r:r + blk], px, py,
-                                          valid5, k=kk)
-                    for r in range(0, q5, blk)]
-
-        nan_rows = 0
-        for r, ref in zip(range(0, q5, blk), plain5()):
-            if not same_values(out[r:r + blk], ref):
-                bad = (out[r:r + blk] != ref).nonzero()[:8, 0] + r
-                raise AssertionError(f"bucket_kselect k={kk} != plain "
-                                     f"version, rows {bad.tolist()}")
-            d2 = pd.pairwise_dist_ref(qx[r:r + blk], qy[r:r + blk], px, py,
-                                      valid5)
-            if not _guarantee(d2, out[r:r + blk], kk, n_valid):
-                raise AssertionError(f"bucket_kselect k={kk}: the guarantee "
-                                     "fails")
-            nan_rows += int(torch.isnan(d2).any(1).sum())
+        nan_rows = _check_b5(qpos5, ppos5, valid5, out, kk,
+                             f"bucket_kselect k={kk}")
         ms = time_ms(lambda: ops.bucket_kselect_op(qpos5, ppos5, valid5,
                                                    k=kk), reps=5)
-        plain_ms = time_ms(plain5, reps=1, warmup=1)
+        plain_ms = time_ms(lambda: _b5_plain(qpos5, ppos5, valid5, kk),
+                           reps=1, warmup=1)
         rec = _record("bucket_kselect", "bucket_kselect.cu",
                       "src/repro/kernels/bucket_kselect.py:84",
                       counts["bucket_kselect"] - counts["bucket_kselect_wide"],
@@ -1137,45 +1122,69 @@ def kernel_api_path(dev, full: bool = True, k: int = 32):
               f"{rec['bound_by']})")
         _add_shape(recs, "bucket_kselect", rec)
 
-    # ---- B5's wide template (the window tiled through shared memory):
-    # bitwise in blocks of 8192 query rows, and the guarantee.
-    qx, qy = qpos5w[:, 0].contiguous(), qpos5w[:, 1].contiguous()
-    px, py = ppos5w[:, 0].contiguous(), ppos5w[:, 1].contiguous()
-    n_valid = int(valid5w.sum())
-    blk = 8192
-
-    def plain5w():
-        return [bk.bucket_kselect_ref(qx[r:r + blk], qy[r:r + blk], px, py,
-                                      valid5w, k=k)
-                for r in range(0, q5w, blk)]
-
-    nan_rows = 0
-    for r, ref in zip(range(0, q5w, blk), plain5w()):
-        if not same_values(out5w[r:r + blk], ref):
-            bad = (out5w[r:r + blk] != ref).nonzero()[:8, 0] + r
-            raise AssertionError(f"bucket_kselect_wide != plain version, "
-                                 f"rows {bad.tolist()}")
-        d2 = pd.pairwise_dist_ref(qx[r:r + blk], qy[r:r + blk], px, py,
-                                  valid5w)
-        if not _guarantee(d2, out5w[r:r + blk], k, n_valid):
-            raise AssertionError("bucket_kselect_wide: the guarantee fails")
-        nan_rows += int(torch.isnan(d2).any(1).sum())
-        del d2
-    ms = time_ms(lambda: ops.bucket_kselect_op(qpos5w, ppos5w, valid5w, k=k),
-                 reps=3)
-    plain_ms = time_ms(plain5w, reps=1, warmup=1)
+    # ---- B5's wide routes: bitwise on the odd rows and the clean ones,
+    # and the guarantee.
     name = "bucket_kselect_wide"
-    recs[name] = _record(
-        name, "bucket_kselect.cu", "src/repro/kernels/bucket_kselect.py:84",
-        counts["bucket_kselect_wide"], ms, plain_ms, q5w * 12 + c5w * 9,
-        q5w * c5w * (5 + 3 * 4), None, shape=f"Q={q5w} C={c5w} k={k}",
-        template="wide")
-    print(f"kernel: {name} Q={q5w} C={c5w} k={k} (wide template, slabs of "
-          f"4096) bitwise equal to its plain version, guarantee "
-          f"held on every row without a NaN distance, NaN on the {nan_rows} "
-          f"with one; {ms:.4f} ms (plain {plain_ms:.3f} ms, bound "
-          f"{recs[name]['bound_ms']:.4f} ms by {recs[name]['bound_by']})")
+    for (q, c, route, sd), (qpos, ppos, valid), out in zip(
+            b5w_shapes, b5w_in, out5w):
+        base = window_inputs(q, c, dev, seed=sd, odd=False)
+        nan_rows = _check_b5(qpos, ppos, valid, out, k, f"{name} {route}")
+        _check_b5(*base, ops.bucket_kselect_op(*base, k=k), k,
+                  f"{name} {route} (base rows)")
+        ms = time_ms(lambda: ops.bucket_kselect_op(*base, k=k), reps=3)
+        odd_ms = time_ms(lambda: ops.bucket_kselect_op(qpos, ppos, valid,
+                                                       k=k), reps=3)
+        plain_ms = time_ms(lambda: _b5_plain(*base, k), reps=1, warmup=1)
+        rec = _record(
+            name, "bucket_kselect.cu", "src/repro/kernels/bucket_kselect.py:84",
+            counts["bucket_kselect_wide"], ms, plain_ms, q * 12 + c * 9,
+            q * c * (5 + 3 * 4), None, shape=f"Q={q} C={c} k={k}",
+            template="wide", wide_route=route, odd_rows_ms=odd_ms)
+        _add_shape(recs, name, rec)
+        print(f"kernel: {name} Q={q} C={c} k={k} ({route} route) bitwise "
+              f"equal to its plain version, with the odd bands and without, "
+              f"guarantee held on every row without a NaN distance, NaN on "
+              f"the {nan_rows} with one; {ms:.4f} ms ({odd_ms:.4f} ms with "
+              f"the odd bands; plain {plain_ms:.3f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms by {rec['bound_by']})")
     return recs
+
+
+def _b5_plain(qpos, ppos, valid, k: int) -> list:
+    """B5's plain version over (Q, 2) queries, in row blocks of at most
+    2^27 distances."""
+    from repro_torch.kernels import bucket_kselect as bk
+
+    blk = max(8, (1 << 27) // ppos.shape[0])
+    px, py = ppos[:, 0].contiguous(), ppos[:, 1].contiguous()
+    return [bk.bucket_kselect_ref(qpos[r:r + blk, 0].contiguous(),
+                                  qpos[r:r + blk, 1].contiguous(), px, py,
+                                  valid, k=k)
+            for r in range(0, qpos.shape[0], blk)]
+
+
+def _check_b5(qpos, ppos, valid, out, k: int, what: str) -> int:
+    """B5's output bitwise equal to its plain version, block by block, and
+    its guarantee; returns the rows holding a NaN distance."""
+    from repro_torch.kernels import pairwise_dist as pd
+
+    px, py = ppos[:, 0].contiguous(), ppos[:, 1].contiguous()
+    n_valid = int(valid.sum())
+    nan_rows = r = 0
+    for ref in _b5_plain(qpos, ppos, valid, k):
+        rows = slice(r, r + ref.shape[0])
+        if not same_values(out[rows], ref):
+            bad = (out[rows] != ref).nonzero()[:8, 0] + r
+            raise AssertionError(f"{what} != plain version, rows "
+                                 f"{bad.tolist()}")
+        d2 = pd.pairwise_dist_ref(qpos[rows, 0].contiguous(),
+                                  qpos[rows, 1].contiguous(), px, py, valid)
+        if not _guarantee(d2, out[rows], k, n_valid):
+            raise AssertionError(f"{what}: the guarantee fails")
+        nan_rows += int(torch.isnan(d2).any(1).sum())
+        r += ref.shape[0]
+        del d2
+    return nan_rows
 
 
 def _guarantee(d2, r, k: int, n_valid: int) -> bool:
@@ -1475,6 +1484,8 @@ def _counters():
                                             "wide_merge_launches"),
             "merge_topk_multi": (mt.merge_topk_multi, "launches"),
             "merge_topk_multi_wide": (mt.merge_topk_multi, "wide_launches"),
+            "merge_topk_multi_wide_merge": (mt.merge_topk_multi,
+                                            "wide_merge_launches"),
             "merge_topk_lists": (mt.merge_topk_lists, "launches"),
             "merge_topk_lists_wide": (mt.merge_topk_lists, "wide_launches"),
             "merge_topk_lists_wide_merge": (mt.merge_topk_lists,
@@ -1486,6 +1497,8 @@ def _counters():
             "topk_select_global": (tk.topk_select, "global_launches"),
             "bucket_kselect": (bk.bucket_kselect, "launches"),
             "bucket_kselect_wide": (bk.bucket_kselect, "wide_launches"),
+            "bucket_kselect_wide_staged": (bk.bucket_kselect,
+                                           "wide_staged_launches"),
             "pairwise_dist": (pd.pairwise_dist, "launches")}
 
 
@@ -1620,8 +1633,9 @@ def wide_sessions(dev, n: int, n_axis: int, seed: int = 0):
     (d) ``hybrid`` (2, 3), ``cost_balanced``, ``fused_merge``, k = 384 (B3
         wide, ka + kb = 768) against a ``single`` twin on every row.
     Checks that every wide launch took its route (the wide queue at
-    k = 32, the wide merge past k = 256, B3's wide merge) and returns each
-    wide record's launches on its session (B1 at k = 384 from (d))."""
+    k = 32, the wide merge past k = 256, B2's and B3's wide merges) and
+    returns each wide record's launches on its session (B1 at k = 384
+    from (d))."""
     from repro_torch.api import KnnSession, ServiceSpec
     from repro_torch.data.generators import make_workload
 
@@ -1688,15 +1702,16 @@ def wide_sessions(dev, n: int, n_axis: int, seed: int = 0):
         if counts[kernel] < 1:
             raise AssertionError(f"{label}: {kernel} never launched")
         launches[kernel] = counts[kernel]
-        if kernel == "merge_topk_lists_wide":  # B1 and B3 take wide merges
-            for wide, route in (
-                    ("fused_scan_merge_wide", "fused_scan_merge_wide_merge"),
-                    ("merge_topk_lists_wide", "merge_topk_lists_wide_merge")):
-                if counts[wide] < 1 or counts[route] != counts[wide]:
-                    raise AssertionError(f"{label}: not every {wide} launch "
-                                         f"took {route}")
+        routes = [(kernel, kernel + "_merge")]  # B2's and B3's wide merges
+        if kernel == "merge_topk_lists_wide":  # and B1's
+            routes.append(("fused_scan_merge_wide",
+                           "fused_scan_merge_wide_merge"))
             launches["fused_scan_merge_wide_w256_k384"] = counts[
                 "fused_scan_merge_wide"]
+        for wide, route in routes:
+            if counts[wide] < 1 or counts[route] != counts[wide]:
+                raise AssertionError(f"{label}: not every {wide} launch "
+                                     f"took {route}")
         bad = _same_lists(res, ref)
         if bad.any():
             raise AssertionError(f"{label}: {int(bad.sum())} rows differ "

@@ -10,9 +10,11 @@ It returns the (Q,) radius ``r`` with
 ``count(valid & d2 < r) >= min(k, n_valid)``, or +inf when the whole window
 holds fewer than k valid candidates, or NaN where a valid distance of the
 row is NaN (the reference's ``jnp.min`` propagates it).  A window of more
-than 4096 candidates takes the kernel's wide template, which tiles it
-through shared memory in slabs of 4096, so no width raises; the entry
-point says which template it took.
+than 4096 candidates takes a wide route, so no width raises: the staged
+route (the same row loop over the whole window in shared memory, with
+more room a warp for the kept distances) where the window fits beside
+it, else the wide template, which tiles it through shared memory in slabs
+of 4096; the entry point says which route it took.
 
 The refinement counts ranks against the bucket edges, as the port's
 :func:`~repro_torch.kernels.refine.bucket_refine_step` does, so on rows where
@@ -24,7 +26,9 @@ per (query, candidate) pair at ``iters`` = 4.
 :func:`bucket_kselect` launches the kernel for CUDA tensors (or raises) and
 runs :func:`bucket_kselect_ref`, the plain PyTorch version, for CPU tensors.
 ``bucket_kselect.launches`` counts kernel launches,
-``bucket_kselect.wide_launches`` those of the wide template.
+``bucket_kselect.wide_launches`` those past the narrow window and
+``bucket_kselect.wide_staged_launches`` those of them that took the staged
+route.
 """
 from __future__ import annotations
 
@@ -103,22 +107,25 @@ def bucket_kselect(qx, qy, px, py, valid, *, k: int, num_bins: int = NUM_BINS,
     if q == 0:
         return out
     lib = _kernel()
-    wide = ctypes.c_int(0)
+    route = ctypes.c_int(-1)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.bucket_kselect_f32(qx.data_ptr(), qy.data_ptr(),
                                      px.data_ptr(), py.data_ptr(),
                                      valid.data_ptr(), out.data_ptr(), q, c,
                                      k, iters, HI_MUL, HI_ADD, TINY, stream,
-                                     ctypes.byref(wide))
+                                     ctypes.byref(route))
     if err != 0:
         raise RuntimeError(f"bucket_kselect: kernel launch failed with "
                            f"cudaError {err}")
     bucket_kselect.launches += 1
-    if wide.value:
+    if route.value:
         bucket_kselect.wide_launches += 1
+    if route.value == 1:
+        bucket_kselect.wide_staged_launches += 1
     return out
 
 
 bucket_kselect.launches = 0
 bucket_kselect.wide_launches = 0
+bucket_kselect.wide_staged_launches = 0

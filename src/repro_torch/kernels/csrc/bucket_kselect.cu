@@ -20,9 +20,10 @@
 // count(valid & d2 < r) >= min(k, n_valid).
 //
 // Design: a block of 8 warps stages the window into shared memory once
-// ((px, py) as float2, then valid: 9 bytes per candidate, C <= 4096) and
-// counts n_valid for the whole block; then each warp takes one query row at
-// a time (rows grid-stride over a grid sized to fill the card).
+// ((px, py) as float2, then valid: 9 bytes per candidate, C <= 4096 on the
+// narrow route; wider windows below) and counts n_valid for the whole
+// block; then each warp takes one query row at a time (rows grid-stride
+// over a grid sized to fill the card).
 // - A pass over the row recomputes d2 from the staged window with the same
 //   __fmaf_rn, so the bits never change, and without a branch, so a pass
 //   issues its loads before it uses them.  A row takes two such passes:
@@ -48,14 +49,34 @@
 //   at 16 warps an SM, slower than recomputing.
 // - lo and hi propagate NaN, as jnp.min / jnp.max and torch's amin / amax
 //   do: a NaN distance makes the row's interval, and its radius, NaN.
-// - Wide template: a window of more than kMaxWindow = 4096 candidates is
-//   tiled through shared memory in slabs of kMaxWindow (the same 36 KB).
-//   The block's 8 warps take 8 rows at a time and make every pass
-//   together, staging each slab in turn: lo / hi, then for each round the
-//   histogram and the edge counts, 1 + 2 * iters passes over the slabs.
-//   It keeps no entries (its kept buffer is bounded at zero): each round
-//   counts over every slab, so it needs no shared memory beyond one slab
-//   and no global scratch.
+// - Three routes, by window C and k (launch()):
+//   0, narrow: C <= kMaxWindow = 4096, bucket_kselect_kernel<8, kCap>.
+//   1, staged: 4096 < C <= C_staged and k <= kStagedCap / 2: the same row
+//   loop, bucket_kselect_kernel<kStagedWarps, kStagedCap>, 10 warps a
+//   block keeping up to 2016 entries each.  At C = 16,384 a row's first
+//   bin holds about C / 12 entries, past kCap, so the narrow loop's
+//   keeping pass would fail and its rounds pass over the whole row; 2016
+//   holds it.  C_staged is the largest window that fits beside the kept
+//   entries (80,640 bytes) and the histograms in the card's opt-in shared
+//   memory, read at launch: 16,725 on an H100's 232,448 bytes.  One block
+//   an SM, so the passes are latency-bound.  The block shape is the
+//   fastest without spills of those timed at C = 16,384, k = 32
+//   (benchmarks_torch/b5_routes.py --shapes, Q = 65,536, NVIDIA H100
+//   80GB HBM3, 700.00 W: 10 x 2016 4.06 ms, 9 x 2304 4.50, 12 x 1728
+//   4.28, 8 x 2592 4.50, 7 x 2944 5.14; 11 x 1888 3.75 spills).
+//   Past k = kStagedCap / 2 the bins that reach rank kth can hold more
+//   than 2016 entries, and such a row pays failed keeping passes before
+//   its passes over the whole row (b5_routes.py, the same card: the
+//   staged route 1.63x to 2.20x faster than the template at k = 1008
+//   from C = 4500 to 16,725; 0.97x to 1.26x at k = 1500; 0.61x to 0.78x
+//   at k = 2000).
+//   2, the wide template, bucket_kselect_wide_kernel, everywhere else:
+//   the window is tiled through shared memory in slabs of kMaxWindow (the
+//   same 36 KB).  The block's 8 warps take 8 rows at a time and make
+//   every pass together, staging each slab in turn: lo / hi, then for each
+//   round the histogram and the edge counts, 1 + 2 * iters passes over the
+//   slabs.  It keeps no entries: each round counts over every slab, so it
+//   needs no shared memory beyond one slab and no global scratch.
 // Every multiply, add and divide is an explicit round-to-nearest intrinsic
 // and the build passes --fmad=false.
 //
@@ -217,10 +238,10 @@ __device__ __forceinline__ int select_bucket(const Src& src, float flo,
 
 // The rank below the bucket, count(flo <= x < new_lo), and the bucket's
 // count(new_lo <= x < new_hi), over the source's entries; the bucket's
-// entries (up to kCap) are also written to `keep` in order.  In place (the
+// entries (up to CAP) are also written to `keep` in order.  In place (the
 // source is `keep` itself) a write lands only on a slot already read.
 // Returns the bucket's count.
-template <class Src>
+template <int CAP, class Src>
 __device__ __forceinline__ int count_bucket(const Src& src, float flo,
                                             float new_lo, float new_hi,
                                             float* keep, int lane,
@@ -234,7 +255,7 @@ __device__ __forceinline__ int count_bucket(const Src& src, float flo,
     if (m != 0) {
       const int at = inside + __popc(m & ((1u << lane) - 1u));
       __syncwarp();  // every lane has read its entry
-      if (in && at < kCap) keep[at] = x;
+      if (in && at < CAP) keep[at] = x;
       inside += __popc(m);
     }
   });
@@ -242,7 +263,10 @@ __device__ __forceinline__ int count_bucket(const Src& src, float flo,
   return inside;
 }
 
-__global__ void __launch_bounds__(kWarp * kRowsPerBlock)
+// The row loop, WARPS warps a block, CAP kept entries a warp: <kRowsPerBlock,
+// kCap> the narrow route, <kStagedWarps, kStagedCap> the staged one.
+template <int WARPS, int CAP>
+__global__ void __launch_bounds__(kWarp * WARPS)
 bucket_kselect_kernel(const float* __restrict__ qx,
                       const float* __restrict__ qy,
                       const float* __restrict__ px,
@@ -251,7 +275,7 @@ bucket_kselect_kernel(const float* __restrict__ qx,
                       int q, int c, int k, int iters, float hi_mul,
                       float hi_add, float tiny) {
   extern __shared__ float smem[];
-  __shared__ int hist_all[kRowsPerBlock][kBins];
+  __shared__ int hist_all[WARPS][kBins];
   float2* sp = reinterpret_cast<float2*>(smem);
   unsigned char* sv = reinterpret_cast<unsigned char*>(smem + 2 * c);
   float* kept_all = smem + 2 * c + (c + 3) / 4;
@@ -272,11 +296,11 @@ bucket_kselect_kernel(const float* __restrict__ qx,
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
   int* hist = hist_all[warp];
-  float* kept = kept_all + warp * kCap;
+  float* kept = kept_all + warp * CAP;
   const float inf = CUDART_INF_F;
   int m_pred = 1;  // bins kept at first, from the warp's last rows
-  for (int row = blockIdx.x * kRowsPerBlock + warp; row < q;
-       row += gridDim.x * kRowsPerBlock) {
+  for (int row = blockIdx.x * WARPS + warp; row < q;
+       row += gridDim.x * WARPS) {
     const Window rd{sp, sv, c, lane, qx[row], qy[row]};
 
     // ---- lo, hi: NaN if any entry is NaN, as jnp.min / jnp.max give it.
@@ -327,10 +351,10 @@ bucket_kselect_kernel(const float* __restrict__ qx,
             const bool keep = (x >= flo) & (x < bound);
             const unsigned mk = __ballot_sync(kFull, keep);
             const int at = n + __popc(mk & ((1u << lane) - 1u));
-            if (keep && at < kCap) kept[at] = x;
+            if (keep && at < CAP) kept[at] = x;
             n += __popc(mk);
           });
-          if (n <= kCap && (n >= kth || bound == fhi)) {
+          if (n <= CAP && (n >= kth || bound == fhi)) {
             n_kept = n;
             kept_hi = bound;
             // next row: the same m, or half of it where that kept twice
@@ -338,7 +362,7 @@ bucket_kselect_kernel(const float* __restrict__ qx,
             m_pred = m > 1 && m < kBins && n >= 2 * kth ? m / 2 : m;
             break;
           }
-          if (n > kCap) {  // too many: shrink, unless that came up short
+          if (n > CAP) {  // too many: shrink, unless that came up short
             if (step > 0 || m == 1) break;
             step = -1;
             m = m >= kBins ? 16 : m / 2;
@@ -363,14 +387,14 @@ bucket_kselect_kernel(const float* __restrict__ qx,
       int below = 0;
       const int inside =
           n_kept >= 0 && new_hi <= kept_hi
-              ? count_bucket(Kept{kept, n_kept, lane}, flo, new_lo, new_hi,
-                             kept, lane, below)
-              : count_bucket(rd, flo, new_lo, new_hi, kept, lane, below);
+              ? count_bucket<CAP>(Kept{kept, n_kept, lane}, flo, new_lo,
+                                  new_hi, kept, lane, below)
+              : count_bucket<CAP>(rd, flo, new_lo, new_hi, kept, lane, below);
       if (below < kth && below + inside >= kth) {
         flo = new_lo;
         fhi = new_hi;
         kth -= below;
-        n_kept = inside <= kCap ? inside : -1;
+        n_kept = inside <= CAP ? inside : -1;
         kept_hi = new_hi;
       } else {
         n_kept = -1;
@@ -491,43 +515,68 @@ struct Args {
   cudaStream_t stream;
 };
 
-// A grid that fills the card: as many blocks as fit at once, at most one a
-// Q_TILE of rows.  Dynamic shared memory: the window, then kCap kept
-// entries a warp.
-cudaError_t launch(const Args& a) {
-  const bool wide = a.c > kMaxWindow;
-  const void* fn = wide ? reinterpret_cast<const void*>(bucket_kselect_wide_kernel)
-                        : reinterpret_cast<const void*>(bucket_kselect_kernel);
-  const size_t smem = wide ? 0
-                           : sizeof(float) * (2 * static_cast<size_t>(a.c) +
-                                              (a.c + 3) / 4 +
-                                              kRowsPerBlock * kCap);
-  int dev = 0;
+// The staged route's block (see the header): kStagedWarps warps keeping up
+// to kStagedCap entries each, 80,640 bytes beside the window.
+constexpr int kStagedWarps = 10;
+constexpr int kStagedCap = 2016;
+
+// The row loop's dynamic shared memory at window c: the window (9 bytes a
+// candidate), then `cap` kept floats for each of `warps` warps.
+size_t loop_bytes(int c, int warps, int cap) {
+  return sizeof(float) * (2 * static_cast<size_t>(c) + (c + 3) / 4 +
+                          static_cast<size_t>(warps) * cap);
+}
+
+// Launches KERNEL, `warps` warps a block and `smem` bytes of dynamic shared
+// memory, on a grid that fills the card: as many blocks as fit at once, at
+// most one a block's rows.
+template <auto KERNEL>
+cudaError_t launch_on(const Args& a, int dev, int warps, size_t smem) {
+  const void* fn = reinterpret_cast<const void*>(KERNEL);
   int sms = 0;
   int per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err =
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess && smem > 48 * 1024)
     err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fn, kWarp * kRowsPerBlock, smem);
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn,
+                                                        kWarp * warps, smem);
   if (err != cudaSuccess) return err;
-  const int tiles = (a.q + kRowsPerBlock - 1) / kRowsPerBlock;
+  const int tiles = (a.q + warps - 1) / warps;
   const int fill = sms * (per_sm > 0 ? per_sm : 1);
   const int blocks = tiles < fill ? tiles : fill;
-  if (wide) {
-    bucket_kselect_wide_kernel<<<blocks, kWarp * kRowsPerBlock, 0, a.stream>>>(
-        a.qx, a.qy, a.px, a.py, a.valid, a.out, a.q, a.c, a.k, a.iters,
-        a.hi_mul, a.hi_add, a.tiny);
-  } else {
-    bucket_kselect_kernel<<<blocks, kWarp * kRowsPerBlock, smem, a.stream>>>(
-        a.qx, a.qy, a.px, a.py, a.valid, a.out, a.q, a.c, a.k, a.iters,
-        a.hi_mul, a.hi_add, a.tiny);
-  }
+  KERNEL<<<blocks, kWarp * warps, smem, a.stream>>>(
+      a.qx, a.qy, a.px, a.py, a.valid, a.out, a.q, a.c, a.k, a.iters,
+      a.hi_mul, a.hi_add, a.tiny);
   return cudaGetLastError();
+}
+
+// The route (see the header): 0 narrow, 1 staged, 2 the wide template.
+cudaError_t launch(const Args& a, int* route) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (a.c <= kMaxWindow) {
+    *route = 0;
+    return launch_on<bucket_kselect_kernel<kRowsPerBlock, kCap>>(
+        a, dev, kRowsPerBlock, loop_bytes(a.c, kRowsPerBlock, kCap));
+  }
+  int optin = 0;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (err != cudaSuccess) return err;
+  const size_t staged = loop_bytes(a.c, kStagedWarps, kStagedCap);
+  if (a.k <= kStagedCap / 2 &&
+      staged + sizeof(int) * kStagedWarps * kBins <=
+          static_cast<size_t>(optin)) {
+    *route = 1;
+    return launch_on<bucket_kselect_kernel<kStagedWarps, kStagedCap>>(
+        a, dev, kStagedWarps, staged);
+  }
+  *route = 2;
+  return launch_on<bucket_kselect_wide_kernel>(a, dev, kRowsPerBlock, 0);
 }
 
 }  // namespace
@@ -536,21 +585,20 @@ extern "C" {
 
 // Returns a cudaError_t (0 = launched).  All pointers are device pointers;
 // qx / qy / out are (q,), px / py / valid (c,); q > 0; c > 0; k > 0,
-// iters >= 0.  *wide is set to 1 where the window took the wide template
-// (c > kMaxWindow), else to 0.
+// iters >= 0.  *route is set to the route the launch took: 0 the narrow
+// kernel, 1 the staged route, 2 the wide template.
 int bucket_kselect_f32(const void* qx, const void* qy, const void* px,
                        const void* py, const void* valid, void* out, int q,
                        int c, int k, int iters, float hi_mul, float hi_add,
-                       float tiny, void* stream, int* wide) {
+                       float tiny, void* stream, int* route) {
   if (q <= 0 || c <= 0 || k <= 0 || iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  *wide = c > kMaxWindow;
   const Args a{static_cast<const float*>(qx), static_cast<const float*>(qy),
                static_cast<const float*>(px), static_cast<const float*>(py),
                static_cast<const bool*>(valid), static_cast<float*>(out),
                q, c, k, iters, hi_mul, hi_add, tiny,
                static_cast<cudaStream_t>(stream)};
-  return static_cast<int>(launch(a));
+  return static_cast<int>(launch(a, route));
 }
 
 }  // extern "C"

@@ -46,11 +46,24 @@
 //   other d2 as the rounds do, -inf and negative ones included (a -0
 //   leaves as +0, as from every key path; select_keys.cuh).  Any other
 //   row takes, in the same block, what select_wide_kernel gives it.
-// - merge_topk_multi, and merge_topk_lists where not even the staged keys
-//   fit in shared memory, take block_select.cuh's select_wide_kernel: a
-//   block bitonic sort of the row's keys in shared memory where they fit,
-//   else (and on a row holding a NaN) the plain version's
-//   masked_argmin_rounds over the whole row.  merge_topk_multi's
+// - merge_topk_multi takes its own wide merge, one block of 256 threads a
+//   row: each of the R lists staged and voted on as merge_topk_lists'
+//   wide merge stages its two (no NaN but in column 0 of list 0, each
+//   list ascending; the row's lines asked into L2 first, as the lists are
+//   staged one after another), then merge_multi_kernel's levels by the
+//   whole block, a block barrier between levels, thread t writing outputs
+//   t, t + 256, ... of a level from merged_at.  The lone NaN in column 0
+//   leaves first and list 0 merges one entry shorter, every merge cut to
+//   k - 1.  Any other row takes, in the same block, what
+//   select_wide_kernel gives it.
+//   At R = 8, k = 128 a row takes 896 co-rank searches (512 + 256 + 128
+//   outputs) where the template sorted 1024 keys in 55 barriered stages.
+// - Where not even the staged keys fit in shared memory ((R + ceil(R /
+//   2)) * k for merge_topk_multi, min(ca, k) + min(cb, k) for
+//   merge_topk_lists), the row takes block_select.cuh's
+//   select_wide_kernel: a block bitonic sort of the row's keys in shared
+//   memory where they fit, else (and on a row holding a NaN) the plain
+//   version's masked_argmin_rounds over the whole row.  merge_topk_multi's
 //   C % k == 0 stays the wrapper's precondition on the card.
 //
 // Bound on an H100: memory.  Per row it reads (ca + cb) * 8 bytes and writes
@@ -261,24 +274,139 @@ merge_lists_wide_kernel(const float* __restrict__ da,
   }
 }
 
-// merge_topk_lists' wide merge, where the staged keys fit in shared memory:
-// its room is select_wide_kernel's or theirs, the larger.  Sets *taken to
-// false, and launches nothing, where they do not fit.
-cudaError_t launch_lists_wide(const float* da, const int* ia, int ca,
-                              const float* db, const int* ib, int cb,
-                              float* out_d, int* out_i, int q, int k,
-                              cudaStream_t stream, bool* taken) {
-  const long long n = static_cast<long long>(ca) + cb;
-  WidePlan w;
+// Asks for a row's cache lines in L2 at once (a line a thread), before
+// stage_vote takes the row's lists one after another: each list's loads
+// then find their lines in L2 instead of waiting on device memory in turn.
+__device__ __forceinline__ void prefetch_row(const float* d, const int* id,
+                                             int c) {
+  for (int j = threadIdx.x * 32; j < c; j += kBlockThreads * 32) {
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(d + j));
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(id + j));
+  }
+}
+
+// The R lists of merge_topk_multi merged level by level (see the header);
+// MODE is the one wide_plan picks for the rows handed over.
+template <Wide MODE>
+__global__ void __launch_bounds__(kBlockThreads)
+merge_multi_wide_kernel(const float* __restrict__ d,
+                        const int* __restrict__ id, int runs,
+                        float* __restrict__ out_d, int* __restrict__ out_i,
+                        int k) {
+  extern __shared__ Key wide_keys[];
+  __shared__ BlockScratch s;
+  const size_t row = blockIdx.x;
+  const int c = runs * k;
+  const TwoLists in{d + row * c, id + row * c, c, d, id};
+  float* od = out_d + row * k;
+  int* oi = out_i + row * k;
+  Key* src = wide_keys;
+  Key* dst = src + c;
+  bool bad = false;
+  bool nan0 = false;
+  prefetch_row(in.da, in.ia, c);
+  for (int p = 0; p < runs; ++p)
+    stage_vote(in.da + p * k, in.ia + p * k, k, k, src + p * k, p == 0, bad,
+               nan0);
+  if (__syncthreads_or(bad)) {
+    select_row<MODE>(in, c, k, od, oi, wide_keys, s);
+    return;
+  }
+  // column 0 the only NaN: it leaves first, and the rest merge after it
+  const int skip = __syncthreads_or(nan0) ? 1 : 0;
+  if (skip && threadIdx.x == 0) {
+    od[0] = CUDART_NAN_F;
+    oi[0] = INT_MAX;
+  }
+  const int kk = k - skip;  // the outputs the merges give
+  // List p of a level starts at src + p * k: list 0 at off0 with len0
+  // keys, every other one with len keys.  Every merge is cut to kk.
+  int off0 = skip;
+  int len0 = k - skip;
+  int len = k;
+  int n = runs;
+  while (n > 2) {  // one level: n lists -> ceil(n / 2)
+    const int pairs = n / 2;
+    for (int t = threadIdx.x; t < pairs * kk; t += kBlockThreads) {
+      const int p = t / kk;
+      const Key* a = src + 2 * p * k;
+      dst[p * k + t - p * kk] =
+          p == 0 ? merged_at(a + off0, len0, a + k, len, t)
+                 : merged_at(a, len, a + k, len, t - p * kk);
+    }
+    if (n & 1) {  // the odd tail list, carried as the last operand
+      for (int j = threadIdx.x; j < kk; j += kBlockThreads)
+        dst[pairs * k + j] = src[(n - 1) * k + j];
+    }
+    __syncthreads();
+    n = pairs + (n & 1);
+    Key* t = src;
+    src = dst;
+    dst = t;
+    off0 = 0;
+    len0 = len = kk;
+  }
+  for (int j = threadIdx.x; j < kk; j += kBlockThreads) {
+    const Key key = n == 2 ? merged_at(src + off0, len0, src + k, len, j)
+                           : src[off0 + j];
+    store_pair(key, od + skip + j, oi + skip + j);
+  }
+}
+
+// The plan of a wide merge over a row of n entries whose staged keys take
+// `staged` bytes: select_wide_kernel's, for the rows handed over, its room
+// raised to the staged keys where they take more.  Sets *taken to false
+// where they do not fit.
+cudaError_t merge_plan(long long n, int k, size_t staged, WidePlan& w,
+                       bool* taken) {
   const cudaError_t err =
       wide_plan(n, k, sizeof(Key) * pow2_at_least(n),
                 (sizeof(float) + sizeof(int)) * n, sizeof(BlockScratch), w);
   if (err != cudaSuccess) return err;
-  const size_t staged = sizeof(Key) * (static_cast<size_t>(min(ca, k)) +
-                                       static_cast<size_t>(min(cb, k)));
   *taken = staged <= w.room;
-  if (!*taken) return cudaSuccess;
-  if (staged > w.bytes) w.bytes = staged;
+  if (*taken && staged > w.bytes) w.bytes = staged;
+  return cudaSuccess;
+}
+
+// merge_topk_multi's wide merge, where the staged keys and a level's
+// merged lists, (R + ceil(R / 2)) * k keys, fit in shared memory.
+// Launches nothing, and sets *taken to false, where they do not.
+cudaError_t launch_multi_wide(const float* d, const int* id, int runs,
+                              float* out_d, int* out_i, int q, int k,
+                              cudaStream_t stream, bool* taken) {
+  WidePlan w;
+  const cudaError_t err = merge_plan(
+      static_cast<long long>(runs) * k, k,
+      sizeof(Key) * static_cast<size_t>(k) *
+          (static_cast<size_t>(runs) + (runs + 1) / 2),
+      w, taken);
+  if (err != cudaSuccess || !*taken) return err;
+  switch (w.mode) {
+    case Wide::kSort:
+      return launch_wide<merge_multi_wide_kernel<Wide::kSort>>(
+          w, q, stream, d, id, runs, out_d, out_i, k);
+    case Wide::kRounds:
+      return launch_wide<merge_multi_wide_kernel<Wide::kRounds>>(
+          w, q, stream, d, id, runs, out_d, out_i, k);
+    default:
+      return launch_wide<merge_multi_wide_kernel<Wide::kGlobal>>(
+          w, q, stream, d, id, runs, out_d, out_i, k);
+  }
+}
+
+// merge_topk_lists' wide merge, where the staged keys fit in shared
+// memory.  Launches nothing, and sets *taken to false, where they do not.
+cudaError_t launch_lists_wide(const float* da, const int* ia, int ca,
+                              const float* db, const int* ib, int cb,
+                              float* out_d, int* out_i, int q, int k,
+                              cudaStream_t stream, bool* taken) {
+  WidePlan w;
+  const cudaError_t err = merge_plan(
+      static_cast<long long>(ca) + cb, k,
+      sizeof(Key) * (static_cast<size_t>(min(ca, k)) +
+                     static_cast<size_t>(min(cb, k))),
+      w, taken);
+  if (err != cudaSuccess || !*taken) return err;
   switch (w.mode) {
     case Wide::kSort:
       return launch_wide<merge_lists_wide_kernel<Wide::kSort>>(
@@ -311,20 +439,31 @@ extern "C" {
 
 // Returns a cudaError_t (0 = launched).  All pointers are device pointers;
 // d / id are (q, runs * k), out (q, k), each row runs ascending lists of k;
-// q > 0; runs > 0; k > 0.  *wide is set to 1 where the row took the wide
-// template, else to 0.
+// q > 0; runs > 0; k > 0.  *route is set to the route the launch took: 0
+// the narrow kernel, 1 the wide template (select_wide_kernel), 3 the wide
+// merge.
 int merge_topk_multi_f32(const void* d, const void* id, int runs,
                          void* out_d, void* out_i, int q, int k,
-                         void* stream, int* wide) {
+                         void* stream, int* route) {
   if (runs <= 0 || k <= 0 || static_cast<long long>(runs) * k > INT_MAX)
     return static_cast<int>(cudaErrorInvalidValue);
-  *wide = runs * k > kNarrowRow;
-  if (*wide) {
+  *route = 0;
+  if (runs * k > kNarrowRow) {
     const float* dd = static_cast<const float*>(d);
     const int* ii = static_cast<const int*>(id);
-    return static_cast<int>(launch_select_wide(
-        dd, ii, runs * k, dd, ii, 0, static_cast<float*>(out_d),
-        static_cast<int*>(out_i), q, k, static_cast<cudaStream_t>(stream)));
+    float* od = static_cast<float*>(out_d);
+    int* oi = static_cast<int*>(out_i);
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
+    bool taken = false;
+    const cudaError_t err =
+        launch_multi_wide(dd, ii, runs, od, oi, q, k, st, &taken);
+    if (err != cudaSuccess || taken) {
+      *route = 3;
+      return static_cast<int>(err);
+    }
+    *route = 1;
+    return static_cast<int>(
+        launch_select_wide(dd, ii, runs * k, dd, ii, 0, od, oi, q, k, st));
   }
   const size_t smem =
       sizeof(Key) * kRowsPerBlock * (runs + (runs + 1) / 2) * k;

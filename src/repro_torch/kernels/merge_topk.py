@@ -25,23 +25,24 @@ A warp stages its row in shared memory; each output is found by a
 merge-path co-rank binary search, and ``merge_topk_multi`` merges its R
 lists pairwise in ceil(log2 R) levels.  A row wider than 512 entries (or
 k above it) takes a wide route instead, so no width raises; the entry
-point says which.  ``merge_topk_lists`` takes the wide merge: one thread
-block a row merging the two lists by the same co-rank search, where both
-whole lists ascend and hold no NaN (a lone NaN in the first list's first
-column is emitted first, as the rounds emit it); any other row, and
-``merge_topk_multi``'s wide rows, take the wide template: one thread
-block a row sorting the row's keys in shared memory, or running the plain
-version's rounds (``csrc/block_select.cuh``).  On the card ``merge_topk_multi`` needs the row to be R
+point says which.  Each wrapper takes its wide merge, one thread block a
+row, where the row's lists ascend and hold no NaN (a lone NaN in the first
+list's first column is emitted first, as the rounds emit it):
+``merge_topk_lists`` merges its two lists by the same co-rank search,
+``merge_topk_multi`` its R lists level by level as the narrow kernel does.
+Any other row, and a row whose staged keys do not fit in shared memory,
+takes the wide template: one thread block a row sorting the row's keys in
+shared memory, or running the plain version's rounds
+(``csrc/block_select.cuh``).  On the card ``merge_topk_multi`` needs the row to be R
 whole lists of k (C % k == 0) and raises otherwise; the plain version on
 the CPU takes any row.  Bound on an H100: memory,
 ``(row width + k) * 8`` bytes per row (about 0.385 ms for B2 at
 Q = 1,007,616, R = 4, k = 32 at 3.35 TB/s).
 
 CUDA tensors launch a kernel (or raise); CPU tensors run the plain
-version.  Each wrapper counts its kernel launches in ``.launches``, and
-those past the narrow row also in ``.wide_launches``;
-``merge_topk_lists.wide_merge_launches`` counts those of them that took
-the wide merge.
+version.  Each wrapper counts its kernel launches in ``.launches``, those
+past the narrow row also in ``.wide_launches``, and those of them that
+took the wide merge in ``.wide_merge_launches``.
 """
 from __future__ import annotations
 
@@ -195,6 +196,7 @@ def merge_topk_lists(d_a, i_a, d_b, i_b, *, k: int):
 
 merge_topk_multi.launches = 0
 merge_topk_multi.wide_launches = 0
+merge_topk_multi.wide_merge_launches = 0
 merge_topk_lists.launches = 0
 merge_topk_lists.wide_launches = 0
 merge_topk_lists.wide_merge_launches = 0

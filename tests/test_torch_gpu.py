@@ -334,19 +334,11 @@ def test_bucket_kselect_kernel_matches_plain(cuda, k, c):
         assert torch.isinf(out).all()
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("kind", ["far", "one_spot", "small", "cluster",
-                                  "huge"])
-@pytest.mark.parametrize("k", [1, 32, 256])
-def test_bucket_kselect_kernel_on_skewed_windows(cuda, kind, k):
-    """B5, bitwise, where its kept buckets do not serve and it takes the
-    pass over every entry: the k-th distance in a high bin (all but a few
-    candidates far away), one spot for the whole window (every entry in
-    bin 0, more than 512 of them), a window that fits whole (C = 300), a
-    cluster far smaller than the query region, and coordinates near 1e19
-    (distances that overflow to +inf, an infinite first interval)."""
+def _skewed_window(cuda, kind, k, c):
+    """B5 on one of the skewed windows, held bitwise against its plain
+    version and, where no distance overflows, against its guarantee."""
     g = torch.Generator(device=cuda).manual_seed(k)
-    q, c = 1024, 300 if kind == "small" else 2048
+    q = 1024
     qpos = torch.rand((q, 2), generator=g, device=cuda) * 1000
     ppos = torch.rand((c, 2), generator=g, device=cuda) * 1000
     if kind == "far":
@@ -367,6 +359,71 @@ def test_bucket_kselect_kernel_on_skewed_windows(cuda, kind, k):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["far", "one_spot", "small", "cluster",
+                                  "huge"])
+@pytest.mark.parametrize("k", [1, 32, 256])
+def test_bucket_kselect_kernel_on_skewed_windows(cuda, kind, k):
+    """B5, bitwise, where its kept buckets do not serve and it takes the
+    pass over every entry: the k-th distance in a high bin (all but a few
+    candidates far away), one spot for the whole window (every entry in
+    bin 0, more than 512 of them), a window that fits whole (C = 300), a
+    cluster far smaller than the query region, and coordinates near 1e19
+    (distances that overflow to +inf, an infinite first interval)."""
+    _skewed_window(cuda, kind, k, 300 if kind == "small" else 2048)
+
+
+def _b5_staged(c, k):
+    """Whether B5 takes its staged route at window C and k: past 4096
+    candidates, where the window fits in shared memory beside 10 warps'
+    2016 kept entries each (C <= 16,725 on an H100's 232,448 bytes) and
+    k <= 1008; else the wide template."""
+    return 4096 < c <= 16_725 and k <= 1008
+
+
+def _b5_wide_launch(qpos, ppos, valid, k):
+    """B5 past its 4096-candidate window, counted once as wide and on the
+    staged route where it takes it."""
+    fn = tbk.bucket_kselect
+    c = ppos.shape[0]
+    before = (fn.launches, fn.wide_launches, fn.wide_staged_launches)
+    out = tops.bucket_kselect_op(qpos, ppos, valid, k=k)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.wide_launches, fn.wide_staged_launches) == (
+        before[0] + 1, before[1] + 1, before[2] + _b5_staged(c, k))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["far", "one_spot", "cluster", "huge"])
+@pytest.mark.parametrize("k", [1, 32, 256])
+@pytest.mark.parametrize("c", [16_384, 25_000])
+def test_bucket_kselect_wide_on_skewed_windows(cuda, kind, k, c):
+    """The same skewed windows past 4096 candidates, on the staged route
+    (C = 16,384) and the wide template (C = 25,000): every keeping pass
+    overflows on one spot, the interval is infinite on the huge one."""
+    before = tbk.bucket_kselect.wide_staged_launches
+    _skewed_window(cuda, kind, k, c)
+    assert tbk.bucket_kselect.wide_staged_launches == before + _b5_staged(c,
+                                                                          k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [8, 32])
+@pytest.mark.parametrize("c", [16_384, 25_000])
+def test_bucket_kselect_wide_on_a_bucket_edge_window(cuda, k, c):
+    """The edge window padded to C candidates with invalid ones (their
+    distance +inf changes neither lo nor hi nor any count): the wide
+    routes equal the plain version and enclose all k."""
+    qpos, ppos = (torch.tensor(a, device=cuda) for a in edge_window(k, k))
+    ppos = torch.cat([ppos, torch.full((c - k, 2), 7.0, device=cuda)])
+    valid = torch.arange(c, device=cuda) < k
+    out = _b5_wide_launch(qpos, ppos, valid, k)
+    ref = tbk.bucket_kselect_ref(*_xy(qpos), *_xy(ppos), valid, k=k)
+    d2 = tpd.pairwise_dist_ref(*_xy(qpos), *_xy(ppos), valid)
+    assert torch.equal(out, ref) and int((d2 < out[:, None]).sum()) == k
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("k", [8, 32])
 def test_bucket_kselect_kernel_on_a_bucket_edge_window(cuda, k):
     """The constructed edge window on which the reference loses the k-th
@@ -381,26 +438,41 @@ def test_bucket_kselect_kernel_on_a_bucket_edge_window(cuda, k):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("k", [1, 32, 256])
-@pytest.mark.parametrize("c", [4097, 9000, 16_384])
+@pytest.mark.parametrize("c", [4097, 9000, 16_384, 16_725, 16_726, 25_000])
 def test_bucket_kselect_wide_template_matches_plain(cuda, k, c):
-    """B5 past its 4096-candidate window, tiled through shared memory:
-    bitwise equal to the plain version (NaN where it is, on the NaN query
-    band and the negative band of ``chip_smoke.window_inputs``) and the
-    guarantee on every row without a NaN distance."""
-    qpos, ppos, valid = window_inputs(1027, c, cuda, seed=k + c)
-    before = (tbk.bucket_kselect.launches, tbk.bucket_kselect.wide_launches)
-    out = tops.bucket_kselect_op(qpos, ppos, valid, k=k)
-    torch.cuda.synchronize()
-    assert (tbk.bucket_kselect.launches,
-            tbk.bucket_kselect.wide_launches) == (before[0] + 1,
-                                                  before[1] + 1)
-    qx, qy = _xy(qpos)
-    px, py = _xy(ppos)
-    assert same_values(out, tbk.bucket_kselect_ref(qx, qy, px, py, valid,
-                                                 k=k))
-    d2 = tpd.pairwise_dist_ref(qx, qy, px, py, valid)
-    assert _guarantee(d2, out, k, int(valid.sum()))
-    assert torch.isnan(out).any()  # the NaN band
+    """B5 past its 4096-candidate window, on the staged route (up to
+    C = 16,725, its last window on an H100) and the wide template past it,
+    tiled through shared memory: bitwise equal to the plain version (NaN
+    where it is, on the NaN query band and the negative band of
+    ``chip_smoke.window_inputs``) and the guarantee on every row without a
+    NaN distance."""
+    _b5_wide_case(cuda, k, c)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,k", [(16_384, 1008), (16_725, 1008),
+                                 (16_384, 1009), (16_384, 2000),
+                                 (25_000, 2000)])
+def test_bucket_kselect_wide_where_kept_entries_overflow(cuda, c, k):
+    """k near the staged route's kept room: at k = 1008, its last k, the
+    bins that reach rank k hold more than 1008 entries and some rows'
+    keeping passes overflow 2016, so their rounds pass over every entry;
+    past it (k = 1009 and 2000) the wide template takes the window."""
+    _b5_wide_case(cuda, k, c)
+
+
+def _b5_wide_case(cuda, k, c):
+    """Without the odd bands and with them."""
+    for odd in (False, True):
+        qpos, ppos, valid = window_inputs(1027, c, cuda, seed=k + c, odd=odd)
+        out = _b5_wide_launch(qpos, ppos, valid, k)
+        qx, qy = _xy(qpos)
+        px, py = _xy(ppos)
+        assert same_values(out, tbk.bucket_kselect_ref(qx, qy, px, py, valid,
+                                                     k=k))
+        d2 = tpd.pairwise_dist_ref(qx, qy, px, py, valid)
+        assert _guarantee(d2, out, k, int(valid.sum()))
+        assert bool(torch.isnan(out).any()) == odd  # the NaN band
 
 
 # (k, W) past the narrow templates' k + W <= 512: the main path's k with a
@@ -512,22 +584,36 @@ def test_wide_template_past_the_merges_shared_room(cuda, kernel):
 @pytest.mark.gpu
 @pytest.mark.parametrize("r,k,q", [(8, 128, 1024), (3, 200, 1024),
                                    (1, 600, 256), (40, 32, 256),
-                                   (250, 128, 16)])
+                                   (250, 128, 16), (5, 130, 256)])
 def test_merge_topk_multi_wide_template_matches_plain(cuda, r, k, q):
-    """B2 past R * k = 512 (R = 8 at k = 128 is object_sharded 8's row; the
-    last shape passes shared memory), bitwise equal to its plain version on
-    ``chip_smoke.merge_inputs``' edge rows and on NaN, -inf, -0 and
-    negative rows, which the wide template takes as the plain version
-    does."""
+    """B2 past R * k = 512 (R = 8 at k = 128 is object_sharded 8's row; odd
+    R carry a tail list; the (250, 128) row passes shared memory and takes
+    the wide template, every other one the wide merge), bitwise equal to
+    its plain version on ``chip_smoke.merge_inputs``' edge rows, on NaN
+    (a lone one in column 0, which the wide merge takes, and later ones),
+    -inf, -0 and negative rows, and on a list out of order, which the
+    wide merge hands to the wide template."""
     d, i = merge_inputs(r, q, k, cuda, seed=r + k, inf_ids=True)
     d_cat = d.transpose(0, 1).reshape(q, r * k).contiguous()
     i_cat = i.transpose(0, 1).reshape(q, r * k).contiguous()
-    for dd in (d_cat, _odd_band(d_cat)):
-        before = tmt.merge_topk_multi.wide_launches
-        out = tmt.merge_topk_multi(dd, i_cat, k=k)
+    # the last list out of order on rows 4 to 7 of every 16
+    last = slice((r - 1) * k, r * k)
+    perm = torch.argsort(torch.rand((q, k), device=cuda), dim=1)
+    shuf = (torch.arange(q, device=cuda) % 16 // 4 == 1)[:, None]
+    sd, si = d_cat.clone(), i_cat.clone()
+    sd[:, last] = torch.where(shuf, torch.gather(d_cat[:, last], 1, perm),
+                              d_cat[:, last])
+    si[:, last] = torch.where(shuf, torch.gather(i_cat[:, last], 1, perm),
+                              i_cat[:, last])
+    merged = 0 if r == 250 else 1  # the wide merge's staged keys fit
+    fn = tmt.merge_topk_multi
+    for dd, ii in ((d_cat, i_cat), (_odd_band(d_cat), i_cat), (sd, si)):
+        before = (fn.wide_launches, fn.wide_merge_launches)
+        out = fn(dd, ii, k=k)
         torch.cuda.synchronize()
-        assert tmt.merge_topk_multi.wide_launches == before + 1
-        assert _same_nan(out, tmt.merge_topk_multi_ref(dd, i_cat, k=k))
+        assert (fn.wide_launches, fn.wide_merge_launches) == (
+            before[0] + 1, before[1] + merged)
+        assert _same_nan(out, tmt.merge_topk_multi_ref(dd, ii, k=k))
 
 
 @pytest.mark.gpu

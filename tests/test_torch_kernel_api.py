@@ -245,7 +245,7 @@ _KS = [1, 4, 16, 64, 200]
 
 @pytest.mark.parametrize("k", _KS)
 @pytest.mark.parametrize("q,c,coincide", [(8, 128, 0), (17, 333, 0),
-                                          (64, 256, 40)])
+                                          (64, 256, 40), (8, 5000, 40)])
 def test_bucket_kselect_matches_jax(q, c, coincide, k):
     qpos, ppos, valid = _data(q, c, seed=k + c, coincide=coincide)
     want = np.asarray(jk.bucket_kselect_op(qpos, ppos, valid, k=k,

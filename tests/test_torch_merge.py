@@ -57,6 +57,25 @@ def test_merge_topk_multi_plain_matches_pallas(r):
     _pair_equal(want, tops.topk_select_ref(d_cat, i_cat, K), "two-sort")
 
 
+@pytest.mark.parametrize("r,k", [(8, 128), (5, 130)])
+def test_merge_topk_multi_wide_plain_matches_pallas(r, k):
+    """Past a row of 512, where the card's wide merge takes the row level
+    by level (R = 8 at k = 128 is ``object_sharded`` 8's row; R = 5 carries
+    a tail list): the plain version and the wrapper equal the Pallas kernel
+    on ``chip_smoke.merge_inputs``' edge rows."""
+    q = 16
+    d, i = merge_inputs(r, q, k, "cpu", seed=r + k, inf_ids=True)
+    d_cat = d.transpose(0, 1).reshape(q, r * k).contiguous()
+    i_cat = i.transpose(0, 1).reshape(q, r * k).contiguous()
+    want = jmt.merge_topk_multi(jnp.asarray(d_cat.numpy()),
+                                jnp.asarray(i_cat.numpy()), k=k,
+                                interpret=True)
+    _pair_equal(want, tmt.merge_topk_multi_ref(d_cat, i_cat, k=k), "ref")
+    before = tmt.merge_topk_multi.launches
+    _pair_equal(want, tmt.merge_topk_multi(d_cat, i_cat, k=k), "wrapper")
+    assert tmt.merge_topk_multi.launches == before  # CPU: no kernel
+
+
 @pytest.mark.parametrize("r,k", [(1, 6), (3, 6), (5, 12), (8, 33)])
 def test_merge_inputs_meet_the_kernels_precondition(r, k):
     """Every list of ``chip_smoke.merge_inputs`` (all its edge bands) is
