@@ -68,29 +68,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    every tick: (a) ``object_sharded``, 4 shards, ``equal``, ``fused_multi``
    over uniform and a 1% move; (b) ``hybrid`` (2, 3), ``cost_balanced``,
    ``fused_merge`` over the gaussian snapshot and a 1% move (the
-   object-axis ``skip`` route runs in phase 15's maintenance draw).
+   object-axis ``skip`` route runs in phase 16's maintenance draw).
    ``fused_multi`` must launch once per tick in (a), ``fused_merge`` twice
    per query shard that owns rows in (b);
-10. wide sessions (:func:`wide_sessions`): specs that raised on the card
+10. distributed (:func:`distributed`, :func:`driver_ranks`): (a) and (b)
+   again, one grid cell per ``torch.distributed`` rank (4 and 6 gloo
+   ranks sharing the card, each a process of this script with
+   ``--rank-path``, over the same data): every rank's lists, per-shard
+   counters, cost EMA, object bounds and rebuild decisions must equal phase
+   9's records bit for bit; on every rank of (a) ``fused_multi`` launches
+   once a tick, in (b) ``fused_merge`` twice a tick on the ranks whose query
+   shard owns rows; then the ``knn`` driver under ``python -m
+   torch.distributed.run --nproc-per-node 1`` on NCCL (``--plan hybrid``);
+   a ``distributed`` line per run (each rank's wall, peak, iterations and
+   B1-B3 launches);
+11. wide sessions (:func:`wide_sessions`): specs that raised on the card
    before the wide templates, each equal to its oracle or twin and
    launching the wide template it exists for; the ``single`` ones at
    N = 200,000, the host-bound object-axis ones (B2 and B3 wide) at
    N = 50,000;
-11. incremental object-axis path at N = 50,000
+12. incremental object-axis path at N = 50,000
    (:func:`incremental_object_path`): ``object_sharded`` 4 under
    ``maintenance="incremental"``, splicing a 1% move and deferring, by the
    per-shard and the global churn budget, every row equal to a ``single``
    twin;
-12. server path at N (:func:`server_path`): a ``KnnServer`` with four
+13. server path at N (:func:`server_path`): a ``KnnServer`` with four
    tenants over the paper's Table 1 world, spatial invalidation: the build,
    an unchanged tick served wholly from the cache (no B1 launch), a
    2,000-object move that recomputes only the stabbed rows, a 1% move that
    clears the epoch; every tenant row equal to a solo session, and a
    ``collect="stats"`` session whose aggregates equal what the full twin's
    lists give, at a peak within 10% of the twin's;
-13. the ``knn`` entry point (``repro_torch.launch.serve``) with four
+14. the ``knn`` entry point (``repro_torch.launch.serve``) with four
    tenants at N, in this process: it must return 0;
-14. evaluation (:func:`evaluation`), the paper's evaluation entry points:
+15. evaluation (:func:`evaluation`), the paper's evaluation entry points:
    the ``network``, ``zipf`` and ``hotspot_cluster`` worlds at N through
    ``TickEngine(EngineConfig(backend="fused_bucket")).run(w, ticks=2)``,
    every tick launching B1 with no chunk at ``max_iters`` and 1,024 sampled
@@ -105,7 +116,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    rule and timed beside it; and the two examples of ``examples_torch/``
    in this process (the service at N, network, ``fused_bucket``), each
    returning 0;
-15. properties (:func:`properties`): the reference's property harness
+16. properties (:func:`properties`): the reference's property harness
    (``repro_torch.properties``, its draws from ``repro_torch.testing``) on
    the card. Part A at the reference's shapes (96 to 128 objects, k = 6,
    window 16, chunk 16; mesh plans on 4 logical shards, both
@@ -1520,19 +1531,43 @@ def _fold_f32(values) -> np.float32:
     return acc
 
 
-def object_path(dev, n: int, label: str, first: str, seed: int, **plan_kw):
-    """An object-axis session beside a ``single`` twin, over two ticks:
-    ``first`` (uniform or gaussian snapshot) and a 1% move.
-    Returns the path's kernel launches (its own session only) and ticks."""
-    from repro_torch.api import KnnSession, ServiceSpec
-    from repro_torch.core.balance import straggler_gap
+# phase 9's two object-axis paths: label -> (first snapshot, plan fields)
+OBJECT_PATHS = {
+    "a": ("uniform", dict(plan="object_sharded", mesh_shape=4,
+                          partitioner="equal", merge="fused_multi")),
+    "b": ("gaussian", dict(plan="hybrid", mesh_shape=(2, 3),
+                           partitioner="cost_balanced", merge="fused_merge")),
+}
+
+
+def _object_steps(n: int, first: str, seed: int, side: float):
+    """An object path's data: the first snapshot and each tick's step,
+    ``(name, moved ids, their new positions)`` (None, None on the first)."""
     from repro_torch.data.generators import make_workload
 
-    spec = ServiceSpec(backend="fused_bucket", **plan_kw)
     g = np.random.default_rng(seed + 1)
     kw = {"hotspots": 25} if first == "gaussian" else {}
-    pos = make_workload(n, first, seed=seed, side=spec.side, **kw).positions()
-    pos = pos.copy()
+    pos = make_workload(n, first, seed=seed, side=side, **kw).positions()
+    ids = g.choice(n, n // 100, replace=False).astype(np.int32)
+    ang = g.uniform(0, 2 * np.pi, ids.size)
+    r = g.uniform(0, 200.0, ids.size)
+    new = pos[ids] + np.stack([np.cos(ang), np.sin(ang)], 1) * r[:, None]
+    new = np.clip(new, 0, side - 1e-3).astype(np.float32)
+    return pos.copy(), [(first, None, None), ("move 1%", ids, new)]
+
+
+def object_path(dev, n: int, label: str, seed: int, keep=None):
+    """An object-axis session (:data:`OBJECT_PATHS`) beside a ``single``
+    twin, over two ticks: the first snapshot and a 1% move.  Returns the
+    path's kernel launches (its own session only) and ticks; ``keep`` (a
+    list) receives each tick's lists and cost EMA for the distributed
+    phase."""
+    from repro_torch.api import KnnSession, ServiceSpec
+    from repro_torch.core.balance import straggler_gap
+
+    first, plan_kw = OBJECT_PATHS[label]
+    spec = ServiceSpec(backend="fused_bucket", **plan_kw)
+    pos, steps = _object_steps(n, first, seed, spec.side)
     session, twin = KnnSession(spec), KnnSession(ServiceSpec(
         backend="fused_bucket"))
     handles = []
@@ -1545,13 +1580,8 @@ def object_path(dev, n: int, label: str, first: str, seed: int, **plan_kw):
     print(f"path {label}: {plan.describe()}, N={n}")
     totals = {name: 0 for name in _counters()}
     ticks = []
-    for t, step in enumerate([first, "move 1%"]):
-        if step == "move 1%":
-            ids = g.choice(n, n // 100, replace=False).astype(np.int32)
-            ang = g.uniform(0, 2 * np.pi, ids.size)
-            r = g.uniform(0, 200.0, ids.size)
-            new = pos[ids] + np.stack([np.cos(ang), np.sin(ang)], 1) * r[:, None]
-            new = np.clip(new, 0, spec.side - 1e-3).astype(np.float32)
+    for t, (step, ids, new) in enumerate(steps):
+        if ids is not None:
             pos[ids] = new
             for s, h in zip((session, twin), handles):
                 s.update_objects(ids, new)
@@ -1604,9 +1634,236 @@ def object_path(dev, n: int, label: str, first: str, seed: int, **plan_kw):
                "max_memory_allocated": peak, "twin": "bitwise, all rows"}
         print("tick " + json.dumps(rec))
         ticks.append(rec)
+        if keep is not None:
+            keep.append({"idx": res.nn_idx, "dist": res.nn_dist,
+                         "qcost": session._qcost.cpu().numpy()})
     session.finalize_pending()
     twin.finalize_pending()
     return totals, ticks
+
+
+# the distributed phase: a spawned run's time limit, and the ticks' fields
+# every rank must give with phase 9's bits
+RANK_RUN_TIMEOUT_S = 420
+RANK_FIELDS = ("shard_candidates", "shard_iterations", "object_bounds",
+               "iterations", "candidates", "qcost")
+
+
+def _free_port() -> int:
+    """A TCP port on this host that nothing listens on (the ranks' store)."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _spawn_ranks(argv: list, world: int, what: str) -> list:
+    """``world`` processes of ``argv`` with the environment
+    ``torch.distributed.run`` gives its ranks; every one must exit 0 within
+    the time limit.  Returns each rank's output."""
+    port = str(_free_port())
+    procs = []
+    for r in range(world):
+        penv = dict(os.environ, RANK=str(r), LOCAL_RANK=str(r),
+                    WORLD_SIZE=str(world), LOCAL_WORLD_SIZE=str(world),
+                    MASTER_ADDR="127.0.0.1", MASTER_PORT=port,
+                    OMP_NUM_THREADS="1")
+        procs.append(subprocess.Popen(argv, env=penv, cwd=ROOT,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True))
+    return _join(procs, what)
+
+
+def _join(procs, what: str) -> list:
+    deadline = time.monotonic() + RANK_RUN_TIMEOUT_S
+    try:
+        logs = [p.communicate(timeout=max(1.0, deadline - time.monotonic()))[0]
+                for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+            p.communicate()
+        raise AssertionError(f"{what}: a process did not finish within "
+                             f"{RANK_RUN_TIMEOUT_S} s") from None
+    for r, (p, log) in enumerate(zip(procs, logs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: process {r} exited "
+                                 f"{p.returncode}:\n{log[-6000:]}")
+    return logs
+
+
+def rank_path(label: str, n: int, ref_dir: str) -> int:
+    """One rank of an object path laid onto ranks (run by
+    :func:`distributed`): phase 9's session, with no twin, held against
+    phase 9's records in ``ref_dir``; writes its report there."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.api import KnnSession, ServiceSpec
+    from repro_torch.launch.mesh import init_from_env, mesh_cell
+
+    dev, backend = init_from_env("cuda")
+    rank = dist.get_rank()
+    first, plan_kw = OBJECT_PATHS[label]
+    spec = ServiceSpec(backend="fused_bucket", **plan_kw)
+    pos, steps = _object_steps(n, first, 0, spec.side)
+    session = KnnSession(spec, device=dev)
+    session.ingest_objects(pos)
+    h = session.register_queries(pos, np.arange(n, dtype=np.int32))
+    plan = session.plan
+    cell = mesh_cell(plan.mesh)
+    od = plan.object_axis_size
+    report = {"rank": rank, "backend": backend, "device": str(dev),
+              "cell": list(cell), "describe": plan.describe(), "ticks": []}
+    # host seconds in the plan's gathers, the wait for the group's slowest
+    # rank included (the device drained before and after each)
+    gather_s = [0.0]
+    all_gather = dist.all_gather
+
+    def timed_gather(*a, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        try:
+            return all_gather(*a, **kw)
+        finally:
+            torch.cuda.synchronize(dev)
+            gather_s[0] += time.perf_counter() - t0
+
+    dist.all_gather = timed_gather
+    for t, (step, ids, new) in enumerate(steps):
+        if ids is not None:
+            pos[ids] = new
+            session.update_objects(ids, new)
+            session.update_queries(h, pos)
+        _zero_counts()
+        gather_s[0] = 0.0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        handle = session.submit()
+        bounds = session._obj_bounds.cpu().numpy()
+        res = handle.result()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        launches = _read_counts()
+        peak = torch.cuda.max_memory_allocated(dev)
+        ref = np.load(Path(ref_dir) / f"{label}_t{t}.npz")
+        got = {"shard_candidates": res.shard_candidates,
+               "shard_iterations": res.shard_iterations,
+               "object_bounds": bounds, "iterations": res.iterations,
+               "candidates": np.float32(res.candidates)}
+        got["qcost"] = session._qcost.cpu().numpy()
+        differ = [f for f in RANK_FIELDS
+                  if np.asarray(got[f], ref[f].dtype).tobytes()
+                  != ref[f].tobytes() or np.shape(got[f]) != ref[f].shape]
+        if [res.maintenance, bool(res.rebuilt)] != [str(ref["maintenance"]),
+                                                     bool(ref["rebuilt"])]:
+            differ.append("rebuild decision")
+        rows = (res.nn_idx != ref["idx"]).any(1) | (
+            res.nn_dist.view(np.uint32) != ref["dist"].view(np.uint32)).any(1)
+        owns = bool(res.shard_iterations.reshape(-1, od)[cell[0]].any())
+        b1, b2, b3 = (launches[k] for k in ("fused_scan_merge",
+                                              "merge_topk_multi",
+                                              "merge_topk_lists"))
+        report["ticks"].append({
+            "tick": t, "step": step, "wall_ms": wall_ms,
+            "gather_ms": gather_s[0] * 1e3, "peak": peak,
+            "iterations": res.iterations, "owns_rows": owns,
+            "rows_differ": int(rows.sum()), "fields_differ": differ,
+            "launches": {"B1": b1, "B2": b2, "B3": b3}})
+        if rows.any() or differ:
+            raise AssertionError(f"rank {rank} {label} tick {t}: "
+                                 f"{int(rows.sum())} rows and {differ} "
+                                 "differ from phase 9's logical shards")
+        want = (1, 0) if plan.merge == "fused_multi" else (
+            0, od - 1 if owns else 0)
+        if (b2, b3) != want or (owns and b1 < 1):
+            raise AssertionError(f"rank {rank} {label} tick {t}: launches "
+                                 f"B1 {b1}, B2 {b2}, B3 {b3}, want B2/B3 "
+                                 f"{want}")
+    session.finalize_pending()
+    dist.destroy_process_group()
+    (Path(ref_dir) / f"{label}_rank{rank}.json").write_text(
+        json.dumps(report))
+    return 0
+
+
+def distributed(n: int, kept: dict, ticks: dict, card: str) -> dict:
+    """Phase 9's paths (a) and (b) laid onto gloo ranks that share the one
+    card, one grid cell per rank, each rank held against phase 9's records
+    (``kept``, ``ticks``) bit for bit.  Returns each kernel's launches
+    summed over the ranks."""
+    import shutil
+    import tempfile
+
+    totals = {"B1": 0, "B2": 0, "B3": 0}
+    torch.cuda.empty_cache()  # the ranks share the card with this process
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    try:
+        for label in ("a", "b"):
+            for t, (lists, rec) in enumerate(zip(kept[label], ticks[label])):
+                np.savez(Path(ref_dir) / f"{label}_t{t}.npz",
+                         idx=lists["idx"], dist=lists["dist"],
+                         qcost=lists["qcost"],
+                         shard_candidates=np.float32(rec["shard_candidates"]),
+                         shard_iterations=np.int32(rec["shard_iterations"]),
+                         object_bounds=np.int32(rec["object_bounds"]),
+                         iterations=np.int32(rec["iterations"]),
+                         candidates=np.float32(rec["candidates"]),
+                         maintenance=rec["maintenance"],
+                         rebuilt=rec["rebuilt"])
+            _, plan_kw = OBJECT_PATHS[label]
+            shape = plan_kw["mesh_shape"]
+            world = shape if isinstance(shape, int) else shape[0] * shape[1]
+            t0 = time.perf_counter()
+            _spawn_ranks([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--rank-path", label, "--n-objects", str(n),
+                          "--ref-dir", ref_dir], world, f"path {label} ranks")
+            reports = [json.loads((Path(ref_dir) / f"{label}_rank{r}.json")
+                       .read_text()) for r in range(world)]
+            for rep in reports:
+                for tk in rep["ticks"]:
+                    for k in totals:
+                        totals[k] += tk["launches"][k]
+            print("distributed " + json.dumps({
+                "run": label, "plan": reports[0]["describe"], "n_objects": n,
+                "world": world, "backend": reports[0]["backend"],
+                "seconds": time.perf_counter() - t0,
+                "ranks": [{"rank": rep["rank"], "cell": rep["cell"],
+                           **{k: [tk[k] for tk in rep["ticks"]]
+                              for k in ("wall_ms", "gather_ms", "peak",
+                                        "iterations", "owns_rows",
+                                        "rows_differ", "launches")}}
+                          for rep in reports],
+                "held": "every rank bitwise to phase 9 (lists, shard "
+                        "counters, qcost_next, object bounds, decisions)",
+                "card": card}), flush=True)
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    return totals
+
+
+def driver_ranks(n: int, card: str):
+    """The ``knn`` driver under ``torch.distributed.run`` on one rank with
+    a card of its own: the NCCL path builds its groups and runs the plan's
+    collectives on the card, and the rank's lists pass its own check."""
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", "1", "-m", "repro_torch.launch.serve", "knn",
+            "--objects", str(n), "--ticks", "3", "--plan", "hybrid"]
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    log = _join([subprocess.Popen(argv, env=env, cwd=ROOT,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)],
+                "the knn driver under torch.distributed.run")[0]
+    for want in ("backend=nccl world=1", "1 ranks ended every tick with the "
+                 "same lists"):
+        if want not in log:
+            raise AssertionError(f"knn driver: no {want!r} in\n{log[-4000:]}")
+    tick_lines = [ln for ln in log.splitlines() if ln.startswith("[knn] tick")]
+    print("distributed " + json.dumps({
+        "run": "knn driver", "argv": argv[3:], "n_objects": n, "world": 1,
+        "backend": "nccl", "seconds": time.perf_counter() - t0,
+        "ticks": tick_lines, "card": card}), flush=True)
 
 
 def _tick(session):
@@ -2609,10 +2866,16 @@ def main() -> int:
     ap.add_argument("--short-api", action="store_true",
                     help="run the kernel API path at 62,500 rows instead "
                          "of 1,000,000 (a first check)")
+    # one rank of the distributed phase (spawned by it, never by hand)
+    ap.add_argument("--rank-path", choices=sorted(OBJECT_PATHS),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--ref-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
+    if args.rank_path:
+        return rank_path(args.rank_path, args.n_objects, args.ref_dir)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
@@ -2651,12 +2914,9 @@ def main() -> int:
     lap("single")
     rec["launches"] = total["fused_scan_merge"]
     rec_mixed["launches"] = total["fused_scan_merge_mixed"]
-    counts_a, _ = object_path(dev, n, "a", "uniform", seed=0,
-                              plan="object_sharded", mesh_shape=4,
-                              partitioner="equal", merge="fused_multi")
-    counts_b, _ = object_path(dev, n, "b", "gaussian", seed=0,
-                              plan="hybrid", mesh_shape=(2, 3),
-                              partitioner="cost_balanced", merge="fused_merge")
+    kept = {"a": [], "b": []}
+    counts_a, ticks_a = object_path(dev, n, "a", seed=0, keep=kept["a"])
+    counts_b, ticks_b = object_path(dev, n, "b", seed=0, keep=kept["b"])
     for label, counts, kernel in (("a", counts_a, "merge_topk_multi"),
                                   ("b", counts_b, "merge_topk_lists")):
         for name in ("fused_scan_merge", kernel):
@@ -2665,6 +2925,12 @@ def main() -> int:
     rec_multi["launches"] = counts_a["merge_topk_multi"]
     rec_lists["launches"] = counts_b["merge_topk_lists"]
     lap("object_axis")
+    ranks = distributed(n, kept, {"a": ticks_a, "b": ticks_b}, card)
+    del kept
+    for r, name in ((rec, "B1"), (rec_multi, "B2"), (rec_lists, "B3")):
+        r["distributed_launches"] = ranks[name]
+    driver_ranks(n, card)
+    lap("distributed")
     # the host-bound object-axis sessions run at 50,000 objects: each still
     # launches the wide template or takes the maintenance route it is for
     n_axis = min(n, 50_000)

@@ -4,7 +4,8 @@ The JAX package ``repro`` is the reference; this package imports nothing of
 it and nothing of JAX.  Entry points run on the card unless the caller passes
 ``device="cpu"``.  So far the port covers ``KnnSession`` ticks on every
 execution plan (the mesh plans' shards run one after another on the one
-card) and every collect mode, through the hand-written CUDA kernels
+card, or one grid cell per ``torch.distributed`` rank under a process
+group, ``launch.mesh``) and every collect mode, through the hand-written CUDA kernels
 ``kernels/csrc/fused_scan.cu`` (backend ``fused_bucket``) and
 ``kernels/csrc/merge_topk.cu`` (merges ``fused_multi`` and ``fused_merge``),
 the multi-tenant server (``repro_torch.serve``), the ``knn`` entry point

@@ -2,7 +2,9 @@
 
 Same fields and defaults as the reference's ``repro/api/spec.py``, and the
 same eager validation.  Every plan, partitioner and merge backend runs; the
-mesh plans lay ``mesh_shape`` logical shards onto the session's one device.
+mesh plans lay ``mesh_shape`` logical shards onto the session's one device,
+or, under a ``torch.distributed`` process group, one shard onto each rank
+(``mesh_shape`` None: the world size).
 Both maintenance modes and the three collect modes run (``"full"`` copies
 the lists to the host, ``"stats"`` only the sink's aggregates, ``"none"``
 nothing).  Both precisions run: ``"mixed"`` adds the bf16 prefilter to

@@ -23,10 +23,16 @@ Counterpart of ``repro/core/plan.py``.  Four plans:
     object slice ``j``, lists reduced along the object axis.
 
 The reference lays these shards onto a ``shard_map`` mesh of devices.  Here
-every shard runs on the session's one device, one after another:
-``mesh_shape`` counts logical shards.  Each shard reads exactly what its
-device would (the same boundaries, the same ``capo``-row object window with
-its clone rows), so per-shard counters and results equal the reference's.
+a plan holds a mesh of :mod:`repro_torch.launch.mesh`: with no process
+group a logical one, and every shard runs on the session's one device, one
+after another (``mesh_shape`` counts logical shards); under a
+``torch.distributed`` process group a ``DeviceMesh`` over the world's
+ranks, and each rank runs its own grid cell, then gathers the partial lists
+over the ``object`` group, the merged rows over the ``query`` group and the
+counters over the world (:func:`_grid_run`).  Each shard reads exactly what
+its device would (the same boundaries, the same ``capo``-row object window
+with its clone rows), so per-shard counters and results equal the
+reference's, and every rank ends a tick with the same bits.
 Results never depend on the partition (the composition law of DESIGN.md
 §12): every plan equals ``single`` bit for bit.  The reference's static
 per-shard capacities exist for ``jit``; the port sweeps each query shard's
@@ -47,8 +53,12 @@ from typing import ClassVar, NamedTuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..kernels.ops import get_merge_backend, tree_merge_lists
+from ..launch.mesh import (LogicalMesh, default_hybrid_shape,
+                           make_object_mesh, make_query_mesh,
+                           make_spatial_mesh, mesh_cell, world_size)
 from ..runtime import fma, resolve_device, sqrt
 from . import morton
 from .balance import EqualPartitioner, Partitioner, resolve_partitioner
@@ -130,18 +140,6 @@ def object_shard_capacity(n_objects: int, num_shards: int) -> int:
     if num_shards < 1:
         raise ValueError(f"num_shards must be >= 1, got {num_shards}")
     return -(-max(1, n_objects) // num_shards)
-
-
-def default_hybrid_shape(num_devices: int | None = None) -> tuple[int, int]:
-    """Most balanced ``(query, object)`` factorization, ``query <= object``.
-
-    ``None`` is the one device a session runs on: ``(1, 1)``.
-    """
-    n = 1 if num_devices is None else int(num_devices)
-    if n < 1:
-        raise ValueError(f"need at least one device, got {n}")
-    q = max(d for d in range(1, int(n**0.5) + 1) if n % d == 0)
-    return (q, n // q)
 
 
 def _query_cost_estimate(index: QuadtreeIndex, qpos_s, window: int):
@@ -365,17 +363,56 @@ class SinglePlan(ExecutionPlan):
         return "plan=single shards=1 devices=1"
 
 
-def _grid_run(index, qpos, qid, qcost, qweight, *, qd, od, partitioner,
-              merge, maintenance, k, window, chunk, max_nav, max_iters,
-              executor):
-    """The (query, object) grid, shard after shard on one device.
+def _pack(idx, d2, cq):
+    """(rows, k) ids and d2 and (rows,) candidate volumes as one (rows,
+    2k + 1) int32 tensor, the floats by their bits: one collective a gather."""
+    return torch.cat([idx, d2.view(torch.int32),
+                      cq.view(torch.int32)[:, None]], 1)
+
+
+def _unpack(packed, k: int):
+    return (packed[..., :k].contiguous(),
+            packed[..., k:2 * k].contiguous().view(torch.float32),
+            packed[..., 2 * k].contiguous().view(torch.float32))
+
+
+def _gather(t, group=None) -> list:
+    """``all_gather`` of ``t`` over ``group`` (default: the world), in the
+    group's rank order, which is the mesh dimension's order."""
+    out = [torch.empty_like(t)
+           for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, t, group=group)
+    return out
+
+
+def _gather_stats(st: KnnStats) -> list[KnnStats]:
+    """Every rank's shard counters, in rank order (query-major), by their
+    bits: the f32 candidates are gathered, never reduced in flight."""
+    packed = torch.stack([st.iterations, st.candidates.view(torch.int32),
+                          st.leaves_visited])
+    return [KnnStats(iterations=p[0], candidates=p[1].view(torch.float32),
+                     leaves_visited=p[2]) for p in _gather(packed)]
+
+
+def _grid_run(index, qpos, qid, qcost, qweight, *, qd, od, mesh,
+              partitioner, merge, maintenance, k, window, chunk, max_nav,
+              max_iters, executor):
+    """The (query, object) grid: on a logical mesh every cell in turn on one
+    device, on a rank mesh this rank's own cell.
 
     Query shard ``i`` owns chunks ``[bq[i], bq[i+1])`` of the sorted batch.
     ``od = None`` sweeps the whole index (the ``sharded`` plan); otherwise
     object shard ``j`` owns the Morton rows ``[bo[j], bo[j+1])``, read
     through a ``capo``-row window into a local tree, and query shard ``i``'s
     ``od`` partial lists merge with ``merge``.  Per-shard counters are
-    query-major, ``i * od + j``; ``cand_q`` sums over ``j``.
+    query-major, ``i * od + j``; ``cand_q`` sums over ``j`` in ``j`` order.
+
+    Every rank computes the boundaries, the cost EMA and every decision from
+    replicated inputs, and joins every collective whatever it owns: the
+    object-axis gather (skipped by the whole ``object`` group when its query
+    shard owns no chunk, which every rank knows), the query-axis gather
+    (rows padded to the largest shard's, trimmed by ``bq``) and the counters'
+    gather over the world.
     """
     dev = qpos.device
     nq = qpos.shape[0]
@@ -388,48 +425,68 @@ def _grid_run(index, qpos, qid, qcost, qweight, *, qd, od, partitioner,
         bq = _query_bounds(partitioner, index, qpos_s, order, qcost, qweight,
                            window=window, chunk=chunk, num_shards=qd)
     object_axis = od is not None
+    cell = mesh_cell(mesh)
+    if cell is None:
+        cells_i, cells_j = range(qd), range(od or 1)
+    else:
+        cells_i, cells_j = [cell[0]], [cell[1]]
     if not object_axis:
         bo_t = torch.tensor([0, index.n_objects], dtype=torch.int32,
                             device=dev)
-        locals_ = [index]
+        locals_ = {0: index}
     else:
         capo = partitioner.object_capacity(index.n_objects, od)
         bo_t = partitioner.object_boundaries(_object_row_costs(index), od)
         bo = bo_t.tolist()
         opos, oids, ocodes = _pad_object_tail(index, capo)
-        locals_ = [
-            _shard_local_index(index, opos, oids, ocodes, bo[j],
-                               bo[j + 1] - bo[j], capo, maintenance)
-            for j in range(od)
-        ]
-    idx_s = torch.empty((nq, k), dtype=torch.int32, device=dev)
-    d2_s = torch.empty((nq, k), dtype=torch.float32, device=dev)
-    cq_s = torch.empty((nq,), dtype=torch.float32, device=dev)
+        locals_ = {
+            j: _shard_local_index(index, opos, oids, ocodes, bo[j],
+                                  bo[j + 1] - bo[j], capo, maintenance)
+            for j in cells_j
+        }
     shard_stats = []
-    for i in range(qd):
+    merged = {}  # query shard -> its rows' (idx, d2, cand_q), sorted order
+    for i in cells_i:
         rows = slice(bq[i] * chunk, bq[i + 1] * chunk)
         if bq[i + 1] == bq[i]:  # owns no chunk: zero stats, nothing gathered
-            shard_stats += [_zero_stats(dev)] * len(locals_)
+            shard_stats += [_zero_stats(dev)] * len(cells_j)
             continue
         parts = []
-        for local in locals_:
+        for j in cells_j:
             idx_l, d2_l, st, cq_l = _chunked_sweep(
-                local, qpos_s[rows], qid_s[rows], k=k, window=window,
+                locals_[j], qpos_s[rows], qid_s[rows], k=k, window=window,
                 chunk=chunk, max_nav=max_nav, max_iters=max_iters,
                 executor=executor,
             )
             parts.append((idx_l, d2_l, cq_l))
             shard_stats.append(st)
         if not object_axis:
-            idx_s[rows], d2_s[rows], cq_s[rows] = parts[0]
+            merged[i] = parts[0]
             continue
+        if cell is not None:
+            parts = [_unpack(p, k) for p in _gather(
+                _pack(*parts[0]), mesh.get_group("object"))]
         d2_m, idx_m = tree_merge_lists(
             torch.stack([p[1] for p in parts]),
             torch.stack([p[0] for p in parts]), k=k, merge=merge)
         cq = parts[0][2]
         for p in parts[1:]:
             cq = cq + p[2]
-        idx_s[rows], d2_s[rows], cq_s[rows] = idx_m, d2_m, cq
+        merged[i] = (idx_m, d2_m, cq)
+    if cell is not None:
+        shard_stats = _gather_stats(shard_stats[0])
+        if "query" in mesh.mesh_dim_names:
+            pad = max(b - a for a, b in zip(bq, bq[1:])) * chunk
+            mine = merged.get(cell[0])
+            packed = torch.zeros((pad, 2 * k + 1), dtype=torch.int32,
+                                 device=dev)
+            if mine is not None:
+                packed[: mine[0].shape[0]] = _pack(*mine)
+            blocks = _gather(packed, mesh.get_group("query"))
+            merged = {i: _unpack(blocks[i][: (bq[i + 1] - bq[i]) * chunk], k)
+                      for i in range(qd) if bq[i + 1] > bq[i]}
+    idx_s, d2_s, cq_s = (torch.cat([merged[i][f] for i in sorted(merged)])
+                         for f in range(3))
     aux = PlanAux(
         stats=_stats_total(shard_stats),
         shard_candidates=torch.stack([s.candidates for s in shard_stats]),
@@ -440,17 +497,28 @@ def _grid_run(index, qpos, qid, qcost, qweight, *, qd, od, partitioner,
     return idx_s[inv], sqrt(d2_s[inv]), aux
 
 
+def _devices(mesh) -> str:
+    """``devices=`` of a plan's description: 1 on a logical mesh, else the
+    world and its backend."""
+    if isinstance(mesh, LogicalMesh):
+        return "devices=1"
+    return f"devices={mesh.size()} backend={dist.get_backend()}"
+
+
 @dataclasses.dataclass(frozen=True)
 class ShardedPlan(ExecutionPlan):
     """Query-sharded sweep over the whole index: R query shards."""
 
     num_devices: int
     partitioner: Partitioner = EqualPartitioner()
+    # laid at construction (launch.mesh): logical, or the world's ranks
+    mesh: object = dataclasses.field(init=False, compare=False, repr=False)
     name: ClassVar[str] = "sharded"
 
     def __post_init__(self):
         if self.num_devices < 1:
             raise ValueError(f"num_devices must be >= 1, got {self.num_devices}")
+        object.__setattr__(self, "mesh", make_query_mesh(self.num_devices))
 
     def pad_multiple(self, chunk: int) -> int:
         # every query shard is a whole number of chunks
@@ -461,14 +529,14 @@ class ShardedPlan(ExecutionPlan):
         del maintenance  # the whole index is swept: no local trees
         _check_rows(self, qpos.shape[0], kw["chunk"])
         return _grid_run(index, qpos, qid, qcost, qweight,
-                         qd=self.num_devices, od=None,
+                         qd=self.num_devices, od=None, mesh=self.mesh,
                          partitioner=self.partitioner, merge=None,
                          maintenance="rebuild", **kw)
 
     def describe(self) -> str:
         return (
             f"plan=sharded mesh=({self.num_devices},) axes=('query',) "
-            f"shards={self.num_devices} devices=1 "
+            f"shards={self.num_devices} {_devices(self.mesh)} "
             f"partitioner={self.partitioner.name}"
         )
 
@@ -480,12 +548,15 @@ class ObjectShardedPlan(ExecutionPlan):
     num_devices: int
     merge: str = "dense_merge"
     partitioner: Partitioner = EqualPartitioner()
+    # laid at construction (launch.mesh): logical, or the world's ranks
+    mesh: object = dataclasses.field(init=False, compare=False, repr=False)
     name: ClassVar[str] = "object_sharded"
 
     def __post_init__(self):
         if self.num_devices < 1:
             raise ValueError(f"num_devices must be >= 1, got {self.num_devices}")
         get_merge_backend(self.merge)  # fail fast on unknown names
+        object.__setattr__(self, "mesh", make_object_mesh(self.num_devices))
 
     @property
     def object_axis_size(self) -> int:
@@ -499,13 +570,15 @@ class ObjectShardedPlan(ExecutionPlan):
         del qweight  # queries are not split: no boundary to seed
         _check_rows(self, qpos.shape[0], kw["chunk"])
         return _grid_run(index, qpos, qid, qcost, None, qd=1,
-                         od=self.num_devices, partitioner=self.partitioner,
-                         merge=self.merge, maintenance=maintenance, **kw)
+                         od=self.num_devices, mesh=self.mesh,
+                         partitioner=self.partitioner, merge=self.merge,
+                         maintenance=maintenance, **kw)
 
     def describe(self) -> str:
         return (
             f"plan=object_sharded mesh=({self.num_devices},) "
-            f"axes=('object',) shards={self.num_devices} devices=1 "
+            f"axes=('object',) shards={self.num_devices} "
+            f"{_devices(self.mesh)} "
             f"merge={self.merge} partitioner={self.partitioner.name}"
         )
 
@@ -518,6 +591,8 @@ class HybridPlan(ExecutionPlan):
     object_devices: int
     merge: str = "dense_merge"
     partitioner: Partitioner = EqualPartitioner()
+    # laid at construction (launch.mesh): logical, or the world's ranks
+    mesh: object = dataclasses.field(init=False, compare=False, repr=False)
     name: ClassVar[str] = "hybrid"
 
     def __post_init__(self):
@@ -527,6 +602,8 @@ class HybridPlan(ExecutionPlan):
                 f"({self.query_devices}, {self.object_devices})"
             )
         get_merge_backend(self.merge)
+        object.__setattr__(self, "mesh", make_spatial_mesh(
+            self.query_devices, self.object_devices))
 
     @property
     def object_axis_size(self) -> int:
@@ -540,14 +617,15 @@ class HybridPlan(ExecutionPlan):
         _check_rows(self, qpos.shape[0], kw["chunk"])
         return _grid_run(index, qpos, qid, qcost, qweight,
                          qd=self.query_devices, od=self.object_devices,
-                         partitioner=self.partitioner, merge=self.merge,
-                         maintenance=maintenance, **kw)
+                         mesh=self.mesh, partitioner=self.partitioner,
+                         merge=self.merge, maintenance=maintenance, **kw)
 
     def describe(self) -> str:
         return (
             f"plan=hybrid mesh=({self.query_devices}, {self.object_devices}) "
             f"axes=('query', 'object') "
-            f"shards={self.query_devices * self.object_devices} devices=1 "
+            f"shards={self.query_devices * self.object_devices} "
+            f"{_devices(self.mesh)} "
             f"merge={self.merge} partitioner={self.partitioner.name}"
         )
 
@@ -577,9 +655,10 @@ def _make_single(num_devices=None, partitioner=None, merge=None):
 
 
 def _as_1d(name: str, num_devices) -> int:
-    """``mesh_shape`` of a 1-D plan; ``None`` is the session's one device."""
+    """``mesh_shape`` of a 1-D plan; ``None`` is every device: the world's
+    ranks under a process group, else the session's one device."""
     if num_devices is None:
-        return 1
+        return world_size() or 1
     if isinstance(num_devices, (tuple, list)):
         raise ValueError(
             f"plan {name!r} lays a 1-D mesh; mesh_shape must be an int, "
@@ -624,8 +703,10 @@ def resolve_plan(plan, *, num_devices=None, partitioner=None,
                  merge=None) -> ExecutionPlan:
     """Name | ExecutionPlan | None -> ExecutionPlan (default: single).
 
-    ``num_devices`` is ``mesh_shape``: an int of logical shards for the 1-D
-    plans, a ``(query, object)`` pair for ``hybrid``; ``None`` is one.
+    ``num_devices`` is ``mesh_shape``: an int of shards for the 1-D plans,
+    a ``(query, object)`` pair for ``hybrid``; ``None`` is every device (one
+    without a process group, the world size under one).  Under a process
+    group the mesh's size must equal the world size.
     ``partitioner`` and ``merge`` are registry names (defaults ``equal`` and
     ``dense_merge``), ignored when ``plan`` is already an instance.
     """

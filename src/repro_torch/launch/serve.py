@@ -6,30 +6,65 @@ query batches over moving objects, one batch per tick, served through a
 :class:`repro_torch.serve.KnnServer` shared by N tenants.  It runs on the card
 unless given ``--device cpu``.
 
+Under ``python -m torch.distributed.run --nproc-per-node N`` every process
+joins the process group the launcher describes
+(:func:`repro_torch.launch.mesh.init_from_env`: NCCL when every rank has a
+card of its own, gloo on the CPU and when ranks share a card), and a mesh
+plan lays one grid cell on each of the N ranks (its ``mesh_shape`` is left
+None: the world size).
+Every rank serves the same ticks; rank 0 prints the tick lines, and every
+rank checks its own lists and that they equal every other rank's.
+
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve knn --objects 50000 --ticks 10 --k 32
   PYTHONPATH=src python -m repro_torch.launch.serve knn --objects 1000000 --ticks 3 --tenants 4
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.serve knn --plan object_sharded
 """
 from __future__ import annotations
 
 import argparse
+import hashlib
 import sys
 import time
 
 import numpy as np
+import torch.distributed as dist
 
 from ..api import KnnSession, ServiceSpec
 from ..data.generators import make_workload
+from .mesh import init_from_env
 
 
-def serve_knn(args) -> int:
+def _check_lists(res, n_objects: int, k: int) -> str:
+    """Raise unless every row is ``k`` ascending distances over object ids
+    (``(inf, -1)`` padded); return a digest of the lists' bits."""
+    idx, dist_ = res.nn_idx, res.nn_dist
+    if idx.shape[1] != k or dist_.shape != idx.shape:
+        raise AssertionError(f"tick {res.tick}: lists of shape {idx.shape}")
+    filled = idx >= 0
+    if (idx >= n_objects).any() or not np.isfinite(dist_[filled]).all() or (
+            np.diff(dist_, axis=1) < 0).any() or not np.isinf(
+            dist_[~filled]).all():
+        raise AssertionError(f"tick {res.tick}: malformed lists")
+    return hashlib.sha256(idx.tobytes() + dist_.tobytes()).hexdigest()
+
+
+def serve_knn(args, device=None) -> int:
+    """One session over ``--ticks`` ticks; ``device`` (this rank's, under a
+    process group) overrides ``--device``."""
     spec = ServiceSpec(k=args.k, th_quad=args.th_quad, l_max=args.l_max,
                        chunk=args.chunk, plan=args.plan,
                        partitioner=args.partitioner, collect=args.collect,
                        maintenance=args.maintenance)
+    ranked = dist.is_initialized()
     if args.tenants > 1:
+        if ranked:
+            raise ValueError("--tenants serves one KnnServer in one process; "
+                             "it does not run under a process group")
         return serve_knn_tenants(args, spec)
-    session = KnnSession(spec, device=args.device)
+    session = KnnSession(spec, device=device or args.device)
+    lead = not ranked or dist.get_rank() == 0
     w = make_workload(args.objects, args.distribution, seed=args.seed)
     tput = []
 
@@ -38,6 +73,8 @@ def serve_knn(args) -> int:
         qps = args.objects / max(tick_s, 1e-9)
         tput.append(qps)
         extra = f" compile={res.compile_s:.2f}s" if res.compile_s else ""
+        if not lead:
+            return
         print(
             f"[knn] tick {res.tick}: {tick_s * 1e3:.1f} ms, "
             f"{qps / 1e3:.1f}K queries/s, iters={res.iterations} "
@@ -69,6 +106,19 @@ def serve_knn(args) -> int:
             session.update_queries(hq, w.query_batch(1.0)[0])
         res = session.submit().result()
         on_tick(res, time.time() - t0 - res.compile_s)
+        if res.nn_idx is not None:
+            digest = _check_lists(res, args.objects, args.k)
+            if ranked:
+                digests = [None] * dist.get_world_size()
+                dist.all_gather_object(digests, digest)
+                if len(set(digests)) != 1:
+                    raise AssertionError(f"tick {res.tick}: the ranks' lists "
+                                         f"differ ({digests})")
+    if not lead:
+        return 0
+    if ranked:
+        print(f"[knn] {dist.get_world_size()} ranks ended every tick with "
+              "the same lists", flush=True)
     if len(tput) > 1:
         print(f"[knn] steady-state throughput: {np.median(tput[1:]):.0f} "
               "queries/s")
@@ -147,7 +197,18 @@ def main(argv=None) -> int:
     k.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, or cpu)")
     args = ap.parse_args(argv)
-    return serve_knn(args)
+    ranks = init_from_env(args.device)
+    if ranks is None:
+        return serve_knn(args)
+    dev, backend = ranks
+    try:
+        if dist.get_rank() == 0:
+            print(f"[knn] process group: backend={backend} "
+                  f"world={dist.get_world_size()}", flush=True)
+        print(f"[knn] rank {dist.get_rank()} on {dev}", flush=True)
+        return serve_knn(args, device=dev)
+    finally:
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -30,7 +30,9 @@ def test_port_imports_no_jax_and_no_reference():
     expected = {m.name for m in pkgutil.walk_packages(
         [str(ROOT / "src" / "repro_torch")], "repro_torch.")}
     assert int(n_modules) == len(expected) >= 15
-    assert {"repro_torch.testing", "repro_torch.properties"} <= expected
+    assert {"repro_torch.testing", "repro_torch.properties",
+            "repro_torch.dist", "repro_torch.dist.sharding",
+            "repro_torch.launch.mesh"} <= expected
     assert leaked == "[]", leaked
 
 

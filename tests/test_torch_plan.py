@@ -129,8 +129,15 @@ def _drive_session(session, inp):
     return out
 
 
-def _jax_main(in_path, out_path):
-    """The reference's side, run in the subprocess (8 host devices)."""
+def _weights(inp, name, rows):
+    """The boundary weights of case ``name``'s weighted tick: its own, where
+    the inputs carry them, else the shared draw."""
+    return inp.get(f"weights/{name}", inp["weights"])[:rows]
+
+
+def _jax_main(in_path, out_path, cases=CASES):
+    """The reference's side, run in the subprocess (8 host devices): the
+    plan ``cases`` and the session."""
     import jax
     import jax.numpy as jnp
 
@@ -143,7 +150,7 @@ def _jax_main(in_path, out_path):
     assert jax.device_count() == 8, jax.device_count()
     inp = dict(np.load(in_path))
     out = {}
-    for name, plan, mesh, part, merge, fam, n_ticks in CASES:
+    for name, plan, mesh, part, merge, fam, n_ticks in cases:
         pts = inp[f"pos/{fam}"]
         idx = jbuild(jnp.asarray(pts), jnp.zeros(2), SIDE, l_max=L_MAX,
                      th_quad=TH)
@@ -153,7 +160,7 @@ def _jax_main(in_path, out_path):
                                    p.pad_multiple(CHUNK))
         qcost = jnp.zeros((qp.shape[0],), jnp.float32)
         for t, (mode, weighted) in enumerate(TICKS[:n_ticks]):
-            w = inp["weights"][: qp.shape[0]] if weighted else None
+            w = _weights(inp, name, qp.shape[0]) if weighted else None
             ii, dd, aux = jplan.run_plan_device(
                 idx, jnp.asarray(qp), jnp.asarray(qi), qcost,
                 None if w is None else jnp.asarray(w), k=K, window=WINDOW,
