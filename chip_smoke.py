@@ -71,17 +71,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    object-axis ``skip`` route runs in phase 16's maintenance draw).
    ``fused_multi`` must launch once per tick in (a), ``fused_merge`` twice
    per query shard that owns rows in (b);
-10. distributed (:func:`distributed`, :func:`driver_ranks`): (a) and (b)
-   again, one grid cell per ``torch.distributed`` rank (4 and 6 gloo
-   ranks sharing the card, each a process of this script with
-   ``--rank-path``, over the same data): every rank's lists, per-shard
-   counters, cost EMA, object bounds and rebuild decisions must equal phase
-   9's records bit for bit; on every rank of (a) ``fused_multi`` launches
-   once a tick, in (b) ``fused_merge`` twice a tick on the ranks whose query
-   shard owns rows; then the ``knn`` driver under ``python -m
-   torch.distributed.run --nproc-per-node 1`` on NCCL (``--plan hybrid``);
-   a ``distributed`` line per run (each rank's wall, peak, iterations and
-   B1-B3 launches);
+10. distributed (:func:`distributed`, :func:`driver_ranks`,
+   :func:`server_ranks`): (a) and (b) again, one grid cell per
+   ``torch.distributed`` rank (4 and 6 gloo ranks sharing the card, each a
+   process of this script with ``--rank-path``, over the same data): every
+   rank's lists, per-shard counters, cost EMA, object bounds and rebuild
+   decisions must equal phase 9's records bit for bit; on
+   every rank of (a) ``fused_multi`` launches once a tick, in (b)
+   ``fused_merge`` twice a tick on the ranks whose query shard owns rows;
+   then the ``knn`` driver under ``python -m torch.distributed.run
+   --nproc-per-node 1`` on NCCL (``--plan hybrid``); then a four-tenant
+   ``KnnServer`` on ``object_sharded`` 4 at 200,000 objects (the build, a
+   pure-cache tick, a stab, an epoch clear), logically and then one replica
+   on each of 4 gloo ranks (``--rank-server``), every rank's tenant rows
+   and tick counters equal to the logical server's, and the ``knn`` driver
+   with four tenants under ``torch.distributed.run`` on 4 gloo ranks, its
+   ranks' digests equal; a ``distributed`` line per run (each rank's wall,
+   gather time, peak and launches);
 11. wide sessions (:func:`wide_sessions`): specs that raised on the card
    before the wide templates, each equal to its oracle or twin and
    launching the wide template it exists for; the ``single`` ones at
@@ -127,7 +133,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    clouds with coincident duplicates: fp32, ``mixed`` and ``dense_topk``
    equal on every row, 1,024 rows to the oracle, ``object_sharded`` 4 at
    200,000 equal to ``single``); Part C, the kernel API (B1-B6) on drawn
-   shapes against the plain versions.
+   shapes against the plain versions;
+17. lm (:func:`lm_phase`), the LM harness's serving path, which reaches
+   no kernel: ``python -m repro_torch.launch.serve lm --arch rwkv6_3b
+   --prompt-len 128 --batch 4 --tokens 16`` at full width and depth, the
+   nine other architectures at full width in bf16 (a prefill of 128 and 16
+   decode steps, depth cut to ``LM_DEPTHS`` where one card forces it),
+   every logit finite; every architecture at full width, cut to one to
+   eight layers (``LM_WIDE_DEPTHS``), its bf16 logits equal to its float32
+   run's on the card within ``LM_BF16_REL`` (rwkv6: its float32 logits to
+   the CPU port's within ``LM_TOL``); then every smoke config in
+   float32 on the card equal to the CPU port on the same weights within
+   ``LM_TOL``.
 
 Launch counts are zeroed just before each path (each tick, in the single
 and server paths) and read just after, on the path's own session only.  The
@@ -1866,6 +1883,214 @@ def driver_ranks(n: int, card: str):
         "ticks": tick_lines, "card": card}), flush=True)
 
 
+# the server on ranks: objects, plan, and the ranks' world
+RANK_SERVER_N = 200_000
+RANK_SERVER_PLAN = dict(plan="object_sharded", mesh_shape=4,
+                        merge="fused_multi")
+RANK_SERVER_WORLD = 4
+
+
+def server_ticks(dev, n: int, gather_s=None, seed: int = 0) -> list:
+    """The four-tenant server of :func:`server_path` over ``n`` uniform
+    objects on ``RANK_SERVER_PLAN`` (``fused_bucket``, spatial
+    invalidation, the stab budget scaled with N), through its four steps:
+    the build, an unchanged tick (all from the cache), tenant 2 moves N /
+    500 objects (the stab), tenant 3 moves 1% (over the budget: the epoch
+    clears).  Returns per tick its counters, the entries it evicted, a
+    digest of each tenant group's rows, and its wall, B1/B2 launches, peak
+    and (with ``gather_s``, a one-element list the caller's timed gather
+    adds to) its seconds in the plan's gathers.  Under a process group
+    every rank runs it with a replica of the server."""
+    import hashlib
+
+    from repro_torch.api import ServiceSpec
+    from repro_torch.data.generators import make_workload
+    from repro_torch.serve import KnnServer
+
+    spec = ServiceSpec(backend="fused_bucket", **RANK_SERVER_PLAN)
+    pos = make_workload(n, "uniform", seed=seed + 7, side=spec.side
+                        ).positions().copy()
+    g = np.random.default_rng(seed + 8)
+    qid = np.arange(n, dtype=np.int32)
+    server = KnnServer(spec, device=dev, invalidation="spatial",
+                       cache_entries=1_048_576,
+                       stab_budget=4096 * n // 1_000_000)
+    server.ingest_objects(pos)
+    tenants, groups, _ = _four_tenants(server, pos.copy(), qid)
+    steps = [("build", None, 0), ("unchanged", None, 0),
+             ("tenant 2 moves N / 500", 2, n // 500),
+             ("tenant 3 moves 1%", 3, n // 100)]
+    out = []
+    for step, mover, m in steps:
+        inval0 = server.cache.stats.invalidations
+        if mover is not None:
+            ids, new = _move(g, pos, n, 0.0, spec.side,
+                             ids=g.choice(n, m, replace=False
+                                          ).astype(np.int32))
+            pos[ids] = new
+            tenants[mover].update_objects(ids, new)
+        _zero_counts()
+        if gather_s is not None:
+            gather_s[0] = 0.0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        st = server.submit()
+        res = st.result()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = _read_counts()
+        digests = []
+        for group in groups:
+            ii, dd, qq = st.result_for(group)
+            digests.append(hashlib.sha256(
+                ii.tobytes() + dd.tobytes() + qq.tobytes()).hexdigest())
+        out.append({
+            "step": step, "rows": res.rows_total, "unique": res.rows_unique,
+            "computed": res.rows_computed, "dedup_hits": res.dedup_hit_rows,
+            "cache_hits": res.cache_hit_rows, "epoch": res.epoch,
+            "rebuilt": bool(res.rebuilt), "submitted": res.inner is not None,
+            "evicted": server.cache.stats.invalidations - inval0,
+            "invalidation": server.cache.last_invalidation,
+            "digests": digests, "wall_ms": wall_ms,
+            "gather_ms": None if gather_s is None else gather_s[0] * 1e3,
+            "peak": torch.cuda.max_memory_allocated(dev),
+            "launches": {"B1": counts["fused_scan_merge"],
+                         "B2": counts["merge_topk_multi"]}})
+    server.session.finalize_pending()
+    return out
+
+
+# what every rank's server ticks must give as the logical run gave them
+SERVER_HELD = ("step", "rows", "unique", "computed", "dedup_hits",
+               "cache_hits", "epoch", "rebuilt", "submitted", "evicted",
+               "invalidation", "digests")
+
+
+def rank_server(n: int, ref_dir: str) -> int:
+    """One rank of the server on ranks (run by :func:`server_ranks`):
+    :func:`server_ticks` with a replica of the server on this rank, every
+    tick held against the logical run's records in ``ref_dir``."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import init_from_env
+
+    dev, backend = init_from_env("cuda")
+    rank = dist.get_rank()
+    gather_s = [0.0]
+    all_gather = dist.all_gather
+
+    def timed_gather(*a, **kw):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        try:
+            return all_gather(*a, **kw)
+        finally:
+            torch.cuda.synchronize(dev)
+            gather_s[0] += time.perf_counter() - t0
+
+    dist.all_gather = timed_gather
+    ticks = server_ticks(dev, n, gather_s)
+    dist.destroy_process_group()
+    ref = json.loads((Path(ref_dir) / "server_logical.json").read_text())
+    for t, (got, want) in enumerate(zip(ticks, ref)):
+        differ = [f for f in SERVER_HELD if got[f] != want[f]]
+        if differ:
+            raise AssertionError(f"rank {rank} server tick {t}: {differ} "
+                                 "differ from the logical server's")
+        if got["submitted"] and got["launches"]["B2"] != 1:
+            raise AssertionError(f"rank {rank} server tick {t}: B2 "
+                                 f"launched {got['launches']['B2']} times")
+    (Path(ref_dir) / f"server_rank{rank}.json").write_text(json.dumps(
+        {"rank": rank, "backend": backend, "device": str(dev),
+         "ticks": ticks}))
+    return 0
+
+
+def server_ranks(n: int, card: str) -> dict:
+    """The four-tenant server on ``RANK_SERVER_WORLD`` gloo ranks sharing
+    the card, one replica a rank, each rank's ticks bitwise equal to the
+    logical-shard server run here first; then the ``knn`` driver with four
+    tenants under ``torch.distributed.run`` on as many ranks.  Returns the
+    B1 and B2 launches summed over the ranks."""
+    import shutil
+    import tempfile
+
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    logical = server_ticks(dev, n)
+    logical_s = time.perf_counter() - t0
+    dup = min(65_536, len(range(1, n, 4)))  # tenant 0's duplicate rows
+    for t, tk in enumerate(logical):
+        exp = {0: (n, dup, 0), 1: (0, 0, n + dup), 3: (n, dup, 0)}.get(t)
+        got = (tk["computed"], tk["dedup_hits"], tk["cache_hits"])
+        if (exp is not None and got != exp) or (
+                t == 2 and not 0 < tk["computed"] == tk["evicted"] < n) or (
+                t == 3 and tk["epoch"] != logical[2]["epoch"] + 1) or (
+                tk["submitted"] != (t != 1)):
+            raise AssertionError(f"logical server tick {t}: {tk}")
+    torch.cuda.empty_cache()
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_server_")
+    totals = {"B1": 0, "B2": 0}
+    try:
+        (Path(ref_dir) / "server_logical.json").write_text(
+            json.dumps(logical))
+        t0 = time.perf_counter()
+        _spawn_ranks([sys.executable, str(ROOT / "chip_smoke.py"),
+                      "--rank-server", "--n-objects", str(n), "--ref-dir",
+                      ref_dir], RANK_SERVER_WORLD, "server ranks")
+        ranks_s = time.perf_counter() - t0
+        reports = [json.loads((Path(ref_dir) / f"server_rank{r}.json")
+                   .read_text()) for r in range(RANK_SERVER_WORLD)]
+    finally:
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    for rep in reports:
+        for tk in rep["ticks"]:
+            for k in totals:
+                totals[k] += tk["launches"][k]
+    print("distributed " + json.dumps({
+        "run": "server", "plan": RANK_SERVER_PLAN, "n_objects": n,
+        "tenants": 4, "world": RANK_SERVER_WORLD,
+        "backend": reports[0]["backend"], "seconds": ranks_s,
+        "logical_seconds": logical_s,
+        "ticks": [{k: tk[k] for k in SERVER_HELD if k != "digests"}
+                  for tk in logical],
+        "logical_wall_ms": [tk["wall_ms"] for tk in logical],
+        "logical_peak": [tk["peak"] for tk in logical],
+        "ranks": [{"rank": rep["rank"],
+                   **{k: [tk[k] for tk in rep["ticks"]]
+                      for k in ("wall_ms", "gather_ms", "peak",
+                                "launches")}} for rep in reports],
+        "held": "every rank's tenant rows (digests) and tick counters equal "
+                "the logical server's", "card": card}), flush=True)
+    n_driver = n // 4
+    argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+            "--nproc-per-node", str(RANK_SERVER_WORLD), "-m",
+            "repro_torch.launch.serve", "knn", "--objects", str(n_driver),
+            "--ticks", "2", "--tenants", "4", "--plan", "object_sharded"]
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1")
+    log = _join([subprocess.Popen(argv, env=env, cwd=ROOT,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)],
+                "the knn driver with tenants under torch.distributed.run")[0]
+    for want in (f"backend=gloo world={RANK_SERVER_WORLD}",
+                 f"{RANK_SERVER_WORLD} ranks ended every tick with the same "
+                 "lists for each of 4 tenants"):
+        if want not in log:
+            raise AssertionError(f"knn --tenants: no {want!r} in\n"
+                                 f"{log[-4000:]}")
+    print("distributed " + json.dumps({
+        "run": "knn driver, 4 tenants", "argv": argv[3:],
+        "n_objects": n_driver, "world": RANK_SERVER_WORLD, "backend": "gloo",
+        "seconds": time.perf_counter() - t0,
+        "ticks": [ln for ln in log.splitlines()
+                  if ln.startswith("[knn] tick")], "card": card}),
+          flush=True)
+    return totals
+
+
 def _tick(session):
     """One tick of ``session``: (result, wall ms, counts, peak memory), its
     counts zeroed just before and read just after."""
@@ -2094,6 +2319,21 @@ def _sink_reckoning(res, prev, dev):
             "churn_mean": churn.astype(np.float64).mean()}
 
 
+def _four_tenants(server, qpos, qid):
+    """Admit four tenants: tenant i registers one query for each object
+    ``i::4`` (at ``qpos``, qid = its id), tenant 0 also up to 65,536 rows
+    that duplicate tenant 1's.  Returns (tenants, query groups, each
+    group's rows)."""
+    T = 4
+    tenants = [server.admit(f"tenant-{i}") for i in range(T)]
+    rows = [qid[i::T] for i in range(T)]
+    rows.append(qid[1::T][:65_536])  # tenant 0's duplicates of tenant 1's
+    groups = [t.register_queries(qpos[r], r)
+              for t, r in zip(tenants, rows[:T])]
+    groups.append(tenants[0].register_queries(qpos[rows[T]], rows[T]))
+    return tenants, groups, rows
+
+
 def server_path(dev, n: int, seed: int = 0):
     """The multi-tenant server on the paper's Table 1 world: N uniform
     objects, k = 32, spec defaults, ``fused_bucket``, ``single``,
@@ -2128,12 +2368,7 @@ def server_path(dev, n: int, seed: int = 0):
     server = KnnServer(spec, invalidation="spatial", cache_entries=1_048_576,
                        stab_budget=4096 * n // 1_000_000)
     server.ingest_objects(pos)
-    tenants = [server.admit(f"tenant-{i}") for i in range(T)]
-    rows = [qid[i::T] for i in range(T)]
-    rows.append(qid[1::T][:65_536])  # tenant 0's duplicates of tenant 1's
-    groups = [t.register_queries(qpos[r], r)
-              for t, r in zip(tenants, rows[:T])]
-    groups.append(tenants[0].register_queries(qpos[rows[T]], rows[T]))
+    tenants, groups, rows = _four_tenants(server, qpos, qid)
     twin = KnnSession(spec)
     stats = KnnSession(ServiceSpec(backend="fused_bucket", collect="stats"))
     for s in (twin, stats):
@@ -2858,6 +3093,328 @@ def properties(dev, n: int, n_axis: int, short: bool = False):
     return launches, held
 
 
+# the lm phase: prompt, batch and decode steps of every run; the layers
+# each architecture keeps on one card (the rest at full depth)
+LM_PROMPT, LM_BATCH, LM_TOKENS = 128, 4, 16
+LM_ENTRY_ARCH = "rwkv6_3b"
+LM_DEPTHS = {"deepseek_coder_33b": 16, "yi_34b": 16, "nemotron_4_340b": 2,
+             "qwen3_moe_235b_a22b": 4}
+# the card's float32 against the CPU port's, as the CPU tests hold the port
+# against the reference (rwkv6's group norm amplifies rounding)
+LM_TOL = {"default": (1e-4, 1e-5), "rwkv6_3b": (1e-4, 1e-4)}
+LM_CHECK_STEPS = 4
+
+
+def _lm_flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v for k in sorted(tree)
+                for k2, v in _lm_flat(tree[k], f"{prefix}/{k}").items()}
+    if isinstance(tree, (tuple, list)):
+        return {k2: v for i, t in enumerate(tree)
+                for k2, v in _lm_flat(t, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def _lm_drive(cfg, params, inp, dev) -> dict:
+    """forward (full and last-only), the seeded decode state and
+    ``LM_CHECK_STEPS`` teacher-forced decode steps on ``dev``: {name: f64
+    numpy}."""
+    from repro_torch import models as M
+
+    def host(t):
+        return t.detach().double().cpu().numpy()
+
+    b, s = inp["tokens"].shape
+    t = {k: torch.tensor(v, device=dev) for k, v in inp.items()}
+    out = {}
+    with torch.inference_mode():
+        logits, aux = M.forward(params, cfg, t)
+        out["forward/logits"], out["forward/aux"] = host(logits), host(aux)
+        out["last/logits"] = host(M.forward(params, cfg, t,
+                                            logits_last_only=True)[0])
+        state = M.init_decode_state(cfg, b, s + LM_CHECK_STEPS, mem_len=s,
+                                    device=dev)
+        if cfg.family == "encdec":
+            state = M.seed_decode_state(params, cfg, state, M.encode_memory(
+                params, cfg, t["frames"]))
+        elif cfg.family == "vlm":
+            state = M.seed_decode_state(params, cfg, state, t["img"])
+        for i in range(LM_CHECK_STEPS):
+            logits, state = M.decode_step(params, cfg, state,
+                                          t["steps"][i], s + i)
+            out[f"step{i}/logits"] = host(logits)
+            out.update({f"step{i}/state{k}": host(v)
+                        for k, v in _lm_flat(state).items()})
+    return out
+
+
+def lm_card_vs_cpu(dev, card: str):
+    """Each smoke config in float32 (``highest`` matmul precision, no TF32)
+    on the card against the CPU port on the same weights: the port's own
+    init from a seed, every constant leaf moved by seeded noise so that no
+    path is silenced, carried to both devices by ``params_from_numpy``;
+    forward, the seeded state and four teacher-forced decode steps, within
+    ``LM_TOL``."""
+    from repro_torch.configs import get_smoke_config, list_archs
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import init_params
+
+    torch.set_float32_matmul_precision("highest")
+    rows = []
+    for i, arch in enumerate(list_archs()):
+        cfg = get_smoke_config(arch)
+        g = np.random.default_rng(300 + i)
+
+        def nudge(tree):
+            if isinstance(tree, dict):
+                return {k: nudge(v) for k, v in tree.items()}
+            if tree.size and np.all(tree == tree.flat[0]):
+                return (tree + g.normal(0, 0.2, tree.shape)).astype(
+                    np.float32)
+            return tree
+
+        tree = nudge(params_to_numpy(init_params(
+            cfg, torch.Generator().manual_seed(i), device="cpu")))
+        b, s = 2, 16
+        inp = {"tokens": g.integers(0, cfg.vocab, (b, s)),
+               "steps": g.integers(0, cfg.vocab, (LM_CHECK_STEPS, b, 1))}
+        if cfg.family == "encdec":
+            inp["frames"] = g.normal(0, 0.5, (b, s, cfg.d_model)).astype(
+                np.float32)
+        if cfg.family == "vlm":
+            inp["img"] = g.normal(0, 0.5, (b, cfg.n_img_tokens,
+                                           cfg.d_model)).astype(np.float32)
+        t0 = time.perf_counter()
+        want = _lm_drive(cfg, params_from_numpy(tree, cfg, device="cpu"),
+                         inp, torch.device("cpu"))
+        got = _lm_drive(cfg, params_from_numpy(tree, cfg, device=dev), inp,
+                        dev)
+        rtol, atol = LM_TOL.get(arch, LM_TOL["default"])
+        err = 0.0
+        for key, w in want.items():
+            if got[key].shape != w.shape or not np.allclose(
+                    got[key], w, rtol=rtol, atol=atol):
+                raise AssertionError(
+                    f"lm {arch} {key}: the card differs from the CPU by "
+                    f"{np.abs(got[key] - w).max()} (rtol {rtol}, atol "
+                    f"{atol})")
+            err = max(err, float(np.abs(got[key] - w).max()))
+        rows.append({"arch": arch, "outputs": len(want), "max_abs_err": err,
+                     "rtol": rtol, "atol": atol,
+                     "seconds": time.perf_counter() - t0})
+    print("lm " + json.dumps({"run": "card against cpu, smoke configs, f32",
+                              "configs": rows, "card": card}), flush=True)
+
+
+# the full-width check: the layers each family keeps (enough for every
+# block kind: the hybrid's group, shared attention and trailing block, the
+# vlm's group of self and cross layers); bf16 is held by the relative L2
+# error of each output (bf16 rounds to 2^-9; 0.011 to 0.018 at the smoke
+# widths; a wrong index, mask or head map gives O(1)), since a pointwise
+# bound is a test of the tail over 33M logits; rwkv6 is held in float32
+# against the CPU
+LM_WIDE_DEPTHS = {"dense": dict(n_layers=2), "moe": dict(n_layers=2),
+                  "ssm": dict(n_layers=2), "hybrid": dict(n_layers=8),
+                  "encdec": dict(n_layers=2, n_enc_layers=1, n_dec_layers=1),
+                  "vlm": dict(n_layers=5)}
+LM_WIDE_ARCH_DEPTHS = {"nemotron_4_340b": dict(n_layers=1)}
+LM_BF16_REL = 0.05
+LM_WIDE_F32_CPU = ("rwkv6_3b",)
+
+
+def _lm_tree_map(fn, tree, spec):
+    """``tree`` with each leaf replaced, in place, by ``fn(leaf, spec leaf)``
+    (one leaf at a time, so a cast never holds two whole trees)."""
+    for k in tree:
+        if isinstance(tree[k], dict):
+            _lm_tree_map(fn, tree[k], spec[k])
+        else:
+            tree[k] = fn(tree[k], spec[k])
+    return tree
+
+
+def _lm_routes(mode: str, routes: list):
+    """A stand-in for the router's top-k that records its experts
+    (``mode="record"``) into ``routes``, or takes them from there in order
+    (``"replay"``), each run's own probabilities gathered at them."""
+    from repro_torch.models import moe
+
+    real = moe._top_k
+    step = iter(range(len(routes))) if mode == "replay" else None
+
+    def top_k(probs, k):
+        if step is None:
+            vals, idx = real(probs, k)
+            routes.append(idx)
+            return vals, idx
+        idx = routes[next(step)]
+        return torch.gather(probs, -1, idx), idx
+
+    return top_k
+
+
+def lm_full_width(dev, card: str):
+    """Every architecture at full width, cut to ``LM_WIDE_DEPTHS``, on a
+    prompt of ``LM_PROMPT`` and a batch of 1: forward (full and last-only)
+    and ``LM_CHECK_STEPS`` teacher-forced decode steps, every logit (and the
+    MoE aux loss) held, so that the full-width shapes (head_dim 128, the GQA
+    ratios, the 256K vocabularies, the real expert counts) meet a check
+    beyond finiteness:
+    - the card's bf16 run against its float32 run (``highest`` matmul
+      precision) of the same weights, the f32 ones being the bf16 values,
+      each output's relative L2 error within ``LM_BF16_REL``; the MoE's bf16 run takes the experts its f32
+      run chose (a near-tie of the router resolves by the rounding, and
+      a token sent to another expert is not an error of precision);
+    - ``LM_WIDE_F32_CPU``: the card's float32 run against the CPU port's on
+      the same weights within ``LM_TOL``.  RWKV6's per-head group norm
+      normalises a sum that cancels to near zero at this init, so its bf16
+      logits are no stable function of its inputs and cannot be held
+      pointwise against f32."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.models import init_params, moe
+
+    torch.set_float32_matmul_precision("highest")
+    cpu = torch.device("cpu")
+    rows = []
+    for i, arch in enumerate(list_archs()):
+        full = get_config(arch)
+        cut = LM_WIDE_ARCH_DEPTHS.get(arch, LM_WIDE_DEPTHS[full.family])
+        cfg = dataclasses.replace(full, **cut)
+        f32 = dataclasses.replace(cfg, param_dtype="float32",
+                                  compute_dtype="float32")
+        g = np.random.default_rng(500 + i)
+        inp = {"tokens": g.integers(0, cfg.vocab, (1, LM_PROMPT)),
+               "steps": g.integers(0, cfg.vocab, (LM_CHECK_STEPS, 1, 1))}
+        if cfg.family == "encdec":
+            inp["frames"] = g.normal(0, 0.5, (1, LM_PROMPT, cfg.d_model)
+                                     ).astype(np.float32)
+        if cfg.family == "vlm":
+            inp["img"] = g.normal(0, 0.5, (1, cfg.n_img_tokens, cfg.d_model)
+                                  ).astype(np.float32)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        params = init_params(f32, torch.Generator(device=dev).manual_seed(i),
+                             device=dev)
+        if arch in LM_WIDE_F32_CPU:
+            against = "f32 on the cpu"
+            rtol, atol = LM_TOL.get(arch, LM_TOL["default"])
+            want = _lm_drive(f32, params_from_numpy(
+                params_to_numpy(params), f32, device=cpu), inp, cpu)
+            got = _lm_drive(f32, params, inp, dev)
+        else:
+            against = "bf16 against f32 on the card"
+            rtol, atol = None, None
+            spec = init_params(cfg, device="meta")
+            # the f32 weights take the bf16 values the bf16 run will hold
+            _lm_tree_map(lambda t, s: t.copy_(t.to(s.dtype)) if s.dtype
+                         == torch.bfloat16 else t, params, spec)
+            routes, real = [], moe._top_k
+            try:
+                moe._top_k = _lm_routes("record", routes)
+                want = _lm_drive(f32, params, inp, dev)
+                params = _lm_tree_map(lambda t, s: t.to(s.dtype), params,
+                                      spec)
+                moe._top_k = _lm_routes("replay", routes)
+                got = _lm_drive(cfg, params, inp, dev)
+            finally:
+                moe._top_k = real
+        del params
+        err, rel = 0.0, 0.0
+        for key, w in want.items():
+            if "/state" in key:
+                continue
+            if got[key].shape != w.shape or not np.all(np.isfinite(got[key])):
+                raise AssertionError(f"lm {arch} at full width: {key} has "
+                                     "the wrong shape or is not finite")
+            d = np.abs(got[key] - w)
+            r = float(np.linalg.norm(d) / max(np.linalg.norm(w), 1e-30))
+            if (r > LM_BF16_REL if rtol is None
+                    else np.any(d > atol + rtol * np.abs(w))):
+                raise AssertionError(
+                    f"lm {arch} at full width ({against}): {key} differs by "
+                    f"{d.max()}, relative L2 {r} (rtol {rtol}, atol {atol}, "
+                    f"relative L2 bound {LM_BF16_REL} for bf16)")
+            err, rel = max(err, float(d.max())), max(rel, r)
+        rows.append({"arch": arch, "cut": cut, "n_params": cfg.n_params(),
+                     "held": against, "rtol": rtol, "atol": atol,
+                     "rel_l2_bound": None if rtol else LM_BF16_REL,
+                     "max_abs_err": err, "max_rel_l2_err": rel,
+                     "peak_bytes": torch.cuda.max_memory_allocated(dev),
+                     "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    print("lm " + json.dumps({
+        "run": "full width, cut in depth", "prompt": LM_PROMPT, "batch": 1,
+        "steps": LM_CHECK_STEPS, "configs": rows, "card": card}), flush=True)
+
+
+def lm_phase(dev, card: str):
+    """The LM harness's serving path on the card: ``serve lm`` at full width
+    and depth (``LM_ENTRY_ARCH``, its default), the nine other
+    architectures at full width in bf16 through the same ``run_lm``, depth
+    cut to ``LM_DEPTHS`` where one card forces it, every logit finite; then
+    :func:`lm_full_width` and :func:`lm_card_vs_cpu`.  An ``lm`` line
+    each."""
+    import dataclasses
+    import re
+
+    from repro_torch.configs import get_config, list_archs
+    from repro_torch.launch.serve import run_lm
+
+    torch.cuda.empty_cache()
+    argv = [sys.executable, "-m", "repro_torch.launch.serve", "lm", "--arch",
+            LM_ENTRY_ARCH, "--prompt-len", str(LM_PROMPT), "--batch",
+            str(LM_BATCH), "--tokens", str(LM_TOKENS)]
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    log = _join([subprocess.Popen(argv, env=env, cwd=ROOT,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)],
+                "serve lm")[0]
+    pattern = (r"prefill \d+x\d+: ([0-9.]+)s.*?: ([0-9.]+) ms/token, "
+               r"([0-9.]+) tok/s.*?peak device memory: (\d+) bytes.*?sample:")
+    m = re.search(pattern, log, re.S)
+    if m is None:
+        raise AssertionError(f"serve lm: unexpected output\n{log[-4000:]}")
+    cfg = get_config(LM_ENTRY_ARCH)
+    print("lm " + json.dumps({
+        "run": "serve lm", "argv": argv[3:], "arch": LM_ENTRY_ARCH,
+        "family": cfg.family, "layers": cfg.n_layers, "cut": None,
+        "n_params": cfg.n_params(), "prefill_s": float(m.group(1)),
+        "ms_per_token": float(m.group(2)), "tok_per_s": float(m.group(3)),
+        "peak_bytes": int(m.group(4)), "seconds": time.perf_counter() - t0,
+        "card": card}), flush=True)
+    for arch in list_archs():
+        if arch == LM_ENTRY_ARCH:
+            continue
+        cfg = get_config(arch)
+        depth = LM_DEPTHS.get(arch)
+        if depth:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        t0 = time.perf_counter()
+        r = run_lm(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT,
+                   tokens=LM_TOKENS, seed=0, device=dev)
+        if not r["finite"]:
+            raise AssertionError(f"lm {arch}: a logit is not finite")
+        print("lm " + json.dumps({
+            "run": "run_lm", "arch": arch, "family": cfg.family,
+            "layers": cfg.n_layers,
+            "cut": None if depth is None else
+            f"n_layers {get_config(arch).n_layers} -> {depth}",
+            "n_params": cfg.n_params(), "dtype": cfg.param_dtype,
+            "prompt": LM_PROMPT, "batch": LM_BATCH, "tokens": LM_TOKENS,
+            **{k: r[k] for k in ("prefill_s", "ms_per_token", "tok_per_s",
+                                 "peak_bytes")},
+            "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+        del r
+        torch.cuda.empty_cache()
+    lm_full_width(dev, card)
+    lm_card_vs_cpu(dev, card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-objects", type=int, default=1_000_000)
@@ -2869,6 +3426,8 @@ def main() -> int:
     # one rank of the distributed phase (spawned by it, never by hand)
     ap.add_argument("--rank-path", choices=sorted(OBJECT_PATHS),
                     help=argparse.SUPPRESS)
+    ap.add_argument("--rank-server", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--ref-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -2876,6 +3435,8 @@ def main() -> int:
         return 1
     if args.rank_path:
         return rank_path(args.rank_path, args.n_objects, args.ref_dir)
+    if args.rank_server:
+        return rank_server(args.n_objects, args.ref_dir)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
@@ -2930,6 +3491,9 @@ def main() -> int:
     for r, name in ((rec, "B1"), (rec_multi, "B2"), (rec_lists, "B3")):
         r["distributed_launches"] = ranks[name]
     driver_ranks(n, card)
+    server_launches = server_ranks(min(n, RANK_SERVER_N), card)
+    rec["distributed_launches"] += server_launches["B1"]
+    rec_multi["distributed_launches"] += server_launches["B2"]
     lap("distributed")
     # the host-bound object-axis sessions run at 50,000 objects: each still
     # launches the wide template or takes the maintenance route it is for
@@ -2951,6 +3515,8 @@ def main() -> int:
     for r in (rec, rec_mixed, rec_multi, rec_lists):
         r["properties_launches"] = prop_launches[r["name"]]
     lap("properties")
+    lm_phase(dev, card)
+    lap("lm")
     narrow = ("topk_select", "bucket_kselect", "pairwise_dist")
     records = [rec, rec_mixed, rec_multi, rec_lists,
                *(api[name] for name in narrow), *wide.values(),

@@ -1,10 +1,16 @@
-"""Carry index state between the JAX reference and the port.
+"""Carry state between the JAX reference and the port.
 
-The system has no weights: its state is the quadtree index.  These helpers
-turn the reference's ``QuadtreeIndex`` fields, given as numpy arrays (for
-example ``{f: np.asarray(getattr(idx, f)) for f in INDEX_FIELDS}``), into the
-port's :class:`~repro_torch.core.quadtree.QuadtreeIndex` on a device, and
-back, so both sweeps can run against one index.
+The k-NN system has no weights: its state is the quadtree index.  These
+helpers turn the reference's ``QuadtreeIndex`` fields, given as numpy arrays
+(for example ``{f: np.asarray(getattr(idx, f)) for f in INDEX_FIELDS}``),
+into the port's :class:`~repro_torch.core.quadtree.QuadtreeIndex` on a
+device, and back, so both sweeps can run against one index.
+
+The LM harness's weights cross as a nested dict of numpy arrays with the
+reference's tree (:func:`params_from_numpy`, :func:`params_to_numpy`).
+numpy has no bfloat16 without ``ml_dtypes``, so a leaf arrives as float32
+(exact for every bf16 value) or as the uint16 bits of a bf16 array, and
+takes the dtype the port's own tree gives it.
 """
 from __future__ import annotations
 
@@ -16,7 +22,8 @@ import torch
 from .core.quadtree import INDEX_FIELDS, QuadtreeIndex
 from .runtime import resolve_device
 
-__all__ = ["INDEX_FIELDS", "index_from_numpy", "index_to_numpy"]
+__all__ = ["INDEX_FIELDS", "index_from_numpy", "index_to_numpy",
+           "params_from_numpy", "params_to_numpy"]
 
 _DTYPES = {
     "origin": np.float32, "side": np.float32, "pos": np.float32,
@@ -45,3 +52,52 @@ def index_to_numpy(index: QuadtreeIndex) -> dict[str, np.ndarray]:
     out["l_max"] = index.l_max
     out["th_quad"] = index.th_quad
     return out
+
+
+def params_from_numpy(tree: Mapping, cfg, device=None) -> dict:
+    """A reference parameter tree of numpy leaves -> the port's, on
+    ``device``.
+
+    Every leaf of ``init_params(cfg)``'s tree must be there, with its
+    shape; a float32 leaf is cast to the port leaf's dtype (bf16 where
+    ``cfg.param_dtype`` says so, f32 where the reference keeps f32), a
+    uint16 leaf is read as bf16 bits.
+    """
+    from .models import init_params  # the LM package, for LM trees only
+
+    dev = resolve_device(device)
+    spec = init_params(cfg, device="meta")
+
+    def walk(src, ref, path):
+        if isinstance(ref, dict):
+            if not isinstance(src, Mapping) or set(src) != set(ref):
+                got = sorted(src) if isinstance(src, Mapping) else type(src)
+                raise ValueError(f"params{path}: keys {got}, want "
+                                 f"{sorted(ref)}")
+            return {k: walk(src[k], ref[k], f"{path}[{k!r}]") for k in ref}
+        arr = np.asarray(src)
+        if arr.shape != tuple(ref.shape):
+            raise ValueError(f"params{path}: shape {arr.shape}, want "
+                             f"{tuple(ref.shape)}")
+        if arr.dtype == np.uint16:
+            if ref.dtype != torch.bfloat16:
+                raise ValueError(f"params{path}: bf16 bits for a "
+                                 f"{ref.dtype} leaf")
+            t = torch.from_numpy(arr.view(np.int16).copy()).view(
+                torch.bfloat16)
+        elif arr.dtype == np.float32:
+            t = torch.from_numpy(arr.copy()).to(ref.dtype)
+        else:
+            raise ValueError(f"params{path}: dtype {arr.dtype}; float32 or "
+                             "uint16 bf16 bits")
+        return t.to(dev)
+
+    return walk(tree, spec, "")
+
+
+def params_to_numpy(params) -> dict:
+    """The port's parameter tree -> float32 numpy leaves (exact for bf16
+    and f32 leaves), in the reference's tree."""
+    if isinstance(params, Mapping):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    return params.detach().float().cpu().numpy()

@@ -1,10 +1,17 @@
-"""The k-NN serving entry point of the port.
+"""The serving entry points of the port.
 
-Counterpart of the ``knn`` mode of ``repro/launch/serve.py``: repeated k-NN
-query batches over moving objects, one batch per tick, served through a
-:class:`repro_torch.api.KnnSession`, or with ``--tenants N`` through one
-:class:`repro_torch.serve.KnnServer` shared by N tenants.  It runs on the card
-unless given ``--device cpu``.
+Counterpart of ``repro/launch/serve.py``, in two modes; both run on the
+card unless given ``--device cpu``.
+
+  knn — repeated k-NN query batches over moving objects, one batch per
+        tick, served through a :class:`repro_torch.api.KnnSession`, or with
+        ``--tenants N`` through one :class:`repro_torch.serve.KnnServer`
+        shared by N tenants.
+  lm  — batched LM token serving: prefill a batch of prompts, then decode
+        tokens with the per-layer KV cache / recurrent state
+        (``repro_torch.models``), on one device.  As the reference, the
+        prefill does not seed the decode cache: decoding starts at
+        ``pos = prompt_len`` on an empty cache.
 
 Under ``python -m torch.distributed.run --nproc-per-node N`` every process
 joins the process group the launcher describes
@@ -12,14 +19,17 @@ joins the process group the launcher describes
 card of its own, gloo on the CPU and when ranks share a card), and a mesh
 plan lays one grid cell on each of the N ranks (its ``mesh_shape`` is left
 None: the world size).
-Every rank serves the same ticks; rank 0 prints the tick lines, and every
-rank checks its own lists and that they equal every other rank's.
+Every rank serves the same ticks (with ``--tenants``, every rank runs a
+replica of the server fed the same calls); rank 0 prints the tick lines,
+and every rank checks its own lists and that they equal every other
+rank's.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.serve knn --objects 50000 --ticks 10 --k 32
   PYTHONPATH=src python -m repro_torch.launch.serve knn --objects 1000000 --ticks 3 --tenants 4
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
-      -m repro_torch.launch.serve knn --plan object_sharded
+      -m repro_torch.launch.serve knn --plan object_sharded [--tenants 4]
+  PYTHONPATH=src python -m repro_torch.launch.serve lm --arch rwkv6_3b --smoke --tokens 16
 """
 from __future__ import annotations
 
@@ -29,25 +39,38 @@ import sys
 import time
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from ..api import KnnSession, ServiceSpec
+from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..data.generators import make_workload
+from ..models import (decode_step, encode_memory, forward, init_decode_state,
+                      init_params, seed_decode_state)
+from ..runtime import resolve_device
 from .mesh import init_from_env
 
 
-def _check_lists(res, n_objects: int, k: int) -> str:
+def _check_lists(idx, dist_, n_objects: int, k: int, tick: int) -> str:
     """Raise unless every row is ``k`` ascending distances over object ids
     (``(inf, -1)`` padded); return a digest of the lists' bits."""
-    idx, dist_ = res.nn_idx, res.nn_dist
     if idx.shape[1] != k or dist_.shape != idx.shape:
-        raise AssertionError(f"tick {res.tick}: lists of shape {idx.shape}")
+        raise AssertionError(f"tick {tick}: lists of shape {idx.shape}")
     filled = idx >= 0
     if (idx >= n_objects).any() or not np.isfinite(dist_[filled]).all() or (
             np.diff(dist_, axis=1) < 0).any() or not np.isinf(
             dist_[~filled]).all():
-        raise AssertionError(f"tick {res.tick}: malformed lists")
+        raise AssertionError(f"tick {tick}: malformed lists")
     return hashlib.sha256(idx.tobytes() + dist_.tobytes()).hexdigest()
+
+
+def _same_on_every_rank(digests, tick: int):
+    """Raise unless every rank gathered the same ``digests``."""
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, digests)
+    if any(d != digests for d in every):
+        raise AssertionError(f"tick {tick}: the ranks' lists differ "
+                             f"({every})")
 
 
 def serve_knn(args, device=None) -> int:
@@ -57,12 +80,9 @@ def serve_knn(args, device=None) -> int:
                        chunk=args.chunk, plan=args.plan,
                        partitioner=args.partitioner, collect=args.collect,
                        maintenance=args.maintenance)
-    ranked = dist.is_initialized()
     if args.tenants > 1:
-        if ranked:
-            raise ValueError("--tenants serves one KnnServer in one process; "
-                             "it does not run under a process group")
-        return serve_knn_tenants(args, spec)
+        return serve_knn_tenants(args, spec, device)
+    ranked = dist.is_initialized()
     session = KnnSession(spec, device=device or args.device)
     lead = not ranked or dist.get_rank() == 0
     w = make_workload(args.objects, args.distribution, seed=args.seed)
@@ -107,13 +127,10 @@ def serve_knn(args, device=None) -> int:
         res = session.submit().result()
         on_tick(res, time.time() - t0 - res.compile_s)
         if res.nn_idx is not None:
-            digest = _check_lists(res, args.objects, args.k)
+            digest = _check_lists(res.nn_idx, res.nn_dist, args.objects,
+                                  args.k, res.tick)
             if ranked:
-                digests = [None] * dist.get_world_size()
-                dist.all_gather_object(digests, digest)
-                if len(set(digests)) != 1:
-                    raise AssertionError(f"tick {res.tick}: the ranks' lists "
-                                         f"differ ({digests})")
+                _same_on_every_rank(digest, res.tick)
     if not lead:
         return 0
     if ranked:
@@ -125,16 +142,23 @@ def serve_knn(args, device=None) -> int:
     return 0
 
 
-def serve_knn_tenants(args, spec) -> int:
+def serve_knn_tenants(args, spec, device=None) -> int:
     """N tenants through one shared server.
 
     Queries split round-robin across tenants; each tick's whole-population
     delta is fed by the next tenant in turn, so every tenant drives the
-    shared-world path.
+    shared-world path.  Under a process group every rank runs a replica of
+    the server on ``device`` (this rank's), fed the same calls: its host
+    state (registry, cache, epoch) evolves alike on every rank, so every
+    rank takes the same branches and joins the same collectives.  Rank 0
+    prints; every rank checks each tenant's lists and that they equal
+    every other rank's.
     """
     from ..serve import KnnServer
 
-    server = KnnServer(spec, device=args.device)
+    ranked = dist.is_initialized()
+    lead = not ranked or dist.get_rank() == 0
+    server = KnnServer(spec, device=device or args.device)
     w = make_workload(args.objects, args.distribution, seed=args.seed)
     T = args.tenants
     server.ingest_objects(w.positions())
@@ -143,7 +167,8 @@ def serve_knn_tenants(args, spec) -> int:
     groups = [t.register_queries(qpos[i::T], qid[i::T])
               for i, t in enumerate(tenants)]
     all_ids = np.arange(args.objects, dtype=np.int32)
-    print(f"[knn] {server.describe()}")
+    if lead:
+        print(f"[knn] {server.describe()}")
     walls = []
     for t in range(args.ticks):
         t0 = time.time()
@@ -154,18 +179,132 @@ def serve_knn_tenants(args, spec) -> int:
             newq = w.query_batch(1.0)[0]
             for i, tn in enumerate(tenants):
                 tn.update_queries(groups[i], newq[i::T])
-        res = server.submit().result()
+        st = server.submit()
+        res = st.result()
         wall = time.time() - t0 - res.compile_s
         walls.append(wall)
-        print(f"[knn] tick {res.tick}: {wall * 1e3:.1f} ms, "
-              f"rows={res.rows_total} computed={res.rows_computed} "
-              f"hit={res.hit_rate:.2f} epoch={res.epoch} "
-              f"rebuilt={res.rebuilt}", flush=True)
+        if lead:
+            print(f"[knn] tick {res.tick}: {wall * 1e3:.1f} ms, "
+                  f"rows={res.rows_total} computed={res.rows_computed} "
+                  f"hit={res.hit_rate:.2f} epoch={res.epoch} "
+                  f"rebuilt={res.rebuilt}", flush=True)
+        if spec.collect == "none":
+            continue
+        digests = []
+        for tn in tenants:
+            ii, dd, _ = st.result_for_tenant(tn)
+            digests.append(_check_lists(_host(ii), _host(dd), args.objects,
+                                        args.k, res.tick))
+        if ranked:
+            _same_on_every_rank(digests, res.tick)
+    if not lead:
+        return 0
+    if ranked:
+        print(f"[knn] {dist.get_world_size()} ranks ended every tick with "
+              f"the same lists for each of {T} tenants", flush=True)
     lifetime = 1 - server.rows_computed / max(server.rows_served, 1)
     if len(walls) > 1:
         print(f"[knn] {T} tenants steady-state: "
               f"{np.median(walls[1:]) * 1e3:.1f} ms/tick, lifetime hit rate "
               f"{lifetime:.2f}")
+    return 0
+
+
+def _host(a) -> np.ndarray:
+    """A tenant's lists as numpy (``collect="stats"`` keeps them on the
+    device)."""
+    return a.cpu().numpy() if torch.is_tensor(a) else np.asarray(a)
+
+
+def run_lm(cfg, *, batch: int, prompt_len: int, tokens: int, seed: int,
+           device) -> dict:
+    """The ``lm`` mode's work for one config: random weights from ``seed``,
+    a prefill of ``batch`` random prompts (last-position logits), then
+    ``tokens`` greedy decode steps from ``pos = prompt_len`` on an empty
+    cache.  Returns the timings, the peak device memory (None on the CPU),
+    whether every logit of the prefill and the steps was finite, and the
+    decoded tokens."""
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    if cuda:
+        torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
+                         device=dev)
+    rng = np.random.default_rng(seed)
+    prompts = rng.integers(0, cfg.vocab, size=(batch, prompt_len))
+    inputs = {"tokens": torch.tensor(prompts, dtype=torch.int32, device=dev)}
+    if cfg.family == "encdec":
+        inputs["frames"] = torch.tensor(
+            rng.normal(0, 0.02, (batch, prompt_len, cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    if cfg.family == "vlm":
+        inputs["img"] = torch.tensor(
+            rng.normal(0, 0.02, (batch, cfg.n_img_tokens, cfg.d_model)),
+            dtype=torch.float32, device=dev)
+    with torch.inference_mode():
+        sync()
+        t0 = time.perf_counter()
+        logits, _ = forward(params, cfg, inputs, logits_last_only=True)
+        tok = torch.argmax(logits[:, -1, :], -1)[:, None].to(torch.int32)
+        sync()
+        prefill_s = time.perf_counter() - t0
+        finite = torch.isfinite(logits).all()
+        # the reference seeds only the cross-attention memory; the prefill
+        # leaves the self-attention caches and recurrent states empty
+        state = init_decode_state(cfg, batch, prompt_len + tokens,
+                                  mem_len=prompt_len, device=dev)
+        if cfg.family == "encdec":
+            state = seed_decode_state(
+                params, cfg, state,
+                encode_memory(params, cfg, inputs["frames"]))
+        if cfg.family == "vlm":
+            state = seed_decode_state(params, cfg, state, inputs["img"])
+        out = []
+        sync()
+        t0 = time.perf_counter()
+        for i in range(tokens):
+            logits, state = decode_step(params, cfg, state, tok,
+                                        prompt_len + i)
+            tok = torch.argmax(logits[:, -1, :], -1)[:, None].to(torch.int32)
+            finite = finite & torch.isfinite(logits).all()
+            out.append(tok[:, 0])
+        sync()
+        decode_s = time.perf_counter() - t0
+    return {"prefill_s": prefill_s,
+            "ms_per_token": decode_s / tokens * 1e3,
+            "tok_per_s": batch * tokens / decode_s,
+            "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
+            else None,
+            "finite": bool(finite),
+            "tokens": torch.stack(out, 1).cpu().numpy()}
+
+
+def serve_lm(args) -> int:
+    """The ``lm`` mode: one model on one device (``--data``/``--model``
+    meshes belong to the training side, not ported yet)."""
+    if args.data > 1 or args.model > 1:
+        raise ValueError(
+            f"lm: --data {args.data} --model {args.model} lays a mesh; the "
+            "port serves one model on one device (meshes come with the "
+            "training side, ROADMAP A13b)")
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    r = run_lm(cfg, batch=args.batch, prompt_len=args.prompt_len,
+               tokens=args.tokens, seed=args.seed, device=args.device)
+    if not r["finite"]:
+        raise AssertionError(f"lm {args.arch}: a logit is not finite")
+    print(f"[lm] prefill {args.batch}x{args.prompt_len}: "
+          f"{r['prefill_s']:.2f}s")
+    print(f"[lm] decoded {args.tokens} tokens x batch {args.batch}: "
+          f"{r['ms_per_token']:.1f} ms/token, {r['tok_per_s']:.1f} tok/s")
+    peak = ("not measured (cpu)" if r["peak_bytes"] is None
+            else f"{r['peak_bytes']} bytes")
+    print(f"[lm] peak device memory: {peak}")
+    print("[lm] sample:", r["tokens"][0][:16])
     return 0
 
 
@@ -196,7 +335,20 @@ def main(argv=None) -> int:
     k.add_argument("--seed", type=int, default=0)
     k.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, or cpu)")
+    m = sub.add_parser("lm")
+    m.add_argument("--arch", default="rwkv6_3b", choices=list(ARCH_IDS))
+    m.add_argument("--smoke", action="store_true")
+    m.add_argument("--batch", type=int, default=4)
+    m.add_argument("--prompt-len", type=int, default=32)
+    m.add_argument("--tokens", type=int, default=16)
+    m.add_argument("--data", type=int, default=1)
+    m.add_argument("--model", type=int, default=1)
+    m.add_argument("--seed", type=int, default=0)
+    m.add_argument("--device", default="cuda",
+                   help="torch device to serve on (cuda, or cpu)")
     args = ap.parse_args(argv)
+    if args.mode == "lm":
+        return serve_lm(args)
     ranks = init_from_env(args.device)
     if ranks is None:
         return serve_knn(args)

@@ -1,0 +1,152 @@
+"""Shared primitive layers: norms, MLPs, RoPE (pure functional), in PyTorch.
+
+Counterpart of ``repro/models/layers.py``.  Params are plain nested dicts of
+tensors.  The reference's ``constrain`` calls (activation sharding hints)
+are the identity on one card and are left out; ``mlp_logical`` and
+``cross_entropy_loss`` belong to the training side and are not here.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "rms_norm",
+    "init_linear",
+    "dense",
+    "init_mlp",
+    "mlp",
+    "rope",
+    "apply_rope",
+]
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
+          "float16": torch.float16}
+# the most f32 elements one random draw makes at a time, so that a
+# full-width init needs one slab of f32 beside its leaves, not a leaf
+_DRAW_ELEMS = 1 << 28
+
+
+class Init:
+    """Draws parameter leaves from one ``torch.Generator``.
+
+    Every random leaf is drawn in f32 and then cast, as the reference
+    draws them, slab by slab along its leading axis.  On the ``meta``
+    device nothing is drawn: the leaves carry shapes and dtypes only.
+    """
+
+    def __init__(self, generator: torch.Generator | None, device):
+        self.generator = generator
+        self.device = torch.device(device)
+
+    def _draw(self, shape, dtype, fill):
+        out = torch.empty(shape, dtype=dtype, device=self.device)
+        if self.device.type == "meta" or out.numel() == 0:
+            return out
+        flat = out if out.ndim > 1 else out.view(-1, 1)
+        rows = max(1, _DRAW_ELEMS // max(1, math.prod(flat.shape[1:])))
+        for i in range(0, flat.shape[0], rows):
+            blk = flat[i:i + rows]
+            blk.copy_(fill(torch.empty(blk.shape, dtype=torch.float32,
+                                       device=self.device)))
+        return out
+
+    def normal(self, shape, scale: float, dtype, shift: float = 0.0):
+        """``normal(shape) * scale + shift`` in f32, cast to ``dtype``."""
+        def fill(buf):
+            buf.normal_(generator=self.generator)
+            buf.mul_(scale)
+            return buf.add_(shift) if shift else buf
+        return self._draw(tuple(shape), dtype, fill)
+
+    def uniform(self, shape, scale: float, shift: float, dtype):
+        """``uniform[0, 1)(shape) * scale + shift`` in f32, cast."""
+        def fill(buf):
+            return buf.uniform_(generator=self.generator).mul_(scale).add_(
+                shift)
+        return self._draw(tuple(shape), dtype, fill)
+
+    def full(self, shape, value: float, dtype):
+        return torch.full(tuple(shape), value, dtype=dtype,
+                          device=self.device)
+
+
+def rms_norm(x, scale, eps: float = 1e-5):
+    """RMS norm in f32, cast back to ``x``'s dtype."""
+    dt = x.dtype
+    x = x.float()
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    return ((x * torch.rsqrt(var + eps)) * scale.float()).to(dt)
+
+
+def init_linear(init: Init, d_in: int, d_out, dtype,
+                scale: float | None = None, lead: tuple = ()):
+    """A ``(*lead, d_in, d_out)`` weight, normal times ``d_in ** -0.5``
+    (or ``scale``)."""
+    shape = (d_in, d_out) if isinstance(d_out, int) else (d_in, *d_out)
+    s = scale if scale is not None else d_in ** -0.5
+    return init.normal((*lead, *shape), s, dtype)
+
+
+def dense(x, w):
+    """``x @ w`` with ``w`` cast to ``x``'s dtype, f32 accumulation (the
+    GEMMs of both devices accumulate bf16 products in f32), the result in
+    ``x``'s dtype."""
+    return torch.matmul(x, w.to(x.dtype))
+
+
+# ---------------------------------------------------------------- MLP
+
+
+def init_mlp(init: Init, d: int, ff: int, activation: str, dtype,
+             lead: tuple = ()):
+    p = {
+        "w_in": init_linear(init, d, ff, dtype, lead=lead),
+        "w_out": init_linear(init, ff, d, dtype, lead=lead),
+    }
+    if activation == "swiglu":
+        p["w_gate"] = init_linear(init, d, ff, dtype, lead=lead)
+    return p
+
+
+def mlp(params, x, activation: str):
+    h = dense(x, params["w_in"])
+    if activation == "swiglu":
+        g = dense(x, params["w_gate"])
+        h = F.silu(g) * h
+    elif activation == "relu2":  # squared ReLU (nemotron / Primer)
+        h = torch.square(torch.relu(h))
+    else:  # jax.nn.gelu's default: the tanh approximation
+        h = F.gelu(h, approximate="tanh")
+    return dense(h, params["w_out"])
+
+
+# ---------------------------------------------------------------- RoPE
+
+
+def rope(positions, d_head: int, theta: float, dtype=torch.float32):
+    """positions (...,) -> (cos, sin) of shape (..., d_head//2)."""
+    half = d_head // 2
+    exps = -torch.arange(0, half, dtype=torch.float32,
+                         device=positions.device) / half
+    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
+                                   device=positions.device), exps)
+    ang = positions[..., None].float() * freqs
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def apply_rope(x, cos, sin):
+    """x: (B, S, H, dh); cos/sin: (B, S, dh//2) or (S, dh//2)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    if cos.ndim == 2:
+        cos = cos[None, :, None, :]
+        sin = sin[None, :, None, :]
+    else:
+        cos = cos[:, :, None, :]
+        sin = sin[:, :, None, :]
+    xr1 = x1 * cos - x2 * sin
+    xr2 = x2 * cos + x1 * sin
+    return torch.cat([xr1, xr2], dim=-1).to(x.dtype)

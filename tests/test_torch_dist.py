@@ -7,9 +7,12 @@ cell; every rank must end each tick with the bits of JAX's mesh plan (the
 module-scoped subprocess on 8 forced host devices of
 ``tests/test_torch_plan.py``, run here for these cases only) and of the
 port's logical-shard plan: ids, distances, per-shard counters, the cost
-EMA, the object bounds, and the session's rebuild decisions.  Tolerance 0
-(``np.array_equal`` on the raw bits).  The rule tables are held entry for
-entry against the reference's ``PartitionSpec``.
+EMA, the object bounds, and the session's rebuild decisions.  A
+four-tenant ``KnnServer`` replicated on every rank of the 4- and 6-rank
+worlds must give each tenant's rows and each tick's counters of the
+port's logical-shard server.  Tolerance 0 (``np.array_equal`` on the raw
+bits).  The rule tables are held entry for entry against the reference's
+``PartitionSpec``.
 """
 import os
 import subprocess
@@ -46,8 +49,17 @@ CASES = [
 ]
 # world size -> what its ranks run; the 4-rank world also probes the mesh
 WORLDS = {3: ["sh3_cb_empty"],
-          4: ["os4_cb_fmulti", "session", "mesh", "driver"],
-          6: ["hy23_cb_fmerge"]}
+          4: ["os4_cb_fmulti", "session", "mesh", "driver", "server",
+              "driver_tenants"],
+          6: ["hy23_cb_fmerge", "server"]}
+# world size -> the spec of its four-tenant server (plan, mesh_shape,
+# partitioner, merge)
+SERVER_PLANS = {4: ("object_sharded", 4, "equal", "fused_multi"),
+                6: ("hybrid", [2, 3], "cost_balanced", "fused_merge")}
+SERVER_COUNTERS = ("rows_total", "rows_unique", "rows_computed",
+                   "dedup_hit_rows", "cache_hit_rows", "epoch", "rebuilt")
+SERVER_TENANTS = 4
+SERVER_DUPS = 45  # tenant 0's duplicates of tenant 1's first rows
 SPAWN_TIMEOUT_S = 300
 
 
@@ -94,6 +106,94 @@ def _plan_ticks(case, inp):
     return out
 
 
+def _server(world: int):
+    """World ``world``'s four-tenant server on the CPU: spatial
+    invalidation, the stab budget ``chip_smoke.py``'s server path takes at
+    1M objects scaled to ``T.N`` (2 rows)."""
+    from repro_torch.serve import KnnServer
+
+    plan, mesh, part, merge = SERVER_PLANS[world]
+    spec = ServiceSpec(k=T.K, window=T.WINDOW, chunk=T.CHUNK, l_max=T.L_MAX,
+                       th_quad=T.TH, side=T.SIDE, backend="dense_topk",
+                       rebuild_factor=1.5, plan=plan,
+                       mesh_shape=tuple(mesh) if isinstance(mesh, list)
+                       else mesh, partitioner=part, merge=merge)
+    return KnnServer(spec, device="cpu", invalidation="spatial",
+                     stab_budget=4096 * T.N // 1_000_000)
+
+
+def _drive_server(server, inp) -> dict:
+    """The server script every rank and the logical run take:
+    ``{"server/t{t}/{field}": array}`` with each tick's counters, the
+    entries its deltas evicted, its query shards' iterations and every
+    tenant's rows.
+
+    Tenant i registers one query at each object ``i::4`` (qid = the id),
+    tenant 0 also ``SERVER_DUPS`` duplicates of tenant 1's rows.  Ticks:
+    0 the build; 1 unchanged (every row from the cache: no submit); 2
+    tenant 2 moves ``N // 500`` rows (the stab: fewer rows computed than
+    one chunk); 3 tenant 3 moves ``N // 100`` (over the budget: the epoch
+    clears); 4 tenant 1 teleports every object into one cluster (the drift
+    rebuild) and is still in flight when 5 tenant 0 moves one row and
+    submits."""
+    pos = inp["pos/uniform"].copy()
+    n = pos.shape[0]
+    g = np.random.default_rng(11)
+    server.ingest_objects(pos)
+    qid = np.arange(n, dtype=np.int32)
+    tenants = [server.admit(f"tenant-{i}") for i in range(SERVER_TENANTS)]
+    rows = [qid[i::SERVER_TENANTS] for i in range(SERVER_TENANTS)]
+    for tn, r in zip(tenants, rows):
+        tn.register_queries(pos[r], r)
+    tenants[0].register_queries(pos[rows[1][:SERVER_DUPS]],
+                                rows[1][:SERVER_DUPS])
+    cluster = (g.normal(0, 25, (n, 2)) + T.SIDE / 2).astype(
+        np.float32).clip(0, T.SIDE - 1)
+    out = {}
+
+    def move(tn, m):
+        ids = g.choice(n, m, replace=False).astype(np.int32)
+        new = (pos[ids] + g.uniform(-15, 15, (m, 2))).clip(
+            0, T.SIDE - 1).astype(np.float32)
+        pos[ids] = new
+        tn.update_objects(ids, new)
+
+    def read(t, st, evicted):
+        res = st.result()
+        rec = {f: getattr(res, f) for f in SERVER_COUNTERS}
+        rec["evicted"] = evicted
+        rec["submitted"] = res.inner is not None
+        rec["shard_iterations"] = (np.zeros((0,), np.int32) if res.inner
+                                   is None else res.inner.shard_iterations)
+        for i, tn in enumerate(tenants):
+            ii, dd, qq = st.result_for_tenant(tn)
+            rec.update({f"idx{i}": ii, f"dist{i}": dd, f"qid{i}": qq})
+        for key, v in rec.items():
+            out[f"server/t{t}/{key}"] = np.asarray(v)
+
+    def tick(t, mover=None, m=0):
+        inval0 = server.cache.stats.invalidations
+        if mover is not None:
+            move(tenants[mover], m)
+        read(t, server.submit(), server.cache.stats.invalidations - inval0)
+
+    tick(0)
+    tick(1)
+    tick(2, 2, n // 500)
+    tick(3, 3, n // 100)
+    inval0 = server.cache.stats.invalidations
+    pos[:] = cluster
+    tenants[1].update_objects(qid, cluster)
+    st4 = server.submit()
+    evicted4 = server.cache.stats.invalidations - inval0
+    move(tenants[0], 1)
+    st5 = server.submit()
+    read(4, st4, evicted4)
+    read(5, st5, server.cache.stats.invalidations - inval0 - evicted4)
+    server.session.finalize_pending()
+    return out
+
+
 def _mesh_probe(world: int) -> dict:
     """``None`` takes the world; a mesh of another size raises."""
     out = {"none_1d": tplan.resolve_plan("object_sharded").num_devices,
@@ -133,6 +233,15 @@ def _rank_main(rank: int, world: int, store: str, in_path: str,
                 "knn", "--objects", "600", "--ticks", "2", "--chunk", "256",
                 "--l-max", "5", "--th-quad", "16", "--plan", "hybrid",
                 "--partitioner", "cost_balanced", "--device", "cpu"])}
+        elif job == "driver_tenants":  # it raises if the ranks' lists differ
+            from repro_torch.launch.serve import main as serve_main
+
+            got = {"driver_tenants/rc": serve_main([
+                "knn", "--objects", "600", "--ticks", "3", "--chunk", "256",
+                "--l-max", "5", "--th-quad", "16", "--plan",
+                "object_sharded", "--tenants", "4", "--device", "cpu"])}
+        elif job == "server":
+            got = _drive_server(_server(world), inp)
         else:
             case = next(c for c in CASES if c[0] == job)
             got = {f"{job}/{k}": v for k, v in _plan_ticks(case, inp).items()}
@@ -239,6 +348,39 @@ def test_rank_session_matches_jax_and_logical(runs):
                for t in range(T.SESSION_TICKS))
 
 
+@pytest.mark.parametrize("world", sorted(SERVER_PLANS))
+def test_rank_server_matches_logical(runs, world):
+    """A four-tenant server replicated on every rank of the 4-rank
+    (``object_sharded`` 4) and 6-rank (``hybrid`` (2, 3) ``cost_balanced``)
+    worlds: each rank's per-tenant rows and each tick's counters equal the
+    logical-shard server's bit for bit (tolerance 0), over the build, a
+    pure-cache tick, a stab, an epoch clear, a drift rebuild overlapped by
+    the next submit, and a tick of fewer rows than one chunk."""
+    inp, _, ranks = runs
+    logical = _drive_server(_server(world), inp)
+    assert len(logical) == 6 * (len(SERVER_COUNTERS) + 3
+                                + 3 * SERVER_TENANTS)
+    for r, got in enumerate(ranks[world]):
+        for key, want in logical.items():
+            T._bits_equal(want, got[key], f"rank {r} {key}")
+
+    def at(t, f):
+        return logical[f"server/t{t}/{f}"]
+
+    n = T.N
+    assert at(0, "rows_computed") == n and at(0, "dedup_hit_rows") == \
+        SERVER_DUPS
+    assert not at(1, "submitted") and at(1, "cache_hit_rows") == \
+        n + SERVER_DUPS
+    assert 0 < at(2, "rows_computed") == at(2, "evicted") < T.CHUNK
+    assert at(2, "epoch") == at(1, "epoch") and at(3, "epoch") == \
+        at(2, "epoch") + 1 and at(3, "rows_computed") == n
+    assert at(4, "rebuilt"), "the teleport tick did not rebuild"
+    if world == 6:  # a query shard owns none of tick 2's rows
+        its = at(2, "shard_iterations").reshape(2, 3)
+        assert (its == 0).all(1).any() and its.any(), its
+
+
 def test_rank_mesh_takes_the_world_and_rejects_other_sizes(runs):
     """Under a process group ``None`` is the world size (the ``knn`` driver's
     hybrid plan lays (2, 2) and its ranks agree); a mesh of another size
@@ -251,6 +393,7 @@ def test_rank_mesh_takes_the_world_and_rejects_other_sizes(runs):
             msg = str(got[f"mesh/mismatch {shape}"])
             assert f"lays {n} ranks" in msg and "has 4" in msg, msg
         assert int(got["driver/rc"]) == 0
+        assert int(got["driver_tenants/rc"]) == 0
     assert tmesh.world_size() is None
     assert tmesh.make_spatial_mesh(2, 3) == tmesh.LogicalMesh(
         ("query", "object"), (2, 3))

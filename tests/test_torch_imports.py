@@ -33,31 +33,50 @@ def test_port_imports_no_jax_and_no_reference():
     assert {"repro_torch.testing", "repro_torch.properties",
             "repro_torch.dist", "repro_torch.dist.sharding",
             "repro_torch.launch.mesh"} <= expected
+    archs = {p.stem for p in (ROOT / "src" / "repro" / "configs").glob(
+        "*.py")} - {"__init__", "base"}
+    assert len(archs) == 10
+    assert {"repro_torch.configs", "repro_torch.configs.base",
+            *(f"repro_torch.configs.{a}" for a in archs),
+            "repro_torch.models", *(f"repro_torch.models.{m}" for m in (
+                "layers", "attention", "moe", "ssm", "model"))} <= expected
     assert leaked == "[]", leaked
+
+
+# the training side of the LM harness (ROADMAP A13b): not ported yet
+A13B_NAMES = {"loss_fn", "param_logical"}
 
 
 def test_public_names_match_reference():
     """The reference's public names of ``repro.core``, ``repro.kernels``
-    (less ``default_interpret``: the port has no interpret mode) and
-    ``repro.core.executor`` all exist in the port; ``executor.resolve_plan``
-    is ``plan.resolve_plan`` itself; ``level_counts`` equals the
-    reference's at every level of one index."""
+    (less ``default_interpret``: the port has no interpret mode),
+    ``repro.core.executor``, ``repro.configs`` and ``repro.models`` (less
+    ``A13B_NAMES``) all exist in the port; ``executor.resolve_plan`` is
+    ``plan.resolve_plan`` itself; ``level_counts`` equals the reference's
+    at every level of one index."""
     import jax.numpy as jnp
     import numpy as np
     import torch
 
+    import repro.configs as rcfg
     import repro.core as rc
     import repro.core.executor as rex
     import repro.kernels as rk
+    import repro.models as rm
+    import repro_torch.configs as tcfg
     import repro_torch.core as tc
     import repro_torch.core.executor as tex
     import repro_torch.kernels as tk
+    import repro_torch.models as tm
     from repro_torch.core import plan as tplan
 
     assert set(rc.__all__) <= set(tc.__all__)
     assert set(rk.__all__) - {"default_interpret"} <= set(tk.__all__)
     assert set(rex.__all__) <= set(tex.__all__)
-    for mod in (tc, tk, tex):
+    assert set(rcfg.__all__) == set(tcfg.__all__)
+    assert A13B_NAMES <= set(rm.__all__)
+    assert set(rm.__all__) - A13B_NAMES == set(tm.__all__)
+    for mod in (tc, tk, tex, tcfg, tm):
         missing = [name for name in mod.__all__ if not hasattr(mod, name)]
         assert not missing, (mod.__name__, missing)
     assert tex.resolve_plan is tplan.resolve_plan
@@ -105,7 +124,7 @@ def test_examples_import_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _EXAMPLES_PROBE], env=env,
                          cwd=ROOT, capture_output=True, text=True, check=True)
     n_examples, leaked = out.stdout.strip().split(" ", 1)
-    assert int(n_examples) == 2
+    assert int(n_examples) == 3
     assert leaked == "[]", leaked
     for path in (ROOT / "examples_torch").glob("*.py"):
         src = path.read_text()
