@@ -81,7 +81,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``fused_merge`` twice a tick on the ranks whose query shard owns rows;
    then the ``knn`` driver under ``python -m torch.distributed.run
    --nproc-per-node 1`` on NCCL (``--plan hybrid``); then a four-tenant
-   ``KnnServer`` on ``object_sharded`` 4 at 200,000 objects (the build, a
+   ``KnnServer`` on ``object_sharded`` 4 at 50,000 objects (the build, a
    pure-cache tick, a stab, an epoch clear), logically and then one replica
    on each of 4 gloo ranks (``--rank-server``), every rank's tenant rows
    and tick counters equal to the logical server's, and the ``knn`` driver
@@ -144,7 +144,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    run's on the card within ``LM_BF16_REL`` (rwkv6: its float32 logits to
    the CPU port's within ``LM_TOL``); then every smoke config in
    float32 on the card equal to the CPU port on the same weights within
-   ``LM_TOL``.
+   ``LM_TOL``;
+18. train (:func:`train_phase`), the LM harness's training side, which
+   reaches no kernel: ``python -m repro_torch.launch.train --arch
+   rwkv6_3b`` at full width and depth (bf16, ``remat``, batch 8 x 128,
+   ``TRAIN_STEPS`` steps), every loss and grad norm finite and every leaf
+   that was not constant at the start moved, its peak device memory
+   printed; the launcher's crash at step 6 and resume from step 5 (yi_34b
+   smoke) against the uninterrupted run; one step per family at smoke
+   width in float32 on the card against the CPU port from the same
+   weights (gradients, loss, grad norm); the int8 cross-pod step on 2 gloo
+   ranks sharing the card against the logical pods in this process, and
+   ``launch.train --data 2`` under ``torch.distributed.run`` against the
+   one-rank run, within the CPU tests' tolerances.
 
 Launch counts are zeroed just before each path (each tick, in the single
 and server paths) and read just after, on the path's own session only.  The
@@ -1883,8 +1895,10 @@ def driver_ranks(n: int, card: str):
         "ticks": tick_lines, "card": card}), flush=True)
 
 
-# the server on ranks: objects, plan, and the ranks' world
-RANK_SERVER_N = 200_000
+# the server on ranks: objects, plan, and the ranks' world; host-bound, at
+# 50,000 objects like this script's other object-axis sessions, so that the
+# whole run keeps inside its time limit
+RANK_SERVER_N = 50_000
 RANK_SERVER_PLAN = dict(plan="object_sharded", mesh_shape=4,
                         merge="fused_multi")
 RANK_SERVER_WORLD = 4
@@ -3415,6 +3429,380 @@ def lm_phase(dev, card: str):
     lm_card_vs_cpu(dev, card)
 
 
+# the train phase: the entry point at full width and depth, its step count;
+# the crash/resume run (smoke width); the families held card against CPU;
+# the rank runs' width.  Tolerances are the CPU tests'
+# (tests/test_torch_train.py): each gradient leaf within TRAIN_GRAD_TOL of
+# its largest element (rwkv6's group norm amplifies rounding), the loss and
+# grad norm within TRAIN_CURVE_RTOL
+TRAIN_ARCH, TRAIN_STEPS = "rwkv6_3b", 8
+TRAIN_SMOKE = ["--arch", "yi_34b", "--smoke", "--steps", "10", "--batch", "4",
+               "--seq", "16", "--ckpt-every", "5", "--log-every", "100"]
+TRAIN_FAMILIES = ("yi_34b", "granite_moe_3b_a800m", "rwkv6_3b", "zamba2_7b",
+                  "seamless_m4t_large_v2", "llama_3_2_vision_11b")
+TRAIN_GRAD_TOL = {"default": 2e-5, "rwkv6_3b": 5e-4}
+TRAIN_CURVE_RTOL = 2e-5
+TRAIN_XPOD_STEPS = 2
+TRAIN_DP = ["--arch", "yi_34b", "--smoke", "--steps", "4", "--batch", "8",
+            "--seq", "16", "--log-every", "100"]
+
+
+def _train_metrics(path: Path) -> tuple[list, dict]:
+    lines = [json.loads(x) for x in path.read_text().splitlines()]
+    return lines[:-1], lines[-1]
+
+
+def train_full_width(card: str) -> float:
+    """``python -m repro_torch.launch.train --arch rwkv6_3b`` at full width
+    and depth (bf16, ``remat``, the launcher's batch 8 x 128), for
+    ``TRAIN_STEPS`` steps, no checkpoint: every loss and grad norm finite,
+    every leaf that was not constant at the start moved (a bf16 norm scale
+    at 1.0 stays put under steps below half its ulp).  A ``train`` line; returns its seconds."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        path = Path(d) / "metrics.jsonl"
+        argv = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                TRAIN_ARCH, "--steps", str(TRAIN_STEPS), "--metrics",
+                str(path)]
+        env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+        log = _join([subprocess.Popen(argv, env=env, cwd=ROOT,
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)],
+                    "train full width")[0]
+        steps, summary = _train_metrics(path)
+    if len(steps) != TRAIN_STEPS or "[train] done" not in log:
+        raise AssertionError(f"train {TRAIN_ARCH}: {len(steps)} steps\n"
+                             f"{log[-4000:]}")
+    for s in steps:
+        if not (np.isfinite(s["loss"]) and np.isfinite(s["grad_norm"])):
+            raise AssertionError(f"train {TRAIN_ARCH}: step {s['step']} "
+                                 f"loss {s['loss']} grad norm "
+                                 f"{s['grad_norm']}")
+    if summary["random_leaves_moved"] != summary["random_leaves"]:
+        raise AssertionError(f"train {TRAIN_ARCH}: "
+                             f"{summary['random_leaves_moved']} of "
+                             f"{summary['random_leaves']} leaves not constant "
+                             "at the start moved")
+    secs = time.perf_counter() - t0
+    print("train " + json.dumps({
+        "run": "launch.train", "argv": argv[3:-2], **{k: summary[k] for k in (
+            "arch", "n_params", "tree_params", "param_dtype", "remat",
+            "layers", "d_model",
+            "vocab", "batch", "seq", "peak_bytes", "leaves", "leaves_moved",
+            "random_leaves", "random_leaves_moved")},
+        "loss": [s["loss"] for s in steps],
+        "grad_norm": [s["grad_norm"] for s in steps],
+        "s_per_step": [s["s"] for s in steps],
+        "s_per_step_after_first": float(np.mean([s["s"] for s in steps[1:]])),
+        "loop_seconds": summary["seconds"], "seconds": secs, "card": card}),
+        flush=True)
+    return secs
+
+
+def _arrays(path: str) -> dict:
+    with np.load(path) as f:
+        return {k: f[k] for k in f.files}
+
+
+def train_crash_resume(card: str):
+    """The launcher's crash and resume on the card, yi_34b smoke, in this
+    process: exit 42 after step 6 with step 5 on disk, ``--resume`` from
+    step 5, and the final arrays against the uninterrupted run: bitwise
+    where the card is deterministic, else within the reference's own
+    launcher test's tolerance (``rtol=1e-5, atol=1e-6``)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from repro_torch.launch import train as launch
+    from repro_torch.train import latest_step
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        a, b = f"{d}/a", f"{d}/b"
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            launch.main(TRAIN_SMOKE + ["--ckpt-dir", a])
+            try:
+                launch.main(TRAIN_SMOKE + ["--ckpt-dir", b,
+                                           "--simulate-failure", "6"])
+                code = 0
+            except SystemExit as e:
+                code = e.code
+            at = latest_step(b)
+            launch.main(TRAIN_SMOKE + ["--ckpt-dir", b, "--resume"])
+        log = out.getvalue()
+        if code != 42 or at != 5 or "resumed from step 5" not in log:
+            raise AssertionError(f"train crash/resume: exit {code}, latest "
+                                 f"step {at}\n{log[-3000:]}")
+        x = _arrays(f"{a}/step_00000010/arrays.npz")
+        y = _arrays(f"{b}/step_00000010/arrays.npz")
+    if sorted(x) != sorted(y):
+        raise AssertionError("train crash/resume: the checkpoints' keys "
+                             "differ")
+    same = sum(x[k].tobytes() == y[k].tobytes() for k in x)
+    err = max(float(np.max(np.abs(x[k].astype(np.float64)
+                                  - y[k].astype(np.float64)))) for k in x)
+    for k in x:
+        if not np.allclose(y[k], x[k], rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"train crash/resume: {k} differs by "
+                                 f"{np.abs(y[k] - x[k]).max()}")
+    print("train " + json.dumps({
+        "run": "crash and resume", "argv": TRAIN_SMOKE, "exit": code,
+        "resumed_from": at, "arrays": len(x), "bitwise": same,
+        "max_abs_err": err, "seconds": time.perf_counter() - t0,
+        "card": card}), flush=True)
+
+
+def _nudged_tree(cfg, seed: int):
+    """The port's init from a seed on the CPU, every constant leaf moved by
+    seeded noise (numpy, float32)."""
+    from repro_torch.convert import params_to_numpy
+    from repro_torch.models import init_params
+
+    g = np.random.default_rng(700 + seed)
+
+    def nudge(tree):
+        if isinstance(tree, dict):
+            return {k: nudge(v) for k, v in tree.items()}
+        if tree.size and np.all(tree == tree.flat[0]):
+            return (tree + g.normal(0, 0.2, tree.shape)).astype(np.float32)
+        return tree
+
+    return nudge(params_to_numpy(init_params(
+        cfg, torch.Generator().manual_seed(seed), device="cpu")))
+
+
+def _train_batch(cfg, batch: int, seq: int, seed: int) -> dict:
+    from repro_torch.data.lm import LMDataConfig, SyntheticLMData
+
+    extras = {}
+    if cfg.family == "encdec":
+        extras["frames"] = (seq, cfg.d_model)
+    if cfg.family == "vlm":
+        extras["img"] = (cfg.n_img_tokens, cfg.d_model)
+    return SyntheticLMData(LMDataConfig(vocab=cfg.vocab, batch=batch,
+                                        seq_len=seq, seed=seed)
+                           ).batch_for_step(0, extras)
+
+
+def _leaf_err(got, want) -> float:
+    """The largest difference of two trees' leaves, each over its own
+    largest element of ``want``."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        a, b = a.double().cpu(), b.double().cpu()
+        worst = max(worst, float((a - b).abs().max()
+                                 / b.abs().max().clamp(min=1e-30)))
+    return worst
+
+
+def train_card_vs_cpu(dev, card: str):
+    """One ``make_train_step`` per family at smoke width in f32 (``highest``
+    matmul precision), on the card and on the CPU from the same weights:
+    the gradients within ``TRAIN_GRAD_TOL`` of each leaf's largest element,
+    the step's loss and grad norm within ``TRAIN_CURVE_RTOL``.  The MoE's
+    backward scatters with atomics on the card (``index_put_`` with
+    ``accumulate``): its sums may differ from run to run there."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.train import OptConfig, grads_and_loss, make_train_step
+
+    torch.set_float32_matmul_precision("highest")
+    cpu = torch.device("cpu")
+    rows = []
+    t0 = time.perf_counter()
+    for i, arch in enumerate(TRAIN_FAMILIES):
+        cfg = get_smoke_config(arch)
+        tree = _nudged_tree(cfg, i)
+        batch = _train_batch(cfg, 2, 16, i)
+        res = {}
+        for where in (cpu, dev):
+            p = params_from_numpy(tree, cfg, device=where)
+            b = {k: torch.tensor(v, device=where) for k, v in batch.items()}
+            loss, grads = grads_and_loss(p, cfg, b)
+            _, _, m = make_train_step(cfg, OptConfig(lr=1e-3, warmup_steps=5))(
+                p, _init_opt(p), b)
+            res[where.type] = (loss, grads, m)
+        tol = TRAIN_GRAD_TOL.get(arch, TRAIN_GRAD_TOL["default"])
+        gerr = _leaf_err(res["cuda"][1], res["cpu"][1])
+        cur = {k: abs(float(res["cuda"][2][k]) / float(res["cpu"][2][k]) - 1)
+               for k in ("loss", "grad_norm")}
+        if gerr > tol or max(cur.values()) > TRAIN_CURVE_RTOL:
+            raise AssertionError(f"train {arch}: the card's gradients differ "
+                                 f"from the CPU's by {gerr} of a leaf (bound "
+                                 f"{tol}), loss and grad norm by {cur}")
+        rows.append({"arch": arch, "family": cfg.family, "grad_err": gerr,
+                     "grad_tol": tol, "loss_rel_err": cur["loss"],
+                     "grad_norm_rel_err": cur["grad_norm"],
+                     "loss": float(res["cuda"][2]["loss"])})
+    print("train " + json.dumps({
+        "run": "card against cpu, smoke configs, f32, one step",
+        "configs": rows, "curve_rtol": TRAIN_CURVE_RTOL,
+        "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+
+
+def _init_opt(params):
+    from repro_torch.train import init_opt
+
+    return init_opt(params)
+
+
+def _train_crosspod(dev, mesh) -> dict:
+    """``TRAIN_XPOD_STEPS`` int8 cross-pod steps of yi_34b smoke (f32) on
+    ``mesh``, from seeded weights and a seeded batch of 8 rows: each step's
+    loss and grad norm, the final params and the error feedback (a rank's
+    own; on a logical mesh each pod's)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.train import (OptConfig, init_error_feedback,
+                                   make_train_step_crosspod)
+
+    cfg = get_smoke_config("yi_34b")
+    params = params_from_numpy(_nudged_tree(cfg, 0), cfg, device=dev)
+    batch = {k: torch.tensor(v, device=dev)
+             for k, v in _train_batch(cfg, 8, 16, 0).items()}
+    logical = not hasattr(mesh, "get_group")
+    err = ([init_error_feedback(params) for _ in range(2)] if logical
+           else init_error_feedback(params))
+    opt = _init_opt(params)
+    step = make_train_step_crosspod(cfg, OptConfig(lr=1e-3, warmup_steps=5),
+                                    mesh, compress=True)
+    out = {}
+    for i in range(TRAIN_XPOD_STEPS):
+        params, opt, err, m = step(params, opt, err, batch)
+        out[f"loss{i}"] = np.float32(m["loss"].cpu())
+        out[f"gnorm{i}"] = np.float32(m["grad_norm"].cpu())
+    trees = {"params": params}
+    for pod, e in enumerate(err if logical else [err]):
+        trees[f"err{pod}"] = e
+    for name, tree in trees.items():
+        out.update({f"{name}{k}": v for k, v in
+                    _lm_flat(params_to_numpy(tree)).items()})
+    return out
+
+
+def rank_train(ref_dir: str) -> int:
+    """One of 2 gloo ranks sharing the card, started by ``python -m
+    torch.distributed.run`` (:func:`train_ranks`): the int8 cross-pod step,
+    its records into ``ref_dir``, then ``launch.train --data 2`` in the same
+    process group (its metrics into ``ref_dir``)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import init_from_env, make_local_mesh
+
+    dev, backend = init_from_env("cuda")
+    torch.set_float32_matmul_precision("highest")
+    out = _train_crosspod(dev, make_local_mesh(pod=2))
+    rank = dist.get_rank()
+    np.savez(Path(ref_dir) / f"train_rank{rank}.npz", backend=backend, **out)
+    launch.main(TRAIN_DP + ["--data", "2", "--metrics",
+                            f"{ref_dir}/dp.jsonl"])
+    dist.destroy_process_group()
+    return 0
+
+
+def train_ranks(dev, card: str):
+    """Ranks sharing the card, 2 gloo processes of ``python -m
+    torch.distributed.run`` (:func:`rank_train`): the int8 cross-pod step
+    against the same step on a logical (2, 1, 1) mesh in this process, and
+    ``launch.train --data 2`` in their process group against the one-rank
+    run on the whole batch, each within the CPU tests' tolerances
+    (loss and grad norm ``TRAIN_CURVE_RTOL``; the error feedback within one
+    quantization scale an element, pod 0's scale from its first gradient;
+    the CPU tests find the logical pods bitwise the ranks')."""
+    import tempfile
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import params_from_numpy, params_to_numpy
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.train import grads_and_loss
+
+    torch.set_float32_matmul_precision("highest")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as d:
+        argv = [sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc-per-node", "2",
+                str(ROOT / "chip_smoke.py"), "--rank-train", "--ref-dir", d]
+        procs = [subprocess.Popen(
+            argv, env=dict(os.environ, OMP_NUM_THREADS="1"), cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
+        # meanwhile, the one-process results
+        logical = _train_crosspod(dev, make_local_mesh(pod=2))
+        cfg = get_smoke_config("yi_34b")
+        p = params_from_numpy(_nudged_tree(cfg, 0), cfg, device=dev)
+        b = {k: torch.tensor(v[:4], device=dev)
+             for k, v in _train_batch(cfg, 8, 16, 0).items()}
+        scales = {f"err0{k}": float((np.abs(g).max() + 1e-12) / 127.0)
+                  for k, g in _lm_flat(params_to_numpy(
+                      grads_and_loss(p, cfg, b)[1])).items()}
+        launch.main(TRAIN_DP + ["--metrics", f"{d}/one.jsonl"])
+        _join(procs, "train ranks")
+        ranks = [_arrays(f"{d}/train_rank{r}.npz") for r in range(2)]
+        dp, _ = _train_metrics(Path(d) / "dp.jsonl")
+        one, _ = _train_metrics(Path(d) / "one.jsonl")
+    worst, bitwise = 0.0, True
+    for r, got in enumerate(ranks):
+        for i in range(TRAIN_XPOD_STEPS):
+            for key in (f"loss{i}", f"gnorm{i}"):
+                rel = abs(float(got[key]) / float(logical[key]) - 1)
+                worst = max(worst, rel)
+                if rel > TRAIN_CURVE_RTOL:
+                    raise AssertionError(f"train cross-pod rank {r}: {key} "
+                                         f"{got[key]} against {logical[key]}")
+        for k in (k for k in got if k.startswith("err0/")):
+            want = logical[k.replace("err0", f"err{r}", 1)]
+            d_max = float(np.abs(got[k] - want).max())
+            if r == 0 and d_max > scales[k] * (1 + 1e-5):
+                raise AssertionError(f"train cross-pod rank {r}: {k} off by "
+                                     f"{d_max}, scale {scales[k]}")
+            bitwise &= got[k].tobytes() == want.tobytes()
+        bitwise &= all(got[k].tobytes() == logical[k].tobytes()
+                       for k in got if k.startswith("params"))
+    dp_err = 0.0
+    if [x["step"] for x in dp] != [x["step"] for x in one]:
+        raise AssertionError("train --data 2: steps differ")
+    for a, b in zip(dp, one):
+        for key in ("loss", "grad_norm"):
+            rel = abs(a[key] / b[key] - 1)
+            dp_err = max(dp_err, rel)
+            if rel > TRAIN_CURVE_RTOL:
+                raise AssertionError(f"train --data 2: step {a['step']} "
+                                     f"{key} {a[key]} against {b[key]}")
+    print("train " + json.dumps({
+        "run": "ranks sharing the card",
+        "crosspod": {"ranks": 2, "backend": str(ranks[0]["backend"]),
+                     "steps": TRAIN_XPOD_STEPS, "compress": True,
+                     "max_rel_err": worst,
+                     "bitwise_the_logical_pods": bool(bitwise)},
+        "data_parallel": {"argv": TRAIN_DP + ["--data", "2"],
+                          "launcher": "torch.distributed.run "
+                          "--nproc-per-node 2 chip_smoke.py --rank-train",
+                          "steps": len(dp),
+                          "max_rel_err": dp_err,
+                          "loss": [x["loss"] for x in dp]},
+        "curve_rtol": TRAIN_CURVE_RTOL,
+        "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+
+
+def train_phase(dev, card: str):
+    """The LM harness's training side on the card (no kernel: plain
+    PyTorch): :func:`train_full_width`, :func:`train_crash_resume`,
+    :func:`train_card_vs_cpu`, :func:`train_ranks`; a ``train`` line each."""
+    train_full_width(card)
+    train_crash_resume(card)
+    train_card_vs_cpu(dev, card)
+    train_ranks(dev, card)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-objects", type=int, default=1_000_000)
@@ -3428,6 +3816,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--rank-server", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--rank-train", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--ref-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3437,6 +3827,8 @@ def main() -> int:
         return rank_path(args.rank_path, args.n_objects, args.ref_dir)
     if args.rank_server:
         return rank_server(args.n_objects, args.ref_dir)
+    if args.rank_train:
+        return rank_train(args.ref_dir)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
@@ -3517,6 +3909,8 @@ def main() -> int:
     lap("properties")
     lm_phase(dev, card)
     lap("lm")
+    train_phase(dev, card)
+    lap("train")
     narrow = ("topk_select", "bucket_kselect", "pairwise_dist")
     records = [rec, rec_mixed, rec_multi, rec_lists,
                *(api[name] for name in narrow), *wide.values(),

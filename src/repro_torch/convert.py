@@ -7,7 +7,9 @@ into the port's :class:`~repro_torch.core.quadtree.QuadtreeIndex` on a
 device, and back, so both sweeps can run against one index.
 
 The LM harness's weights cross as a nested dict of numpy arrays with the
-reference's tree (:func:`params_from_numpy`, :func:`params_to_numpy`).
+reference's tree (:func:`params_from_numpy`, :func:`params_to_numpy`), and
+its optimizer state (``m``, ``v`` and ``step``) the same way
+(:func:`opt_from_numpy`, :func:`opt_to_numpy`).
 numpy has no bfloat16 without ``ml_dtypes``, so a leaf arrives as float32
 (exact for every bf16 value) or as the uint16 bits of a bf16 array, and
 takes the dtype the port's own tree gives it.
@@ -23,7 +25,8 @@ from .core.quadtree import INDEX_FIELDS, QuadtreeIndex
 from .runtime import resolve_device
 
 __all__ = ["INDEX_FIELDS", "index_from_numpy", "index_to_numpy",
-           "params_from_numpy", "params_to_numpy"]
+           "params_from_numpy", "params_to_numpy", "opt_from_numpy",
+           "opt_to_numpy"]
 
 _DTYPES = {
     "origin": np.float32, "side": np.float32, "pos": np.float32,
@@ -65,30 +68,65 @@ def params_from_numpy(tree: Mapping, cfg, device=None) -> dict:
     """
     from .models import init_params  # the LM package, for LM trees only
 
+    return _tree_from_numpy(tree, init_params(cfg, device="meta"),
+                            resolve_device(device), "params")
+
+
+def opt_from_numpy(opt: Mapping, cfg, device=None) -> dict:
+    """The reference's optimizer state (``{"m", "v", "step"}``, numpy
+    leaves) -> the port's, on ``device``: ``m`` and ``v`` float32 trees of
+    the parameters' shapes, ``step`` an int32 scalar."""
+    from .models import init_params
+
     dev = resolve_device(device)
     spec = init_params(cfg, device="meta")
+    f32 = _retype(spec, torch.float32)
+    step = np.asarray(opt["step"])
+    if step.shape != () or step.dtype != np.int32:
+        raise ValueError(f"opt['step']: {step.dtype}{step.shape}, want an "
+                         "int32 scalar")
+    return {"m": _tree_from_numpy(opt["m"], f32, dev, "opt['m']"),
+            "v": _tree_from_numpy(opt["v"], f32, dev, "opt['v']"),
+            "step": torch.tensor(step, device=dev)}
+
+
+def opt_to_numpy(opt) -> dict:
+    """The port's optimizer state -> numpy (float32 moments, int32 step)."""
+    return {"m": params_to_numpy(opt["m"]), "v": params_to_numpy(opt["v"]),
+            "step": np.asarray(opt["step"].cpu().numpy(), np.int32)}
+
+
+def _retype(spec, dtype):
+    if isinstance(spec, dict):
+        return {k: _retype(v, dtype) for k, v in spec.items()}
+    return torch.empty(spec.shape, dtype=dtype, device="meta")
+
+
+def _tree_from_numpy(tree: Mapping, spec, dev, name: str) -> dict:
+    """numpy leaves -> tensors of ``spec``'s tree and dtypes on ``dev``;
+    ``name`` heads the errors."""
 
     def walk(src, ref, path):
         if isinstance(ref, dict):
             if not isinstance(src, Mapping) or set(src) != set(ref):
                 got = sorted(src) if isinstance(src, Mapping) else type(src)
-                raise ValueError(f"params{path}: keys {got}, want "
+                raise ValueError(f"{name}{path}: keys {got}, want "
                                  f"{sorted(ref)}")
             return {k: walk(src[k], ref[k], f"{path}[{k!r}]") for k in ref}
         arr = np.asarray(src)
         if arr.shape != tuple(ref.shape):
-            raise ValueError(f"params{path}: shape {arr.shape}, want "
+            raise ValueError(f"{name}{path}: shape {arr.shape}, want "
                              f"{tuple(ref.shape)}")
         if arr.dtype == np.uint16:
             if ref.dtype != torch.bfloat16:
-                raise ValueError(f"params{path}: bf16 bits for a "
+                raise ValueError(f"{name}{path}: bf16 bits for a "
                                  f"{ref.dtype} leaf")
             t = torch.from_numpy(arr.view(np.int16).copy()).view(
                 torch.bfloat16)
         elif arr.dtype == np.float32:
             t = torch.from_numpy(arr.copy()).to(ref.dtype)
         else:
-            raise ValueError(f"params{path}: dtype {arr.dtype}; float32 or "
+            raise ValueError(f"{name}{path}: dtype {arr.dtype}; float32 or "
                              "uint16 bf16 bits")
         return t.to(dev)
 

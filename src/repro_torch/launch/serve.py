@@ -286,12 +286,12 @@ def run_lm(cfg, *, batch: int, prompt_len: int, tokens: int, seed: int,
 
 def serve_lm(args) -> int:
     """The ``lm`` mode: one model on one device (``--data``/``--model``
-    meshes belong to the training side, not ported yet)."""
+    meshes lay a model over the rule tables, not ported yet)."""
     if args.data > 1 or args.model > 1:
         raise ValueError(
             f"lm: --data {args.data} --model {args.model} lays a mesh; the "
-            "port serves one model on one device (meshes come with the "
-            "training side, ROADMAP A13b)")
+            "port serves one model on one device (serving meshes come with "
+            "the rule tables' model layout, ROADMAP A13c)")
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     r = run_lm(cfg, batch=args.batch, prompt_len=args.prompt_len,
                tokens=args.tokens, seed=args.seed, device=args.device)

@@ -1,13 +1,14 @@
-"""The LM harness's models, in PyTorch: the serving side of
-``repro.models`` (init, forward, decode for the ten architectures of
-``repro_torch.configs``).  ``loss_fn`` and ``param_logical`` belong to the
-training side and are not ported yet."""
+"""The LM harness's models, in PyTorch: ``repro.models`` (init, forward,
+decode and the training loss for the ten architectures of
+``repro_torch.configs``, and the logical-axes tree of the parameters)."""
 from .model import (
     decode_step,
     encode_memory,
     forward,
     init_decode_state,
     init_params,
+    loss_fn,
+    param_logical,
     seed_decode_state,
 )
 
@@ -18,4 +19,6 @@ __all__ = [
     "forward",
     "init_decode_state",
     "init_params",
+    "loss_fn",
+    "param_logical",
 ]

@@ -14,6 +14,7 @@ from .layers import Init, apply_rope, init_linear, rope
 
 __all__ = [
     "init_attn",
+    "attn_logical",
     "attention",
     "attention_with_kv",
     "project_memory_kv",
@@ -32,6 +33,15 @@ def init_attn(init: Init, d: int, n_heads: int, n_kv: int, d_head: int,
         "wv": init_linear(init, d, (n_kv, d_head), dtype, lead=lead),
         "wo": init.normal((*lead, n_heads, d_head, d),
                           (n_heads * d_head) ** -0.5, dtype),
+    }
+
+
+def attn_logical():
+    return {
+        "wq": ("embed", "heads", None),
+        "wk": ("embed", "kv", None),
+        "wv": ("embed", "kv", None),
+        "wo": ("heads", None, "embed"),
     }
 
 

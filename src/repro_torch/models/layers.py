@@ -2,8 +2,8 @@
 
 Counterpart of ``repro/models/layers.py``.  Params are plain nested dicts of
 tensors.  The reference's ``constrain`` calls (activation sharding hints)
-are the identity on one card and are left out; ``mlp_logical`` and
-``cross_entropy_loss`` belong to the training side and are not here.
+are the identity on one card and are left out.  ``*_logical`` functions
+return the parameter tree with logical-axes tuples at the leaves.
 """
 from __future__ import annotations
 
@@ -17,9 +17,11 @@ __all__ = [
     "init_linear",
     "dense",
     "init_mlp",
+    "mlp_logical",
     "mlp",
     "rope",
     "apply_rope",
+    "cross_entropy_loss",
 ]
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -111,6 +113,13 @@ def init_mlp(init: Init, d: int, ff: int, activation: str, dtype,
     return p
 
 
+def mlp_logical(activation: str):
+    p = {"w_in": ("embed", "ff"), "w_out": ("ff", "embed")}
+    if activation == "swiglu":
+        p["w_gate"] = ("embed", "ff")
+    return p
+
+
 def mlp(params, x, activation: str):
     h = dense(x, params["w_in"])
     if activation == "swiglu":
@@ -150,3 +159,18 @@ def apply_rope(x, cos, sin):
     xr1 = x1 * cos - x2 * sin
     xr2 = x2 * cos + x1 * sin
     return torch.cat([xr1, xr2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------- loss
+
+
+def cross_entropy_loss(logits, labels, mask=None):
+    """Mean next-token cross entropy; logits (B, S, V) cast to f32."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - ll
+    if mask is not None:
+        nll = nll * mask
+        return nll.sum() / torch.clamp(mask.sum(), min=1)
+    return nll.mean()

@@ -10,30 +10,37 @@ every group of ``cross_attn_every`` layers).
 
 Params are the reference's tree: nested dicts, homogeneous blocks stacked
 along a leading layer axis (the hybrid's ``groups`` along two), which the
-forward and decode loops walk in Python.  ``cfg.remat`` and
-``cfg.scan_unroll`` shape the reference's compiled program only; they
-change no output here.  The training side (``loss_fn``, ``param_logical``)
-is not ported yet.
+forward and decode loops walk in Python.  ``param_logical(cfg)`` mirrors the
+tree with logical-axes tuples at the leaves.  Where the reference wraps a
+scanned block in ``jax.checkpoint`` (``cfg.remat``), the forward runs it
+through ``torch.utils.checkpoint`` while grad is enabled: its activations
+are recomputed in the backward instead of kept.  Neither that nor
+``cfg.scan_unroll`` changes an output.  ``loss_fn`` is the train step's
+objective.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
 from ..runtime import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import DTYPES, Init, init_linear, init_mlp, mlp, rms_norm
+from .layers import (DTYPES, Init, cross_entropy_loss, init_linear, init_mlp,
+                     mlp, mlp_logical, rms_norm)
 
 __all__ = [
     "seed_decode_state",
     "encode_memory",
     "init_params",
+    "param_logical",
     "forward",
     "init_decode_state",
     "decode_step",
+    "loss_fn",
 ]
 
 
@@ -54,6 +61,17 @@ def _depth(tree) -> int:
     while isinstance(tree, dict):
         tree = next(iter(tree.values()))
     return tree.shape[0]
+
+
+def _unstack(tree) -> list:
+    """The layers of a stacked tree, each leaf unbound once along its
+    leading axis (one backward node a leaf, where indexing would add one a
+    layer, each writing a whole leaf of zeros)."""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return torch.unbind(tree)
 
 
 def _zero(x) -> torch.Tensor:
@@ -104,6 +122,16 @@ def _ffn(p, hin, cfg: ModelConfig):
     return mlp(p["mlp"], hin, cfg.activation), None
 
 
+def dense_block_logical(cfg: ModelConfig):
+    return {
+        "ln1": (None,),
+        "attn": attn.attn_logical(),
+        "ln2": (None,),
+        "mlp": moe_mod.moe_logical() if cfg.family == "moe"
+        else mlp_logical(cfg.activation),
+    }
+
+
 def dense_block(p, x, cfg: ModelConfig):
     """Returns (x, aux): aux is the MoE load-balance loss (or 0)."""
     h, _ = attn.attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
@@ -125,12 +153,17 @@ def _load_balance_loss(router_logits, cfg: ModelConfig):
     return cfg.n_experts * torch.sum(f * pbar)
 
 
-def _scan_blocks(block_fn, stacked, x):
-    """Run ``block_fn`` over the stacked layers in order; (x, sum of
-    aux)."""
+def _scan_blocks(block_fn, stacked, x, remat: bool = False):
+    """Run ``block_fn`` over the stacked layers in order; (x, sum of aux).
+    With ``remat`` and grad enabled each block is a checkpoint: only its
+    input is kept, and its activations are recomputed in the backward."""
+    fn = block_fn
+    if remat and torch.is_grad_enabled():
+        def fn(p, h):
+            return checkpoint(block_fn, p, h, use_reentrant=False)
     auxs = []
-    for i in range(_depth(stacked)):
-        x, aux = block_fn(_layer(stacked, i), x)
+    for p in _unstack(stacked):
+        x, aux = fn(p, x)
         auxs.append(aux)
     return x, torch.stack(auxs).sum()
 
@@ -203,6 +236,44 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
     return p
 
 
+def param_logical(cfg: ModelConfig):
+    """Same tree as init_params but with logical-axes tuples at the
+    leaves."""
+    fam = cfg.family
+    blk = dense_block_logical(cfg)
+    p = {"embed": ("vocab", "embed"), "ln_f": (None,),
+         "unembed": ("embed", "vocab")}
+    if fam in ("dense", "moe"):
+        p["blocks"] = _prefix_layers(blk)
+    elif fam == "ssm":
+        p["blocks"] = _prefix_layers(
+            {"ln1": (None,), "tm": ssm_mod.rwkv6_logical(), "ln2": (None,)})
+    elif fam == "hybrid":
+        mamba = {"ln": (None,), "m": ssm_mod.mamba2_logical()}
+        p["groups"] = _prefix_layers(_prefix_layers(mamba))
+        p["trailing"] = _prefix_layers(mamba)
+        p["shared_attn"] = blk
+    elif fam == "encdec":
+        p["enc_blocks"] = _prefix_layers(blk)
+        p["dec_blocks"] = _prefix_layers(
+            {**blk, "lnx": (None,), "xattn": attn.attn_logical()})
+        p["ln_enc"] = (None,)
+    elif fam == "vlm":
+        p["groups"] = _prefix_layers({
+            "selfs": _prefix_layers(blk),
+            "cross": {**blk, "lnx": (None,), "xattn": attn.attn_logical(),
+                      "xgate": ()},
+        })
+    return p
+
+
+def _prefix_layers(tree):
+    """Prepend the stacked-layers axis (None) to every logical tuple."""
+    if isinstance(tree, dict):
+        return {k: _prefix_layers(v) for k, v in tree.items()}
+    return (None, *tree)
+
+
 # ===================================================================== forward
 def forward(params, cfg: ModelConfig, batch, *,
             logits_last_only: bool = False):
@@ -219,16 +290,16 @@ def forward(params, cfg: ModelConfig, batch, *,
 
     if fam in ("dense", "moe"):
         x, aux = _scan_blocks(lambda p, h: dense_block(p, h, cfg),
-                              params["blocks"], x)
+                              params["blocks"], x, cfg.remat)
     elif fam == "ssm":
         x, aux = _scan_blocks(lambda p, h: _rwkv_block(p, h, cfg),
-                              params["blocks"], x)
+                              params["blocks"], x, cfg.remat)
     elif fam == "hybrid":
         x, aux = _hybrid_forward(params, x, cfg)
     elif fam == "encdec":
         mem = encode_memory(params, cfg, batch["frames"].to(x.dtype))
         x, aux = _scan_blocks(lambda p, h: _dec_block(p, h, mem, cfg),
-                              params["dec_blocks"], x)
+                              params["dec_blocks"], x, cfg.remat)
     elif fam == "vlm":
         x, aux = _vlm_forward(params, x, batch["img"].to(x.dtype), cfg)
     else:
@@ -267,13 +338,13 @@ def _trailing(cfg: ModelConfig) -> int:
 
 def _hybrid_forward(params, x, cfg: ModelConfig):
     shared = params["shared_attn"]
-    for g in range(_depth(params["groups"])):
-        x, _ = _scan_blocks(lambda p, h: _mamba_block(p, h, cfg),
-                            _layer(params["groups"], g), x)
+    for gp in _unstack(params["groups"]):
+        x, _ = _scan_blocks(lambda p, h: _mamba_block(p, h, cfg), gp, x,
+                            cfg.remat)
         x, _ = dense_block(shared, x, cfg)  # the ONE shared attention block
     if _trailing(cfg) > 0:
         x, _ = _scan_blocks(lambda p, h: _mamba_block(p, h, cfg),
-                            params["trailing"], x)
+                            params["trailing"], x, cfg.remat)
     return x, _zero(x)
 
 
@@ -297,10 +368,9 @@ def _dec_block(p, x, mem, cfg: ModelConfig):
 
 
 def _vlm_forward(params, x, img, cfg: ModelConfig):
-    for g in range(_depth(params["groups"]["cross"])):
-        gp = _layer(params["groups"], g)
+    for gp in _unstack(params["groups"]):
         x, _ = _scan_blocks(lambda p, h: dense_block(p, h, cfg), gp["selfs"],
-                            x)
+                            x, cfg.remat)
         cp = gp["cross"]
         x, _ = dense_block(cp, x, cfg)
         hx, _ = attn.attention(cp["xattn"], rms_norm(x, cp["lnx"],
@@ -519,5 +589,17 @@ def seed_decode_state(params, cfg: ModelConfig, state, memory):
 def encode_memory(params, cfg: ModelConfig, frames):
     """Run the encoder stack (encdec prefill side): frames -> memory."""
     mem, _ = _scan_blocks(lambda p, h: _enc_block(p, h, cfg),
-                          params["enc_blocks"], frames)
+                          params["enc_blocks"], frames, cfg.remat)
     return rms_norm(mem, params["ln_enc"], cfg.norm_eps)
+
+
+# ===================================================================== training
+def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
+    """Next-token LM loss (+ MoE aux): the train step's objective."""
+    logits, aux = forward(params, cfg, batch)
+    tokens = batch["tokens"]
+    labels = torch.cat([tokens[:, 1:], tokens[:, :1]], dim=1)
+    mask = torch.ones(labels.shape, dtype=torch.float32,
+                      device=labels.device)
+    mask[:, -1] = 0.0
+    return cross_entropy_loss(logits, labels, mask) + aux_weight * aux

@@ -19,7 +19,7 @@ import torch.nn.functional as F
 
 from .layers import Init, init_linear
 
-__all__ = ["init_moe", "moe_ffn"]
+__all__ = ["init_moe", "moe_logical", "moe_ffn"]
 
 
 def init_moe(init: Init, d: int, ff: int, n_experts: int, dtype,
@@ -29,6 +29,15 @@ def init_moe(init: Init, d: int, ff: int, n_experts: int, dtype,
         "w_in": init.normal((*lead, n_experts, d, ff), d ** -0.5, dtype),
         "w_gate": init.normal((*lead, n_experts, d, ff), d ** -0.5, dtype),
         "w_out": init.normal((*lead, n_experts, ff, d), ff ** -0.5, dtype),
+    }
+
+
+def moe_logical():
+    return {
+        "router": ("embed", None),
+        "w_in": ("expert", "embed", "ff"),
+        "w_gate": ("expert", "embed", "ff"),
+        "w_out": ("expert", "ff", "embed"),
     }
 
 

@@ -24,10 +24,12 @@ from .layers import Init, init_linear, rms_norm
 
 __all__ = [
     "init_mamba2",
+    "mamba2_logical",
     "mamba2",
     "mamba2_decode",
     "init_mamba2_state",
     "init_rwkv6",
+    "rwkv6_logical",
     "rwkv6_timemix",
     "rwkv6_channelmix",
     "rwkv6_timemix_decode",
@@ -73,6 +75,19 @@ def init_mamba2(init: Init, d_model: int, expand: int, n_heads: int,
         "dt_bias": init.full((*lead, h), 0.0, f32),
         "norm": init.full((*lead, d_in), 1.0, dtype),
         "out_proj": init_linear(init, d_in, d_model, dtype, lead=lead),
+    }
+
+
+def mamba2_logical():
+    return {
+        "in_proj": ("embed", "ff"),
+        "conv_w": ("conv", None),
+        "conv_b": (None,),
+        "A_log": (None,),
+        "D": (None,),
+        "dt_bias": (None,),
+        "norm": (None,),
+        "out_proj": ("ff", "embed"),
     }
 
 
@@ -204,6 +219,26 @@ def init_rwkv6(init: Init, d: int, ff: int, n_heads: int, dtype,
         "ck": init_linear(init, d, ff, dtype, lead=lead),
         "cv": init_linear(init, ff, d, dtype, lead=lead),
         "cr": init_linear(init, d, d, dtype, lead=lead),
+    }
+
+
+def rwkv6_logical():
+    return {
+        "mix": (None, "embed"),
+        "wr": ("embed", "heads"),
+        "wk": ("embed", "heads"),
+        "wv": ("embed", "heads"),
+        "wg": ("embed", "heads"),
+        "wo": ("heads", "embed"),
+        "w0": ("embed",),
+        "w_lora_a": ("embed", None),
+        "w_lora_b": (None, "embed"),
+        "u": ("heads", None),
+        "ln_x": ("embed",),
+        "mix_c": (None, "embed"),
+        "ck": ("embed", "ff"),
+        "cv": ("ff", "embed"),
+        "cr": ("embed", None),
     }
 
 

@@ -1,0 +1,200 @@
+"""Train-step builders: the plain step, its data-parallel form on
+``torch.distributed`` ranks, and the cross-pod variant, in PyTorch.
+
+Counterpart of ``repro/train/step.py``.  The step is a plain function on
+the parameter tree: ``torch.autograd.grad`` of ``loss_fn`` over the leaves,
+the global-norm clip and AdamW (``train/optimizer.py``).  It writes the new
+values into the ``params`` and ``opt`` tensors it is given and returns them:
+at full width a second copy of the state would not fit beside the first.
+
+- ``make_train_step(cfg, opt_cfg, accum, mesh=None)``: on one device, or,
+  given a rank mesh whose ``data`` dimension has more than one rank, each
+  rank takes its contiguous shard of the batch rows and the ranks' f32
+  gradients and losses are gathered and averaged in rank order on every
+  rank (what the reference's GSPMD step computes on a ``(data, 1)`` mesh),
+  so every rank takes the same optimizer step.
+- ``make_train_step_crosspod``: each rank of the ``pod`` dimension takes
+  its pod's rows of axis 0, and the gradients cross the pods through
+  ``train/compression.py`` (int8 with error feedback, or f32).  On a
+  logical mesh (no process group) the pods run one after another in this
+  process, with the ranks' arithmetic.
+
+Both accumulate ``accum`` contiguous microbatches in f32
+(``x.reshape(accum, -1, ...)[i]``); with ``accum == 1`` the gradients keep
+the parameters' dtype, as the reference's do.
+"""
+from __future__ import annotations
+
+import torch
+
+from ..configs.base import ModelConfig
+from ..models import loss_fn
+from .compression import (crosspod_mean, crosspod_mean_int8, int8_mean,
+                          int8_mean_pods, pods_mean, rank_mean)
+from .optimizer import (OptConfig, _clip_scale, adamw_step_, global_norm,
+                        tree_leaves, tree_map, tree_unflatten)
+
+__all__ = ["make_train_step", "make_train_step_crosspod", "grads_and_loss"]
+
+f32 = torch.float32
+
+
+def _value_and_grad(params, cfg: ModelConfig, batch):
+    leaves = [p.detach().requires_grad_(True) for p in tree_leaves(params)]
+    with torch.enable_grad():
+        loss = loss_fn(tree_unflatten(params, leaves), cfg, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    # a leaf the forward never reads (the hybrid's one trailing block when
+    # none trail) has a zero gradient, as in the reference
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)]
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def grads_and_loss(params, cfg: ModelConfig, batch, accum: int = 1):
+    """(loss, grads) with optional sequential microbatch accumulation."""
+    if accum <= 1:
+        return _value_and_grad(params, cfg, batch)
+
+    def micro(i):
+        return {k: x.reshape(accum, -1, *x.shape[1:])[i]
+                for k, x in batch.items()}
+
+    first = tree_leaves(params)[0]
+    loss_acc = torch.zeros((), dtype=f32, device=first.device)
+    g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=f32,
+                                           device=p.device), params)
+    for i in range(accum):
+        loss, grads = _value_and_grad(params, cfg, micro(i))
+        loss_acc = loss_acc + loss
+        for a, g in zip(tree_leaves(g_acc), tree_leaves(grads)):
+            a.add_(g.float())
+        del grads
+    scale = torch.tensor(1.0 / accum, dtype=f32, device=first.device)
+    for a in tree_leaves(g_acc):
+        a.mul_(scale)
+    return loss_acc * scale, g_acc
+
+
+def _rows(batch, n: int, i: int):
+    """Shard ``i`` of ``n`` contiguous shards of every leaf's axis 0."""
+    for k, x in batch.items():
+        if x.shape[0] % n:
+            raise ValueError(f"batch {k!r}: {x.shape[0]} rows do not split "
+                             f"into {n} shards")
+    return {k: x.reshape(n, -1, *x.shape[1:])[i] for k, x in batch.items()}
+
+
+def _dim(mesh, name: str) -> tuple[int, int, object]:
+    """(size, this rank's coordinate, group) of a mesh dimension; (1, 0,
+    None) where the mesh has no such dimension or is logical."""
+    names = getattr(mesh, "mesh_dim_names", None) or ()
+    if name not in names or not hasattr(mesh, "get_group"):
+        return 1, 0, None
+    i = names.index(name)
+    size = mesh.shape[i]
+    if size == 1:
+        return 1, 0, None
+    return size, mesh.get_coordinate()[i], mesh.get_group(name)
+
+
+def _check_model_axis(mesh):
+    if _dim(mesh, "model")[0] > 1:
+        raise ValueError("a 'model' mesh dimension above 1 is tensor "
+                         "parallelism, not ported yet (ROADMAP A13c)")
+
+
+def _data_parallel(params, cfg, batch, accum, mesh):
+    """(loss, grads) of this rank's ``data`` shard, averaged over the
+    ``data`` ranks (f32) when there is more than one."""
+    n, r, group = _dim(mesh, "data")
+    if n == 1:
+        return grads_and_loss(params, cfg, batch, accum)
+    loss, grads = grads_and_loss(params, cfg, _rows(batch, n, r), accum)
+    return (rank_mean(loss, group),
+            tree_map(lambda g: rank_mean(g, group), grads))
+
+
+def _clip_and_update(params, opt, grads, opt_cfg: OptConfig):
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, opt_cfg.clip_norm)
+    params, opt = adamw_step_(params, grads, opt, opt_cfg, scale)
+    return params, opt, gnorm
+
+
+def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, accum: int = 1,
+                    mesh=None):
+    """(params, opt, batch) -> (params, opt, metrics), updating in place.
+    ``mesh``: a rank mesh (``launch.mesh.make_local_mesh`` under a process
+    group) whose ``data`` ranks share the batch; None on one device."""
+    _check_model_axis(mesh)
+
+    def step(params, opt, batch):
+        loss, grads = _data_parallel(params, cfg, batch, accum, mesh)
+        params, opt, gnorm = _clip_and_update(params, opt, grads, opt_cfg)
+        return params, opt, {"loss": loss, "grad_norm": gnorm}
+
+    return step
+
+
+def make_train_step_crosspod(cfg: ModelConfig, opt_cfg: OptConfig, mesh, *,
+                             compress: bool = True, accum: int = 1):
+    """The step on ``pod`` ranks with an explicit (optionally int8)
+    cross-pod gradient exchange: (params, opt, err, batch) -> (params, opt,
+    err, metrics), updating in place.  ``mesh`` is a ``("pod", "data",
+    "model")`` mesh (``make_local_mesh(data, model, pod)``); the batch is
+    the whole batch, of which each pod takes its rows of axis 0 and, within
+    the pod, each ``data`` rank its shard.  State gains ``err``
+    (``init_error_feedback``) when compressing: on a rank mesh each rank's
+    own tree, on a logical mesh a list of one tree a pod."""
+    _check_model_axis(mesh)
+    names = tuple(getattr(mesh, "mesh_dim_names", ()) or ())
+    if "pod" in names and not hasattr(mesh, "get_group"):
+        return _logical_crosspod(cfg, opt_cfg, mesh.shape[names.index("pod")],
+                                 compress, accum)
+    npod, pod, group = _dim(mesh, "pod")
+
+    def step(params, opt, err, batch):
+        rows = _rows(batch, npod, pod) if npod > 1 else batch
+        loss, grads = _data_parallel(params, cfg, rows, accum, mesh)
+        if npod > 1:
+            if compress:
+                grads, err = crosspod_mean_int8(grads, err, group)
+            else:
+                grads = crosspod_mean(grads, group)
+            loss = rank_mean(loss, group)
+        elif compress:  # one pod: the quantizer still runs, as on 1 device
+            grads, err = int8_mean(grads, err, lambda t: [t])
+        else:
+            grads = tree_map(lambda g: g.float(), grads)
+        params, opt, gnorm = _clip_and_update(params, opt, grads, opt_cfg)
+        return params, opt, err, {"loss": loss, "grad_norm": gnorm}
+
+    return step
+
+
+def _logical_crosspod(cfg, opt_cfg, npod: int, compress: bool, accum: int):
+    """The cross-pod step with ``npod`` logical pods in this process."""
+
+    def step(params, opt, err, batch):
+        if compress and len(err) != npod:
+            raise ValueError(f"a logical mesh of {npod} pods takes a list "
+                             f"of {npod} error trees, got {len(err)}")
+        losses, grads = [], []
+        for p in range(npod):
+            loss, g = grads_and_loss(params, cfg, _rows(batch, npod, p),
+                                     accum)
+            losses.append(loss)
+            grads.append(g)
+        if compress:
+            mean, err = int8_mean_pods(grads, err)
+        else:
+            mean = tree_unflatten(grads[0], [
+                pods_mean(list(leaves))
+                for leaves in zip(*(tree_leaves(g) for g in grads))])
+        del grads
+        params, opt, gnorm = _clip_and_update(params, opt, mean, opt_cfg)
+        return params, opt, err, {"loss": pods_mean(losses),
+                                  "grad_norm": gnorm}
+
+    return step

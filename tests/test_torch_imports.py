@@ -1,4 +1,5 @@
 """The port stands alone: importing it pulls in neither JAX nor ``repro``."""
+import importlib
 import os
 import pkgutil
 import subprocess
@@ -40,18 +41,19 @@ def test_port_imports_no_jax_and_no_reference():
             *(f"repro_torch.configs.{a}" for a in archs),
             "repro_torch.models", *(f"repro_torch.models.{m}" for m in (
                 "layers", "attention", "moe", "ssm", "model"))} <= expected
+    assert {"repro_torch.train", *(f"repro_torch.train.{m}" for m in (
+        "optimizer", "step", "checkpoint", "compression")),
+        "repro_torch.data.lm", "repro_torch.launch.train"} <= expected
     assert leaked == "[]", leaked
-
-
-# the training side of the LM harness (ROADMAP A13b): not ported yet
-A13B_NAMES = {"loss_fn", "param_logical"}
 
 
 def test_public_names_match_reference():
     """The reference's public names of ``repro.core``, ``repro.kernels``
     (less ``default_interpret``: the port has no interpret mode),
-    ``repro.core.executor``, ``repro.configs`` and ``repro.models`` (less
-    ``A13B_NAMES``) all exist in the port; ``executor.resolve_plan`` is
+    ``repro.core.executor``, ``repro.configs``, ``repro.models`` and
+    ``repro.train`` (less ``shard_map_compat``, a shim over JAX versions)
+    all exist in the port, the last three exactly; each module of
+    ``repro.models`` has its counterpart's names; ``executor.resolve_plan`` is
     ``plan.resolve_plan`` itself; ``level_counts`` equals the reference's
     at every level of one index."""
     import jax.numpy as jnp
@@ -63,20 +65,26 @@ def test_public_names_match_reference():
     import repro.core.executor as rex
     import repro.kernels as rk
     import repro.models as rm
+    import repro.train as rt
     import repro_torch.configs as tcfg
     import repro_torch.core as tc
     import repro_torch.core.executor as tex
     import repro_torch.kernels as tk
     import repro_torch.models as tm
+    import repro_torch.train as tt
     from repro_torch.core import plan as tplan
 
     assert set(rc.__all__) <= set(tc.__all__)
     assert set(rk.__all__) - {"default_interpret"} <= set(tk.__all__)
     assert set(rex.__all__) <= set(tex.__all__)
     assert set(rcfg.__all__) == set(tcfg.__all__)
-    assert A13B_NAMES <= set(rm.__all__)
-    assert set(rm.__all__) - A13B_NAMES == set(tm.__all__)
-    for mod in (tc, tk, tex, tcfg, tm):
+    assert set(rm.__all__) == set(tm.__all__)
+    assert set(rt.__all__) - {"shard_map_compat"} == set(tt.__all__)
+    for sub in ("layers", "attention", "moe", "ssm", "model"):
+        ref = importlib.import_module(f"repro.models.{sub}")
+        port = importlib.import_module(f"repro_torch.models.{sub}")
+        assert set(ref.__all__) <= set(port.__all__), sub
+    for mod in (tc, tk, tex, tcfg, tm, tt):
         missing = [name for name in mod.__all__ if not hasattr(mod, name)]
         assert not missing, (mod.__name__, missing)
     assert tex.resolve_plan is tplan.resolve_plan
@@ -124,7 +132,8 @@ def test_examples_import_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", _EXAMPLES_PROBE], env=env,
                          cwd=ROOT, capture_output=True, text=True, check=True)
     n_examples, leaked = out.stdout.strip().split(" ", 1)
-    assert int(n_examples) == 3
+    assert int(n_examples) == 4
+    assert (ROOT / "examples_torch" / "train_lm.py").exists()
     assert leaked == "[]", leaked
     for path in (ROOT / "examples_torch").glob("*.py"):
         src = path.read_text()

@@ -519,7 +519,7 @@ def test_serve_lm_smoke_runs_on_cpu(arch, capsys):
 
 def test_serve_lm_refuses_a_mesh():
     for flag in ("--data", "--model"):
-        with pytest.raises(ValueError, match="A13b"):
+        with pytest.raises(ValueError, match="A13c"):
             serve_main(["lm", "--smoke", "--device", "cpu", flag, "2"])
 
 
