@@ -85,8 +85,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    pure-cache tick, a stab, an epoch clear), logically and then one replica
    on each of 4 gloo ranks (``--rank-server``), every rank's tenant rows
    and tick counters equal to the logical server's, and the ``knn`` driver
-   with four tenants under ``torch.distributed.run`` on 4 gloo ranks, its
-   ranks' digests equal; a ``distributed`` line per run (each rank's wall,
+   with four tenants under ``torch.distributed.run`` on 4 gloo ranks for
+   one tick, its ranks' digests equal; a ``distributed`` line per run (each rank's wall,
    gather time, peak and launches);
 11. wide sessions (:func:`wide_sessions`): specs that raised on the card
    before the wide templates, each equal to its oracle or twin and
@@ -156,7 +156,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    weights (gradients, loss, grad norm); the int8 cross-pod step on 2 gloo
    ranks sharing the card against the logical pods in this process, and
    ``launch.train --data 2`` under ``torch.distributed.run`` against the
-   one-rank run, within the CPU tests' tolerances.
+   one-rank run, within the CPU tests' tolerances;
+19. mesh (:func:`mesh_phase`), the LM harness laid over a ``(data,
+   model)`` mesh by the rule tables (DTensor; no kernel), on 2 gloo ranks
+   sharing the card under one ``torch.distributed.run``: first which
+   collectives gloo carries on CUDA tensors; (a) ``launch.train --arch
+   yi_34b --layers 2 --dtype float32 --model 2`` at full width against the
+   one-rank run (loss and grad-norm curves within ``TRAIN_CURVE_RTOL``,
+   every leaf laid on ``model`` split in half on a rank, each rank's
+   peak); (b) the same run in bf16 for its seconds a step; (c) ``serve lm
+   --arch qwen3_moe_235b_a22b --model 2`` against one rank: cut to 2
+   layers in float32, the greedy tokens wherever one rank's top two
+   logits are more than ``MESH_F32_TOL`` apart; cut to 4 layers in bf16,
+   ms/token, tok/s and each rank's peak, the tokens counted against
+   ``MESH_BF16_TOL``; (d)
+   ``python -m repro_torch.launch.dryrun --arch yi_34b --shape train_4k``
+   on the host (a fake process group of 256 ranks, no device), beside
+   them.
 
 Launch counts are zeroed just before each path (each tick, in the single
 and server paths) and read just after, on the path's own session only.  The
@@ -2081,7 +2097,7 @@ def server_ranks(n: int, card: str) -> dict:
     argv = [sys.executable, "-m", "torch.distributed.run", "--standalone",
             "--nproc-per-node", str(RANK_SERVER_WORLD), "-m",
             "repro_torch.launch.serve", "knn", "--objects", str(n_driver),
-            "--ticks", "2", "--tenants", "4", "--plan", "object_sharded"]
+            "--ticks", "1", "--tenants", "4", "--plan", "object_sharded"]
     t0 = time.perf_counter()
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1")
@@ -3803,6 +3819,288 @@ def train_phase(dev, card: str):
     train_ranks(dev, card)
 
 
+MESH_TRAIN = ["--arch", "yi_34b", "--layers", "2", "--steps", "4",
+              "--batch", "8", "--seq", "128", "--log-every", "100"]
+MESH_SERVE = ["lm", "--arch", "qwen3_moe_235b_a22b", "--layers", "4",
+              "--batch", str(LM_BATCH), "--prompt-len", str(LM_PROMPT),
+              "--tokens", str(LM_TOKENS)]
+# the check in float32, cut to 2 layers (24.8 GB of weights on one rank)
+MESH_SERVE_F32 = [*MESH_SERVE[:4], "2", *MESH_SERVE[5:], "--dtype",
+                  "float32"]
+# a top-two margin above it decides the greedy token on both float32 runs
+# (the laid run's logits differ by its sums' order, about 1e-5 on the CPU)
+MESH_F32_TOL = 1e-3
+# the CPU tests' bf16 logit tolerance (atol): in bf16 the tokens are
+# counted against it, not checked (a near-tie of the router's top-k, taken
+# from activations rounded in another order, sends a token to another
+# expert)
+MESH_BF16_TOL = 6.25e-2
+MESH_DRYRUN = ["--arch", "yi_34b", "--shape", "train_4k"]
+
+
+def _gloo_cuda_probe(dev) -> dict:
+    """Which collectives gloo carries on CUDA tensors, on this process
+    group: each called on a small tensor of the card and its result held
+    against the sum or the concatenation it must give."""
+    import torch.distributed as dist
+
+    rank, world = dist.get_rank(), dist.get_world_size()
+    x = torch.arange(world * 4, dtype=torch.float32, device=dev) + rank
+    every = [torch.arange(world * 4, dtype=torch.float32, device=dev) + r
+             for r in range(world)]
+    total = sum(every)
+
+    def all_reduce():
+        y = x.clone()
+        dist.all_reduce(y)
+        return y, total
+
+    def all_gather():
+        y = torch.empty(world * x.numel(), device=dev)
+        dist.all_gather_into_tensor(y, x)
+        return y, torch.cat(every)
+
+    def reduce_scatter():
+        y = torch.empty(4, device=dev)
+        dist.reduce_scatter_tensor(y, x)
+        return y, total[rank * 4:(rank + 1) * 4]
+
+    def all_to_all():
+        y = torch.empty_like(x)
+        dist.all_to_all_single(y, x)
+        return y, torch.cat([e[rank * 4:(rank + 1) * 4] for e in every])
+
+    def all_reduce_bf16():
+        y = x.to(torch.bfloat16)
+        dist.all_reduce(y)
+        return y, total.to(torch.bfloat16)
+
+    out = {}
+    for name, fn in (("all_reduce", all_reduce), ("all_gather", all_gather),
+                     ("reduce_scatter", reduce_scatter),
+                     ("all_to_all", all_to_all),
+                     ("all_reduce_bf16", all_reduce_bf16)):
+        try:
+            got, want = fn()
+            out[name] = ("ok" if torch.equal(got.cpu(), want.cpu())
+                         else "wrong values")
+        except Exception as e:  # the backend's refusal is the finding
+            out[name] = f"refused: {type(e).__name__}: {str(e)[:200]}"
+    return out
+
+
+def rank_mesh(ref_dir: str) -> int:
+    """One of 2 gloo ranks sharing the card (:func:`mesh_phase`): the
+    collectives probe, then (a) ``launch.train --model 2`` in float32, (b)
+    in bf16, (c) ``serve lm --model 2``, each in this process group, their
+    records into ``ref_dir``."""
+    import faulthandler
+
+    faulthandler.enable()  # a fault in a rank prints its Python stack
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.launch import serve
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import init_from_env
+
+    dev, backend = init_from_env("cuda")
+    torch.set_float32_matmul_precision("highest")
+    probe = _gloo_cuda_probe(dev)
+    if dist.get_rank() == 0:
+        (Path(ref_dir) / "gloo.json").write_text(json.dumps(
+            {"backend": backend, "collectives": probe}))
+    t0 = time.perf_counter()
+    launch.main(MESH_TRAIN + ["--dtype", "float32", "--model", "2",
+                              "--metrics", f"{ref_dir}/tp32.jsonl"])
+    t1 = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    launch.main(MESH_TRAIN + ["--model", "2", "--metrics",
+                              f"{ref_dir}/tp16.jsonl"])
+    t2 = time.perf_counter()
+    torch.cuda.empty_cache()
+    serve.main(MESH_SERVE_F32 + ["--model", "2", "--tokens-out",
+                                 f"{ref_dir}/serve32_tp.npz"])
+    t3 = time.perf_counter()
+    torch.cuda.empty_cache()
+    serve.main(MESH_SERVE + ["--model", "2", "--tokens-out",
+                             f"{ref_dir}/serve_tp.npz"])
+    t4 = time.perf_counter()
+    if dist.get_rank() == 0:
+        (Path(ref_dir) / "rank_seconds.json").write_text(json.dumps(
+            {"train_f32": t1 - t0, "train_bf16": t2 - t1,
+             "serve_f32": t3 - t2, "serve": t4 - t3}))
+    dist.destroy_process_group()
+    return 0
+
+
+def _greedy_agreement(got, want, margins, tol: float,
+                      strict: bool = True) -> dict:
+    """Row by row, the laid run's tokens against one rank's: a step whose
+    one-rank top-two margin exceeds ``tol`` must agree (``strict``; else it
+    is counted as ``differ``), and a step that differs ends the row's
+    comparison (the inputs part from there)."""
+    checked = close = differ = after = 0
+    for r in range(want.shape[0]):
+        for t in range(want.shape[1]):
+            same = got[r, t] == want[r, t]
+            if margins[r, t] > tol:
+                if not same and strict:
+                    raise AssertionError(
+                        f"mesh serve: row {r} step {t}: token {got[r, t]} "
+                        f"against {want[r, t]} at a margin of "
+                        f"{margins[r, t]}")
+                checked += 1
+                differ += not same
+            else:
+                close += 1
+            if not same:
+                after += want.shape[1] - t - 1
+                break
+    return {"checked": checked, "differ": differ, "within_tol": close,
+            "not_compared": after}
+
+
+def mesh_phase(dev, card: str):
+    """The LM harness laid over a ``(data, model)`` mesh (no kernel; see
+    the module docstring, item 19): the one-rank runs first, each in a
+    process of its own that frees the card, then one
+    ``torch.distributed.run`` of 2 gloo ranks (:func:`rank_mesh`), the dry
+    run on the host beside them.  A ``mesh`` line each."""
+    import tempfile
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with tempfile.TemporaryDirectory() as d:
+        dry = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", *MESH_DRYRUN,
+             "--out", f"{d}/dry.jsonl"],
+            env=dict(env, CUDA_VISIBLE_DEVICES=""), cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        # the two float32 runs side by side (37.9 and 28.1 GB at their
+        # peaks), then the bf16 one
+        one = [[[sys.executable, "-m", "repro_torch.launch.train",
+                 *MESH_TRAIN, "--dtype", "float32", "--metrics",
+                 f"{d}/one32.jsonl"],
+                [sys.executable, "-m", "repro_torch.launch.serve",
+                 *MESH_SERVE_F32, "--tokens-out", f"{d}/serve32_one.npz"]],
+               [[sys.executable, "-m", "repro_torch.launch.serve",
+                 *MESH_SERVE, "--tokens-out", f"{d}/serve_one.npz"]]]
+        for group in one:
+            _join([subprocess.Popen(argv, env=env, cwd=ROOT,
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+                   for argv in group], "mesh one rank")
+        t_one = time.perf_counter() - t0
+        _join([subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc-per-node", "2", str(ROOT / "chip_smoke.py"),
+             "--rank-mesh", "--ref-dir", d],
+            env=dict(os.environ, OMP_NUM_THREADS="1"), cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)],
+            "mesh ranks")
+        t_ranks = time.perf_counter() - t0 - t_one
+        dry_log = _join([dry], "mesh dry run")[0]
+        gloo = json.loads((Path(d) / "gloo.json").read_text())
+        rank_s = json.loads((Path(d) / "rank_seconds.json").read_text())
+        tp32, s32 = _train_metrics(Path(d) / "tp32.jsonl")
+        one32, o32 = _train_metrics(Path(d) / "one32.jsonl")
+        tp16, s16 = _train_metrics(Path(d) / "tp16.jsonl")
+        sv_tp = dict(np.load(f"{d}/serve_tp.npz"))
+        sv_one = dict(np.load(f"{d}/serve_one.npz"))
+        sv32_tp = dict(np.load(f"{d}/serve32_tp.npz"))
+        sv32_one = dict(np.load(f"{d}/serve32_one.npz"))
+        dry = json.loads((Path(d) / "dry.jsonl").read_text().splitlines()[0])
+    print("mesh " + json.dumps({"run": "gloo on CUDA tensors", **gloo,
+                                "card": card}), flush=True)
+    # (a) tensor parallelism against one rank, float32
+    if [x["step"] for x in tp32] != [x["step"] for x in one32]:
+        raise AssertionError("mesh train: steps differ")
+    worst = 0.0
+    for a, b in zip(tp32, one32):
+        for key in ("loss", "grad_norm"):
+            rel = abs(a[key] / b[key] - 1)
+            worst = max(worst, rel)
+            if not rel <= TRAIN_CURVE_RTOL:
+                raise AssertionError(f"mesh train --model 2: step "
+                                     f"{a['step']} {key} {a[key]} against "
+                                     f"{b[key]}")
+    if not 0 < s32["model_leaves_split"] == s32["model_leaves"]:
+        raise AssertionError(f"mesh train: {s32['model_leaves_split']} of "
+                             f"{s32['model_leaves']} leaves laid on model "
+                             "split in half")
+    if s32["random_leaves_moved"] != s32["random_leaves"]:
+        raise AssertionError("mesh train: a leaf did not move")
+    keys = ("arch", "layers", "d_model", "vocab", "compute_dtype", "batch",
+            "seq", "tree_params", "peak_bytes_ranks", "local_bytes",
+            "model_leaves", "model_leaves_split")
+    print("mesh " + json.dumps({
+        "run": "(a) launch.train --model 2, float32, against one rank",
+        "argv": MESH_TRAIN + ["--dtype", "float32", "--model", "2"],
+        **{k: s32[k] for k in keys},
+        "one_rank_peak_bytes": o32["peak_bytes"],
+        "one_rank_local_bytes": o32["local_bytes"],
+        "loss": [x["loss"] for x in tp32],
+        "grad_norm": [x["grad_norm"] for x in tp32],
+        "max_rel_err": worst, "curve_rtol": TRAIN_CURVE_RTOL,
+        "s_per_step": [x["s"] for x in tp32],
+        "one_rank_s_per_step": [x["s"] for x in one32],
+        "seconds": rank_s["train_f32"], "card": card}), flush=True)
+    # (b) the same in bf16, for its seconds a step
+    for x in tp16:
+        if not (np.isfinite(x["loss"]) and np.isfinite(x["grad_norm"])):
+            raise AssertionError(f"mesh train bf16: step {x['step']}")
+    print("mesh " + json.dumps({
+        "run": "(b) launch.train --model 2, bf16",
+        "argv": MESH_TRAIN + ["--model", "2"],
+        **{k: s16[k] for k in keys},
+        "loss": [x["loss"] for x in tp16],
+        "s_per_step": [x["s"] for x in tp16],
+        "s_per_step_after_first": float(np.mean([x["s"] for x in tp16[1:]])),
+        "seconds": rank_s["train_bf16"], "card": card}), flush=True)
+    # (c) serving laid on model against one rank: checked in float32,
+    # timed (and counted) in bf16
+    agree32 = _greedy_agreement(sv32_tp["tokens"], sv32_one["tokens"],
+                                sv32_one["margins"], MESH_F32_TOL)
+    if not agree32["checked"]:
+        raise AssertionError("mesh serve float32: no token decided")
+    print("mesh " + json.dumps({
+        "run": "(c) serve lm --model 2, float32, against one rank",
+        "argv": MESH_SERVE_F32 + ["--model", "2"], **agree32,
+        "f32_tol": MESH_F32_TOL,
+        "max_margin_diff": float(np.abs(
+            sv32_tp["margins"] - sv32_one["margins"]).max()),
+        **{k: float(sv32_tp[k]) for k in ("ms_per_token", "tok_per_s")},
+        "peak_bytes_ranks": sv32_tp["peak_bytes"].tolist(),
+        "one_rank_peak_bytes": sv32_one["peak_bytes"].tolist(),
+        "seconds": rank_s["serve_f32"], "card": card}), flush=True)
+    agree = _greedy_agreement(sv_tp["tokens"], sv_one["tokens"],
+                              sv_one["margins"], MESH_BF16_TOL,
+                              strict=False)
+    print("mesh " + json.dumps({
+        "run": "(c) serve lm --model 2, bf16, against one rank",
+        "argv": MESH_SERVE + ["--model", "2"], **agree,
+        "bf16_tol": MESH_BF16_TOL,
+        **{k: float(sv_tp[k]) for k in ("prefill_s", "ms_per_token",
+                                        "tok_per_s")},
+        "peak_bytes_ranks": sv_tp["peak_bytes"].tolist(),
+        "one_rank": {k: float(sv_one[k]) for k in (
+            "prefill_s", "ms_per_token", "tok_per_s")},
+        "one_rank_peak_bytes": sv_one["peak_bytes"].tolist(),
+        "seconds": rank_s["serve"], "card": card}), flush=True)
+    # (d) the dry run of one full-width cell on the host
+    if dry.get("status") != "ok":
+        raise AssertionError(f"mesh dry run: {dry}\n{dry_log[-3000:]}")
+    print("mesh " + json.dumps({
+        "run": "(d) launch.dryrun " + " ".join(MESH_DRYRUN),
+        **{k: dry[k] for k in ("mesh", "trace_s", "memory", "collectives")},
+        "flops": dry["cost"]["flops"], "roofline": dry["roofline"],
+        "one_rank_runs_s": t_one, "ranks_s": t_ranks,
+        "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-objects", type=int, default=1_000_000)
@@ -3818,6 +4116,11 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--rank-train", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--rank-mesh", action="store_true",
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--only-mesh", action="store_true",
+                    help="run only the mesh phase (no kernel is built or "
+                         "checked; no kernels line)")
     ap.add_argument("--ref-dir", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3829,6 +4132,8 @@ def main() -> int:
         return rank_server(args.n_objects, args.ref_dir)
     if args.rank_train:
         return rank_train(args.ref_dir)
+    if args.rank_mesh:
+        return rank_mesh(args.ref_dir)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
@@ -3836,6 +4141,9 @@ def main() -> int:
     card = card_line()
     print(card)  # as nvidia-smi gives it: name, power limit
     print(f"torch {torch.__version__} cuda {torch.version.cuda}")
+    if args.only_mesh:
+        mesh_phase(dev, card)
+        return 0
     t0 = time.perf_counter()
     build.build_all(verbose=args.ptxas)
     print(f"build: {len(build.SOURCES)} source(s) in "
@@ -3911,6 +4219,8 @@ def main() -> int:
     lap("lm")
     train_phase(dev, card)
     lap("train")
+    mesh_phase(dev, card)
+    lap("mesh")
     narrow = ("topk_select", "bucket_kselect", "pairwise_dist")
     records = [rec, rec_mixed, rec_multi, rec_lists,
                *(api[name] for name in narrow), *wide.values(),

@@ -1,9 +1,10 @@
 """Train a (reduced) assigned-architecture LM with the full substrate:
 AdamW, the deterministic data pipeline, checkpointing, and a
 simulated-failure restart demonstrating fault tolerance, on the card (or
-``--device cpu``).
+``--device cpu``); ``--data D --model M`` runs both phases on D x M ranks
+under ``torch.distributed.run`` (tensor parallelism for M > 1).
 
-  PYTHONPATH=src python examples_torch/train_lm.py [--arch rwkv6_3b] [--steps 30] [--device cpu]
+  PYTHONPATH=src python examples_torch/train_lm.py [--arch rwkv6_3b] [--steps 30] [--device cpu] [--model 2]
 """
 import argparse
 import os
@@ -25,15 +26,24 @@ def main(argv=None) -> int:
                          "removed at the end)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (cuda, or cpu)")
+    ap.add_argument("--data", type=int, default=1,
+                    help="data-parallel ranks")
+    ap.add_argument("--model", type=int, default=1,
+                    help="model-parallel ranks (tensor parallelism)")
     args = ap.parse_args(argv)
 
     ckpt = args.ckpt or tempfile.mkdtemp(prefix="train_lm_")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    world = args.data * args.model
+    ranks = ([sys.executable, "-m", "torch.distributed.run", "--standalone",
+              "--nproc-per-node", str(world)] if world > 1
+             else [sys.executable])
     base = [
-        sys.executable, "-m", "repro_torch.launch.train", "--arch", args.arch,
+        *ranks, "-m", "repro_torch.launch.train", "--arch", args.arch,
         "--smoke", "--steps", str(args.steps), "--batch", "8", "--seq", "64",
         "--ckpt-dir", ckpt, "--ckpt-every", "10", "--log-every", "5",
-        "--device", args.device,
+        "--device", args.device, "--data", str(args.data),
+        "--model", str(args.model),
     ]
     crash = args.steps // 2 + 1
     try:
@@ -42,7 +52,8 @@ def main(argv=None) -> int:
         r = subprocess.run(base + ["--simulate-failure", str(crash)],
                            env=env)
         print("exit code:", r.returncode, "(simulated failure)", flush=True)
-        if r.returncode != 42:
+        # torch.distributed.run reports a rank's exit as its own failure
+        if r.returncode != 42 and (world == 1 or r.returncode == 0):
             return 1
         print("=== phase 2: restart --resume from the last checkpoint ===",
               flush=True)

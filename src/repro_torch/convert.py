@@ -57,25 +57,29 @@ def index_to_numpy(index: QuadtreeIndex) -> dict[str, np.ndarray]:
     return out
 
 
-def params_from_numpy(tree: Mapping, cfg, device=None) -> dict:
+def params_from_numpy(tree: Mapping, cfg, device=None, mesh=None) -> dict:
     """A reference parameter tree of numpy leaves -> the port's, on
     ``device``.
 
     Every leaf of ``init_params(cfg)``'s tree must be there, with its
     shape; a float32 leaf is cast to the port leaf's dtype (bf16 where
     ``cfg.param_dtype`` says so, f32 where the reference keeps f32), a
-    uint16 leaf is read as bf16 bits.
+    uint16 leaf is read as bf16 bits.  Given a ``DeviceMesh``, each leaf
+    keeps this rank's shard as it lands, laid by ``param_logical(cfg)``
+    (``dist.distribute_leaf``): a tree of DTensors.
     """
     from .models import init_params  # the LM package, for LM trees only
 
     return _tree_from_numpy(tree, init_params(cfg, device="meta"),
-                            resolve_device(device), "params")
+                            resolve_device(device), "params",
+                            _laying(cfg, mesh))
 
 
-def opt_from_numpy(opt: Mapping, cfg, device=None) -> dict:
+def opt_from_numpy(opt: Mapping, cfg, device=None, mesh=None) -> dict:
     """The reference's optimizer state (``{"m", "v", "step"}``, numpy
     leaves) -> the port's, on ``device``: ``m`` and ``v`` float32 trees of
-    the parameters' shapes, ``step`` an int32 scalar."""
+    the parameters' shapes (laid as the parameters on a ``DeviceMesh``),
+    ``step`` an int32 scalar."""
     from .models import init_params
 
     dev = resolve_device(device)
@@ -85,9 +89,19 @@ def opt_from_numpy(opt: Mapping, cfg, device=None) -> dict:
     if step.shape != () or step.dtype != np.int32:
         raise ValueError(f"opt['step']: {step.dtype}{step.shape}, want an "
                          "int32 scalar")
-    return {"m": _tree_from_numpy(opt["m"], f32, dev, "opt['m']"),
-            "v": _tree_from_numpy(opt["v"], f32, dev, "opt['v']"),
+    place = _laying(cfg, mesh)
+    return {"m": _tree_from_numpy(opt["m"], f32, dev, "opt['m']", place),
+            "v": _tree_from_numpy(opt["v"], f32, dev, "opt['v']", place),
             "step": torch.tensor(step, device=dev)}
+
+
+def _laying(cfg, mesh):
+    """The logical-axes tree of ``cfg``'s parameters where ``mesh`` is a
+    ``DeviceMesh`` to lay them on, else None."""
+    from .dist import is_rank_mesh
+    from .models import param_logical
+
+    return (param_logical(cfg), mesh) if is_rank_mesh(mesh) else None
 
 
 def opt_to_numpy(opt) -> dict:
@@ -102,17 +116,23 @@ def _retype(spec, dtype):
     return torch.empty(spec.shape, dtype=dtype, device="meta")
 
 
-def _tree_from_numpy(tree: Mapping, spec, dev, name: str) -> dict:
+def _tree_from_numpy(tree: Mapping, spec, dev, name: str,
+                     place=None) -> dict:
     """numpy leaves -> tensors of ``spec``'s tree and dtypes on ``dev``;
-    ``name`` heads the errors."""
+    ``name`` heads the errors.  ``place``: ``(logical tree, mesh)`` to
+    keep each leaf's shard on this rank as it lands."""
+    from .dist import distribute_leaf
 
-    def walk(src, ref, path):
+    logical, mesh = place or (None, None)
+
+    def walk(src, ref, path, axes=None):
         if isinstance(ref, dict):
             if not isinstance(src, Mapping) or set(src) != set(ref):
                 got = sorted(src) if isinstance(src, Mapping) else type(src)
                 raise ValueError(f"{name}{path}: keys {got}, want "
                                  f"{sorted(ref)}")
-            return {k: walk(src[k], ref[k], f"{path}[{k!r}]") for k in ref}
+            return {k: walk(src[k], ref[k], f"{path}[{k!r}]",
+                            None if axes is None else axes[k]) for k in ref}
         arr = np.asarray(src)
         if arr.shape != tuple(ref.shape):
             raise ValueError(f"{name}{path}: shape {arr.shape}, want "
@@ -128,9 +148,11 @@ def _tree_from_numpy(tree: Mapping, spec, dev, name: str) -> dict:
         else:
             raise ValueError(f"{name}{path}: dtype {arr.dtype}; float32 or "
                              "uint16 bf16 bits")
+        if axes is not None:
+            return distribute_leaf(t.to(dev), axes, mesh)
         return t.to(dev)
 
-    return walk(tree, spec, "")
+    return walk(tree, spec, "", logical)
 
 
 def params_to_numpy(params) -> dict:

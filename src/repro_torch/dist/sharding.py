@@ -18,10 +18,11 @@ Spec construction applies three fixups, in order:
 The rules read only a mesh's ``mesh_dim_names`` and ``shape``, so they bind
 to a ``torch.distributed.device_mesh.DeviceMesh`` and to the logical mesh of
 :mod:`repro_torch.launch.mesh` alike, with or without a process group.
+:meth:`LogicalRules.placements` turns a spec into DTensor placements, one a
+mesh dimension: what :mod:`repro_torch.dist.layout` lays tensors by.
 
 Not ported: ``shard_map_compat`` (a JAX-version shim; the port's plans run
-one rank program per grid cell) and the package's ``constrain`` (the LM
-harness's activation constraints).
+one rank program per grid cell).
 """
 from __future__ import annotations
 
@@ -35,6 +36,7 @@ __all__ = [
     "LogicalRules",
     "current_rules",
     "logical_to_spec",
+    "spec_placements",
     "use_rules",
 ]
 
@@ -102,6 +104,35 @@ class LogicalRules:
             entries.append(None if not kept
                            else kept[0] if len(kept) == 1 else tuple(kept))
         return tuple(entries)
+
+    def placements(self, logical_axes, shape=None) -> tuple:
+        """The spec as DTensor placements (:func:`spec_placements`)."""
+        return spec_placements(self.spec(logical_axes, shape),
+                               self.mesh.mesh_dim_names)
+
+
+def spec_placements(spec, mesh_dim_names) -> tuple:
+    """A spec as DTensor placements, one per mesh dimension: ``Shard(d)``
+    on each mesh dimension that entry ``d`` names, ``Replicate()`` on the
+    rest.  An entry naming several mesh dimensions (``("pod", "data")``)
+    shards its tensor dimension over them in mesh order, as the
+    ``PartitionSpec`` does; the entry must list them in that order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    names = list(mesh_dim_names)
+    out = [Replicate()] * len(names)
+    for d, entry in enumerate(spec):
+        if entry is None:
+            continue
+        dims = [names.index(a)
+                for a in ((entry,) if isinstance(entry, str) else entry)]
+        if dims != sorted(dims):
+            raise ValueError(f"spec entry {entry!r} lists the mesh "
+                             f"dimensions out of the mesh's order "
+                             f"{tuple(names)}")
+        for i in dims:
+            out[i] = Shard(d)
+    return tuple(out)
 
 
 _local = threading.local()

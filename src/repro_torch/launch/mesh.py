@@ -16,8 +16,9 @@ lays its shards on (``("query",)``, ``("object",)``, ``("query",
 ``None`` for a size means every device: the world's ranks under a process
 group, else the session's one device.  :func:`init_from_env` sets up the
 process group from the environment ``python -m torch.distributed.run``
-sets.  The reference's ``make_production_mesh`` (the LM harness's 16x16
-mesh) is not ported.
+sets.  :func:`make_production_mesh` is the LM harness's 16x16 (or
+2x16x16) mesh: logical without a process group, over the ranks of one of
+exactly 256 (or 512) ranks, fake or real (``launch/dryrun.py``).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch.distributed as dist
 
 __all__ = [
     "LogicalMesh",
+    "make_production_mesh",
     "make_local_mesh",
     "make_query_mesh",
     "make_object_mesh",
@@ -62,7 +64,8 @@ def _count(num_devices: int | None) -> int:
     return int(num_devices)
 
 
-def _mesh(shape: tuple[int, ...], names: tuple[str, ...]):
+def _mesh(shape: tuple[int, ...], names: tuple[str, ...],
+          device_type: str | None = None):
     if any(s < 1 for s in shape):
         raise ValueError(f"mesh sizes must be >= 1, got {shape}")
     world = world_size()
@@ -76,17 +79,34 @@ def _mesh(shape: tuple[int, ...], names: tuple[str, ...]):
     from torch.distributed.device_mesh import DeviceMesh
 
     # the mesh only names the ranks and builds their groups; the tensors a
-    # plan gathers stay on their own device (gloo carries CUDA tensors too)
-    device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
+    # plan gathers stay on their own device (gloo carries CUDA tensors too).
+    # DTensors take the mesh's device type, so a model laid on the card
+    # asks for "cuda" whatever the backend
+    if device_type is None:
+        device_type = "cuda" if dist.get_backend() == "nccl" else "cpu"
     return DeviceMesh(device_type, torch.arange(n).reshape(shape),
                       mesh_dim_names=names)
 
 
-def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1):
-    """A small ``("data", "model")`` (or ``("pod", "data", "model")``) mesh."""
+def make_production_mesh(*, multi_pod: bool = False):
+    """The production mesh: ``(16, 16)`` over ``("data", "model")``, or
+    ``(2, 16, 16)`` with ``"pod"`` in front.  Under a process group its
+    world must be exactly 256 (512) ranks; any other size raises, naming
+    both numbers."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return _mesh(shape, axes)
+
+
+def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1,
+                    device_type: str | None = None):
+    """A small ``("data", "model")`` (or ``("pod", "data", "model")``) mesh.
+    ``device_type``: the device of the DTensors laid on a rank mesh (default
+    ``cuda`` under NCCL, else ``cpu``)."""
     if pod > 1:
-        return _mesh((pod, data, model), ("pod", "data", "model"))
-    return _mesh((data, model), ("data", "model"))
+        return _mesh((pod, data, model), ("pod", "data", "model"),
+                     device_type)
+    return _mesh((data, model), ("data", "model"), device_type)
 
 
 def make_query_mesh(num_devices: int | None = None):

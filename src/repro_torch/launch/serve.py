@@ -9,9 +9,13 @@ card unless given ``--device cpu``.
         shared by N tenants.
   lm  — batched LM token serving: prefill a batch of prompts, then decode
         tokens with the per-layer KV cache / recurrent state
-        (``repro_torch.models``), on one device.  As the reference, the
-        prefill does not seed the decode cache: decoding starts at
-        ``pos = prompt_len`` on an empty cache.
+        (``repro_torch.models``), on one device, or under
+        ``torch.distributed.run`` laid over ``--data`` x ``--model`` ranks
+        by the rule tables (weights by ``param_logical``, the decode
+        state by ``launch.specs``: caches ``kv`` on ``model``,
+        ``cache_batch`` on ``data``).  As the reference, the prefill does
+        not seed the decode cache: decoding starts at ``pos = prompt_len``
+        on an empty cache.
 
 Under ``python -m torch.distributed.run --nproc-per-node N`` every process
 joins the process group the launcher describes
@@ -30,6 +34,8 @@ Usage:
   PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 4 \
       -m repro_torch.launch.serve knn --plan object_sharded [--tenants 4]
   PYTHONPATH=src python -m repro_torch.launch.serve lm --arch rwkv6_3b --smoke --tokens 16
+  PYTHONPATH=src python -m torch.distributed.run --standalone --nproc-per-node 2 \
+      -m repro_torch.launch.serve lm --arch yi_34b --smoke --model 2 --device cpu
 """
 from __future__ import annotations
 
@@ -43,12 +49,16 @@ import torch
 import torch.distributed as dist
 
 from ..api import KnnSession, ServiceSpec
-from ..configs import ARCH_IDS, get_config, get_smoke_config
+from ..configs import ARCH_IDS
 from ..data.generators import make_workload
 from ..models import (decode_step, encode_memory, forward, init_decode_state,
                       init_params, seed_decode_state)
+from ..dist import current_rules, is_rank_mesh, lay, use_rules, whole
 from ..runtime import resolve_device
-from .mesh import init_from_env
+from ..train.step import lay_batch
+from .mesh import init_from_env, make_local_mesh
+from .specs import lay_decode_state
+from .train import config_of
 
 
 def _check_lists(idx, dist_, n_objects: int, k: int, tick: int) -> str:
@@ -217,13 +227,16 @@ def _host(a) -> np.ndarray:
 
 
 def run_lm(cfg, *, batch: int, prompt_len: int, tokens: int, seed: int,
-           device) -> dict:
+           device, mesh=None) -> dict:
     """The ``lm`` mode's work for one config: random weights from ``seed``,
     a prefill of ``batch`` random prompts (last-position logits), then
     ``tokens`` greedy decode steps from ``pos = prompt_len`` on an empty
     cache.  Returns the timings, the peak device memory (None on the CPU),
-    whether every logit of the prefill and the steps was finite, and the
-    decoded tokens."""
+    whether every logit of the prefill and the steps was finite, the
+    decoded tokens, and each step's margin between its two largest
+    logits.  ``mesh``: a ``DeviceMesh`` of ``("data", "model")`` ranks
+    (every rank calls) over which the weights, inputs and decode state are
+    laid by the rule tables; the logits are gathered on every rank."""
     dev = resolve_device(device)
     cuda = dev.type == "cuda"
 
@@ -233,8 +246,26 @@ def run_lm(cfg, *, batch: int, prompt_len: int, tokens: int, seed: int,
 
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
+    if is_rank_mesh(mesh):
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        with use_rules(mesh), implicit_replication():
+            return _run_lm(cfg, batch, prompt_len, tokens, seed, dev, sync,
+                           mesh)
+    return _run_lm(cfg, batch, prompt_len, tokens, seed, dev, sync, None)
+
+
+def _margin(logits) -> torch.Tensor:
+    """The gap between each row's two largest logits: (B, 1, V) -> (B,)."""
+    top = torch.topk(logits[:, -1, :].float(), 2, dim=-1).values
+    return top[:, 0] - top[:, 1]
+
+
+def _run_lm(cfg, batch, prompt_len, tokens, seed, dev, sync, mesh) -> dict:
+    cuda = dev.type == "cuda"
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(seed),
-                         device=dev)
+                         device=dev, mesh=mesh)
     rng = np.random.default_rng(seed)
     prompts = rng.integers(0, cfg.vocab, size=(batch, prompt_len))
     inputs = {"tokens": torch.tensor(prompts, dtype=torch.int32, device=dev)}
@@ -246,10 +277,21 @@ def run_lm(cfg, *, batch: int, prompt_len: int, tokens: int, seed: int,
         inputs["img"] = torch.tensor(
             rng.normal(0, 0.02, (batch, cfg.n_img_tokens, cfg.d_model)),
             dtype=torch.float32, device=dev)
-    with torch.inference_mode():
+    if mesh is not None:
+        inputs = lay_batch(inputs, mesh)
+
+    def token_in(tok):
+        if mesh is None:
+            return tok
+        return lay(tok, current_rules().placements(("batch", None),
+                                                   tuple(tok.shape)), mesh)
+
+    # DTensor views do not run under inference mode: no_grad on a mesh
+    with torch.inference_mode() if mesh is None else torch.no_grad():
         sync()
         t0 = time.perf_counter()
         logits, _ = forward(params, cfg, inputs, logits_last_only=True)
+        logits = whole(logits)
         tok = torch.argmax(logits[:, -1, :], -1)[:, None].to(torch.int32)
         sync()
         prefill_s = time.perf_counter() - t0
@@ -264,15 +306,19 @@ def run_lm(cfg, *, batch: int, prompt_len: int, tokens: int, seed: int,
                 encode_memory(params, cfg, inputs["frames"]))
         if cfg.family == "vlm":
             state = seed_decode_state(params, cfg, state, inputs["img"])
-        out = []
+        if mesh is not None:
+            state = lay_decode_state(state, mesh)
+        out, margins = [], []
         sync()
         t0 = time.perf_counter()
         for i in range(tokens):
-            logits, state = decode_step(params, cfg, state, tok,
+            logits, state = decode_step(params, cfg, state, token_in(tok),
                                         prompt_len + i)
+            logits = whole(logits)
             tok = torch.argmax(logits[:, -1, :], -1)[:, None].to(torch.int32)
             finite = finite & torch.isfinite(logits).all()
             out.append(tok[:, 0])
+            margins.append(_margin(logits))
         sync()
         decode_s = time.perf_counter() - t0
     return {"prefill_s": prefill_s,
@@ -281,22 +327,39 @@ def run_lm(cfg, *, batch: int, prompt_len: int, tokens: int, seed: int,
             "peak_bytes": torch.cuda.max_memory_allocated(dev) if cuda
             else None,
             "finite": bool(finite),
-            "tokens": torch.stack(out, 1).cpu().numpy()}
+            "tokens": torch.stack(out, 1).cpu().numpy(),
+            "margins": torch.stack(margins, 1).cpu().numpy()}
 
 
-def serve_lm(args) -> int:
-    """The ``lm`` mode: one model on one device (``--data``/``--model``
-    meshes lay a model over the rule tables, not ported yet)."""
-    if args.data > 1 or args.model > 1:
+def serve_lm(args, device=None) -> int:
+    """The ``lm`` mode: one model on one device, or laid over ``--data`` x
+    ``--model`` ranks of a process group of that size (rank 0 prints)."""
+    ranked = dist.is_available() and dist.is_initialized()
+    world = args.data * args.model
+    if world > 1 and (not ranked or dist.get_world_size() != world):
         raise ValueError(
-            f"lm: --data {args.data} --model {args.model} lays a mesh; the "
-            "port serves one model on one device (serving meshes come with "
-            "the rule tables' model layout, ROADMAP A13c)")
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+            f"lm: --data {args.data} --model {args.model} lays {world} "
+            "ranks; run it under python -m torch.distributed.run "
+            f"--nproc-per-node {world}")
+    dev = resolve_device(device or args.device)
+    mesh = make_local_mesh(data=args.data, model=args.model,
+                           device_type=dev.type) if ranked else None
+    cfg = config_of(args)
     r = run_lm(cfg, batch=args.batch, prompt_len=args.prompt_len,
-               tokens=args.tokens, seed=args.seed, device=args.device)
+               tokens=args.tokens, seed=args.seed, device=dev, mesh=mesh)
     if not r["finite"]:
         raise AssertionError(f"lm {args.arch}: a logit is not finite")
+    peaks = [r["peak_bytes"]]
+    if ranked:
+        peaks = [None] * dist.get_world_size()
+        dist.all_gather_object(peaks, r["peak_bytes"])
+        if dist.get_rank() != 0:
+            return 0
+    if args.tokens_out:
+        np.savez(args.tokens_out, tokens=r["tokens"], margins=r["margins"],
+                 prefill_s=r["prefill_s"], ms_per_token=r["ms_per_token"],
+                 tok_per_s=r["tok_per_s"],
+                 peak_bytes=np.array(peaks, dtype=np.float64))
     print(f"[lm] prefill {args.batch}x{args.prompt_len}: "
           f"{r['prefill_s']:.2f}s")
     print(f"[lm] decoded {args.tokens} tokens x batch {args.batch}: "
@@ -341,23 +404,38 @@ def main(argv=None) -> int:
     m.add_argument("--batch", type=int, default=4)
     m.add_argument("--prompt-len", type=int, default=32)
     m.add_argument("--tokens", type=int, default=16)
-    m.add_argument("--data", type=int, default=1)
-    m.add_argument("--model", type=int, default=1)
+    m.add_argument("--data", type=int, default=1,
+                   help="data-parallel ranks of the serving mesh")
+    m.add_argument("--model", type=int, default=1,
+                   help="model-parallel ranks (tensor parallelism by the "
+                        "rule tables)")
     m.add_argument("--seed", type=int, default=0)
     m.add_argument("--device", default="cuda",
                    help="torch device to serve on (cuda, or cpu)")
+    m.add_argument("--tokens-out", default=None,
+                   help="save the decoded tokens, each step's margin "
+                        "between its two largest logits, the timings and "
+                        "every rank's peak device memory (numpy .npz)")
+    m.add_argument("--layers", type=int, default=None,
+                   help="cut the config to this many layers (n_layers)")
+    m.add_argument("--dtype", default=None, choices=["bfloat16", "float32"],
+                   help="parameter and compute dtype (default: the "
+                        "config's)")
     args = ap.parse_args(argv)
-    if args.mode == "lm":
+    if args.mode == "lm" and dist.is_available() and dist.is_initialized():
         return serve_lm(args)
     ranks = init_from_env(args.device)
     if ranks is None:
-        return serve_knn(args)
+        return serve_lm(args) if args.mode == "lm" else serve_knn(args)
     dev, backend = ranks
+    tag = "lm" if args.mode == "lm" else "knn"
     try:
         if dist.get_rank() == 0:
-            print(f"[knn] process group: backend={backend} "
+            print(f"[{tag}] process group: backend={backend} "
                   f"world={dist.get_world_size()}", flush=True)
-        print(f"[knn] rank {dist.get_rank()} on {dev}", flush=True)
+        print(f"[{tag}] rank {dist.get_rank()} on {dev}", flush=True)
+        if args.mode == "lm":
+            return serve_lm(args, device=dev)
         return serve_knn(args, device=dev)
     finally:
         dist.destroy_process_group()

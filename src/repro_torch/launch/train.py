@@ -8,48 +8,116 @@ data pipeline from there, so a resumed run ends on the uninterrupted run's
 bits.  ``--simulate-failure N`` exits 42 after step N, before its
 checkpoint.  ``--data N`` shares each batch among N ranks of a process
 group (gloo on the CPU or on one shared card, NCCL where every rank has a
-card of its own), each holding the whole model; ``--model > 1`` (tensor
-parallelism) is not ported yet.  Runs on the card unless ``--device cpu``;
-``--metrics PATH`` writes each step's loss, grad norm and seconds and a
-summary (parameter count, peak device memory, the leaves that moved, of
-all and of those not constant at the start) as JSON lines.
+card of its own), each holding the whole model; ``--model M`` lays the
+model over M ranks by the rule tables (tensor parallelism,
+``train.make_train_step``), ``--data D --model M`` over a D x M mesh
+(``embed`` on ``data`` too).  A laid run's checkpoints hold the gathered
+tree, so a ``--model 2`` run resumes on one rank and the other way round.
+Runs on the card unless ``--device cpu``; ``--metrics PATH`` writes each
+step's loss, grad norm and seconds and a summary (parameter count, peak
+device memory of every rank, the leaves that moved, of all and of those
+not constant at the start, the bytes a rank holds and the leaves laid on
+``model``) as JSON lines.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.train --arch rwkv6_3b --smoke \\
       --steps 50 --batch 8 --seq 128 --ckpt-dir ckpt --resume [--device cpu]
   PYTHONPATH=src python -m torch.distributed.run --standalone \\
       --nproc-per-node 2 -m repro_torch.launch.train --smoke --data 2
+  PYTHONPATH=src python -m torch.distributed.run --standalone \\
+      --nproc-per-node 4 -m repro_torch.launch.train --smoke --data 2 \\
+      --model 2 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 import time
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..configs import ARCH_IDS, get_config, get_smoke_config
 from ..data.lm import LMDataConfig, SyntheticLMData
+from ..dist import full_tree, local_bytes
 from ..models import init_params
 from ..runtime import resolve_device
 from ..train import (OptConfig, init_opt, make_train_step, restore_latest,
                      save_checkpoint)
 from ..train.optimizer import _slices, tree_leaves
+from ..train.step import laid as laid_mesh
 from .mesh import init_from_env, make_local_mesh
 
 
+def config_of(args):
+    """The run's config: ``--smoke`` or full, cut to ``--layers``, in
+    ``--dtype``."""
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, n_layers=args.layers)
+    if args.dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=args.dtype,
+                                  compute_dtype=args.dtype)
+    return cfg
+
+
+def _save(directory, step, params, opt, cfg, lead: bool):
+    """A checkpoint of the gathered tree (every rank gathers; the lead
+    writes)."""
+    tree = full_tree({"params": params, "opt": opt})
+    if lead:
+        save_checkpoint(directory, step, tree, extra={"arch": cfg.arch_id})
+
+
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _checksums(params) -> list:
-    """One f64 sum a leaf (slice by slice): whether a leaf moved."""
-    return [sum(float(torch.sum(s, dtype=torch.float64)) for s in _slices(p))
-            for p in tree_leaves(params)]
+    """One f64 sum a leaf (slice by slice; a laid leaf's shard on this
+    rank): whether a leaf moved."""
+    return [sum(float(torch.sum(s, dtype=torch.float64))
+                for s in _slices(_local(p))) for p in tree_leaves(params)]
+
+
+def _moved(before, after, ranked: bool) -> list:
+    """Whether each leaf moved, on any rank."""
+    moved = [a != b for a, b in zip(before, after)]
+    if ranked:
+        flags = torch.tensor(moved, dtype=torch.int32)
+        dist.all_reduce(flags, op=dist.ReduceOp.MAX)
+        moved = [bool(f) for f in flags]
+    return moved
 
 
 def _constant(params) -> list:
     """Whether each leaf holds one value (a norm scale, a zero bias): in
     bf16 such a leaf at 1.0 stays put under steps below half its ulp."""
-    return [bool(p.min() == p.max()) for p in tree_leaves(params)]
+    out = []
+    for p in tree_leaves(params):
+        same = p.min() == p.max()
+        out.append(bool(same.full_tensor() if isinstance(same, DTensor)
+                        else same))
+    return out
+
+
+def _model_split(params, mesh) -> tuple[int, int]:
+    """(leaves laid on ``model``, of them those whose shard on this rank
+    is their size over the ranks of the mesh dimensions that shard them,
+    ``model`` among them)."""
+    i = list(mesh.mesh_dim_names).index("model")
+    n = m = 0
+    for p in tree_leaves(params):
+        if isinstance(p, DTensor) and p.placements[i].is_shard():
+            n += 1
+            ways = 1
+            for j, q in enumerate(p.placements):
+                ways *= mesh.size(j) if q.is_shard() else 1
+            m += p.to_local().numel() * ways == p.numel()
+    return n, m
 
 
 def main(argv=None) -> int:
@@ -64,7 +132,8 @@ def main(argv=None) -> int:
     ap.add_argument("--data", type=int, default=1,
                     help="data-parallel ranks (a process group of that size)")
     ap.add_argument("--model", type=int, default=1,
-                    help="model-parallel axis size (1 only)")
+                    help="model-parallel ranks (tensor parallelism by the "
+                         "rule tables)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--resume", action="store_true")
@@ -75,11 +144,13 @@ def main(argv=None) -> int:
                     help="torch device to train on (cuda, or cpu)")
     ap.add_argument("--metrics", default=None,
                     help="write per-step metrics and a summary (JSON lines)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the config to this many layers (n_layers)")
+    ap.add_argument("--dtype", default=None,
+                    choices=["bfloat16", "float32"],
+                    help="parameter and compute dtype (default: the "
+                         "config's)")
     args = ap.parse_args(argv)
-    if args.model > 1:
-        raise ValueError(
-            f"train: --model {args.model} is tensor parallelism over the rule "
-            "tables, not ported yet (ROADMAP A13c)")
     dev = resolve_device(args.device)
     own_group = False
     if not dist.is_initialized():
@@ -95,15 +166,19 @@ def main(argv=None) -> int:
 
 def train(args, dev) -> int:
     ranked = dist.is_initialized()
-    if args.data > 1 and not ranked:
+    world = args.data * args.model
+    if world > 1 and not ranked:
         raise ValueError(
-            f"train: --data {args.data} needs a process group of {args.data} "
-            "ranks (python -m torch.distributed.run --nproc-per-node "
-            f"{args.data} ...)")
-    mesh = make_local_mesh(data=args.data, model=args.model) if ranked \
-        else None
+            f"train: --data {args.data} --model {args.model} needs a process "
+            f"group of {world} ranks (python -m torch.distributed.run "
+            f"--nproc-per-node {world} ...)")
+    # a laid model's DTensors live on the run's device
+    mesh = make_local_mesh(
+        data=args.data, model=args.model,
+        device_type=dev.type if args.model > 1 else None) if ranked else None
+    laid = laid_mesh(mesh)
     lead = not ranked or dist.get_rank() == 0
-    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    cfg = config_of(args)
     data = SyntheticLMData(
         LMDataConfig(vocab=cfg.vocab, batch=args.batch, seq_len=args.seq,
                      seed=args.seed))
@@ -115,10 +190,11 @@ def train(args, dev) -> int:
 
     opt_cfg = OptConfig(lr=args.lr, warmup_steps=5)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(
-        args.seed), device=dev)
+        args.seed), device=dev, mesh=mesh if laid else None)
     opt = init_opt(params)
     start = 0
     if args.resume and args.ckpt_dir:
+        # a laid leaf restores whole, then keeps this rank's shard
         restored, step = restore_latest(args.ckpt_dir,
                                         {"params": params, "opt": opt})
         if restored is not None:
@@ -129,8 +205,10 @@ def train(args, dev) -> int:
                 print(f"[train] resumed from step {start}", flush=True)
 
     log = open(args.metrics, "w") if args.metrics and lead else None
-    before = _checksums(params) if log else None
-    constant = _constant(params) if log else None
+    # a laid run's summary reduces over the ranks: every rank tracks
+    track = bool(args.metrics) and (lead or laid)
+    before = _checksums(params) if track else None
+    constant = _constant(params) if track else None
     step_fn = make_train_step(cfg, opt_cfg, accum=args.accum, mesh=mesh)
     t0 = time.time()
     for step in range(start, args.steps):
@@ -148,31 +226,38 @@ def train(args, dev) -> int:
             # hard crash AFTER the step, BEFORE its checkpoint
             print(f"[train] simulated failure at step {step + 1}", flush=True)
             sys.exit(42)
-        if (step + 1) % args.ckpt_every == 0 and args.ckpt_dir and lead:
-            save_checkpoint(args.ckpt_dir, step + 1,
-                            {"params": params, "opt": opt},
-                            extra={"arch": cfg.arch_id})
+        if (step + 1) % args.ckpt_every == 0 and args.ckpt_dir:
+            _save(args.ckpt_dir, step + 1, params, opt, cfg, lead)
         if (step + 1) % args.log_every == 0 and lead:
             print(f"[train] step {step + 1} "
                   f"loss={float(metrics['loss']):.4f} "
                   f"gnorm={float(metrics['grad_norm']):.3f} "
                   f"({(time.time() - t0) / max(step + 1 - start, 1):.2f}"
                   "s/step)", flush=True)
-    if args.ckpt_dir and lead:
-        save_checkpoint(args.ckpt_dir, args.steps,
-                        {"params": params, "opt": opt},
-                        extra={"arch": cfg.arch_id})
+    if args.ckpt_dir:
+        _save(args.ckpt_dir, args.steps, params, opt, cfg, lead)
+    peak = (torch.cuda.max_memory_allocated(dev) if dev.type == "cuda"
+            else None)
+    peaks = [peak]
+    if ranked:
+        peaks = [None] * dist.get_world_size()
+        dist.all_gather_object(peaks, peak)
+    if track:
+        moved = _moved(before, _checksums(params), laid)
+        split = _model_split(params, mesh) if laid else (0, 0)
     if log:
-        moved = [a != b for a, b in zip(before, _checksums(params))]
         log.write(json.dumps({
             "summary": True, "arch": cfg.arch_id, "n_params": cfg.n_params(),
             "tree_params": sum(p.numel() for p in tree_leaves(params)),
             "param_dtype": cfg.param_dtype, "remat": cfg.remat,
             "layers": cfg.n_layers, "d_model": cfg.d_model,
+            "compute_dtype": cfg.compute_dtype,
             "vocab": cfg.vocab, "batch": args.batch, "seq": args.seq,
             "steps": args.steps - start, "device": str(dev),
-            "peak_bytes": torch.cuda.max_memory_allocated(dev)
-            if dev.type == "cuda" else None,
+            "peak_bytes": peak, "peak_bytes_ranks": peaks,
+            "mesh": {"data": args.data, "model": args.model},
+            "local_bytes": local_bytes(params) + local_bytes(opt),
+            "model_leaves": split[0], "model_leaves_split": split[1],
             "leaves": len(moved), "leaves_moved": sum(moved),
             "random_leaves": constant.count(False),
             "random_leaves_moved": sum(m for m, c in zip(moved, constant)

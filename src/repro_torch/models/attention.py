@@ -9,7 +9,9 @@ numerics would differ).  Weights: wq (d, Hq, dh), wk/wv (d, Hkv, dh), wo
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
+from ..dist import constrain, einsum, reshape, shard_range
 from .layers import Init, apply_rope, init_linear, rope
 
 __all__ = [
@@ -45,15 +47,21 @@ def attn_logical():
     }
 
 
+def _proj(x, w):
+    """``einsum("bsd,dhk->bshk", x, w)`` (over DTensors, ``dist.einsum``)."""
+    return einsum("bsd,dhk->bshk", x, w)
+
+
 def _proj_qkv(params, x, xk):
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dhk->bshk", xk, params["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dhk->bshk", xk, params["wv"].to(x.dtype))
+    q = _proj(x, params["wq"].to(x.dtype))
+    k = _proj(xk, params["wk"].to(x.dtype))
+    v = _proj(xk, params["wv"].to(x.dtype))
     return q, k, v
 
 
-def _scores_to_out(params, q, k, v, mask):
-    """q (B,Sq,Hq,dh), k/v (B,Skv,Hkv,dh); GQA by head-group reshape."""
+def _attend(q, k, v, mask):
+    """Softmax attention: q (B,Sq,Hq,dh), k/v (B,Skv,Hkv,dh), GQA by
+    head-group reshape -> (B,Sq,Hq,dh)."""
     b, sq, hq, dh = q.shape
     hkv = k.shape[2]
     g = hq // hkv
@@ -65,8 +73,77 @@ def _scores_to_out(params, q, k, v, mask):
         scores = torch.where(mask, scores, NEG_INF)
     p = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqs,bshk->bqhgk", p, v)
-    out = out.reshape(b, sq, hq, dh)
-    return torch.einsum("bqhk,hkd->bqd", out, params["wo"].to(out.dtype))
+    return out.reshape(b, sq, hq, dh)
+
+
+def _attend_laid(q, k, v, mask):
+    """:func:`_attend` on DTensors, each rank on its own rows, heads and
+    query positions (the reference's scores einsum is left to GSPMD;
+    DTensor's strides the flattened batch).  Per mesh dimension: where q
+    or k shards the batch both do; q keeps a heads or query-sequence
+    shard, k and v its heads shard only where q shards the heads alike,
+    and replicate otherwise.  Each rank's query heads read their own KV
+    heads (GQA), and the causal mask's rows are the rank's positions."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    hq, hkv = q.shape[2], k.shape[2]
+    g = hq // hkv
+    qp, kp = [], []
+    for a, c in zip(q.placements, k.placements):
+        if a.is_shard(0) or c.is_shard(0):
+            qp.append(Shard(0))
+            kp.append(Shard(0))
+        elif a.is_shard(2) or a.is_shard(1):
+            qp.append(a)
+            kp.append(c if a.is_shard(2) and c.is_shard(2) else Replicate())
+        else:
+            qp.append(Replicate())
+            kp.append(Replicate())
+    qdims = [i for i, p in enumerate(qp) if p.is_shard(2)]
+    kdims = [i for i, p in enumerate(kp) if p.is_shard(2)]
+    if kdims and (kdims != qdims or hq % hkv):
+        kp = [Replicate() if p.is_shard(2) else p for p in kp]
+        kdims = []
+    sdims = [i for i, p in enumerate(qp) if p.is_shard(1)]
+    q = q.redistribute(mesh, qp)
+    k = k.redistribute(mesh, kp)
+    v = v.redistribute(mesh, kp)
+    sq = q.shape[1]
+
+    def local(ql, kl, vl):
+        qo, hq_l = shard_range(mesh, qdims, hq)
+        ko, _ = shard_range(mesh, kdims, hkv)
+        so, sq_l = shard_range(mesh, sdims, sq)
+        m = mask if mask is None or not sdims else mask[..., so:so + sq_l, :]
+        if hq_l % g == 0:  # whole groups: their own KV heads
+            lo, n = qo // g - ko, hq_l // g
+        elif g % hq_l == 0:  # part of one group: its one KV head
+            lo, n = qo // g - ko, 1
+        else:  # a KV head for each query head
+            idx = torch.arange(qo, qo + hq_l, device=ql.device) // g - ko
+            return _attend(ql, kl.index_select(2, idx),
+                           vl.index_select(2, idx), m)
+        return _attend(ql, kl[:, :, lo:lo + n], vl[:, :, lo:lo + n], m)
+
+    # k and v's gradients: partial sums where q shards what they replicate
+    kg = tuple(c if c.is_shard() else Partial() if a.is_shard() else c
+               for a, c in zip(qp, kp))
+    return local_map(local, out_placements=(tuple(qp),), in_placements=None,
+                     in_grad_placements=(tuple(qp), kg, kg))(q, k, v)
+
+
+def _scores_to_out(params, q, k, v, mask):
+    """q (B,Sq,Hq,dh), k/v (B,Skv,Hkv,dh); GQA by head-group reshape."""
+    b, sq, hq, dh = q.shape
+    if isinstance(q, DTensor):
+        out = _attend_laid(q, k, v, mask)
+    else:
+        out = _attend(q, k, v, mask)
+    out = constrain(reshape(out, b, sq, hq, dh),
+                    ("batch", "act_seq", "heads", None))
+    return einsum("bqhk,hkd->bqd", out, params["wo"].to(out.dtype))
 
 
 def _causal_mask(sq: int, skv: int, window: int | None, device):
@@ -97,6 +174,9 @@ def attention(params, x, *, n_heads: int, n_kv: int, d_head: int,
         mask = _causal_mask(s, s, window, x.device) if causal else None
     else:
         mask = None
+    q = constrain(q, ("batch", "act_seq", "heads", None))
+    k = constrain(k, ("batch", "act_kv_seq", "kv", None))
+    v = constrain(v, ("batch", "act_kv_seq", "kv", None))
     out = _scores_to_out(params, q, k, v, mask)
     return out, (k, v)
 
@@ -106,14 +186,15 @@ def attention_with_kv(params, x, k, v, *, n_heads: int, n_kv: int,
     """Cross-attention against precomputed memory k/v (the decode path:
     encoder or image memory is static while decoding, so its k/v are
     projected once, by :func:`project_memory_kv`)."""
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(x.dtype))
+    q = _proj(x, params["wq"].to(x.dtype))
+    q = constrain(q, ("batch", "act_seq", "heads", None))
     return _scores_to_out(params, q, k.to(x.dtype), v.to(x.dtype), None)
 
 
 def project_memory_kv(params, mem):
     """Project cross-attention memory k/v once (prefill-time seeding)."""
-    k = torch.einsum("bsd,dhk->bshk", mem, params["wk"].to(mem.dtype))
-    v = torch.einsum("bsd,dhk->bshk", mem, params["wv"].to(mem.dtype))
+    k = _proj(mem, params["wk"].to(mem.dtype))
+    v = _proj(mem, params["wv"].to(mem.dtype))
     return k, v
 
 

@@ -17,20 +17,30 @@ through ``torch.utils.checkpoint`` while grad is enabled: its activations
 are recomputed in the backward instead of kept.  Neither that nor
 ``cfg.scan_unroll`` changes an output.  ``loss_fn`` is the train step's
 objective.
+
+``constrain`` (``repro_torch.dist``) sits at the reference's sites.  On one
+device, a logical mesh or plain tensors it is the identity and every
+branch below is the one-device program.  Given DTensor parameters laid on
+a rank mesh (``init_params(..., mesh=)``) it redistributes the
+activations, and the products (``dist.einsum``), the attention, the SSM
+scans and the MoE's routing run on each rank's shards.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ModelConfig
+from ..dist import (constrain, distribute_leaf, einsum, is_rank_mesh,
+                    reshape)
 from ..runtime import resolve_device
 from . import attention as attn
 from . import moe as moe_mod
 from . import ssm as ssm_mod
-from .layers import (DTYPES, Init, cross_entropy_loss, init_linear, init_mlp,
-                     mlp, mlp_logical, rms_norm)
+from .layers import (DTYPES, Init, cross_entropy_loss, embed_sharded,
+                     init_linear, init_mlp, mlp, mlp_logical, rms_norm)
 
 __all__ = [
     "seed_decode_state",
@@ -134,22 +144,56 @@ def dense_block_logical(cfg: ModelConfig):
 
 def dense_block(p, x, cfg: ModelConfig):
     """Returns (x, aux): aux is the MoE load-balance loss (or 0)."""
-    h, _ = attn.attention(p["attn"], rms_norm(x, p["ln1"], cfg.norm_eps),
-                          causal=True, window=cfg.sliding_window,
-                          **_attn_kw(cfg))
-    x = x + h
-    h, router_logits = _ffn(p, rms_norm(x, p["ln2"], cfg.norm_eps), cfg)
+    h, _ = attn.attention(
+        p["attn"], constrain(rms_norm(x, p["ln1"], cfg.norm_eps),
+                             ("batch", "act_seq", None)),
+        causal=True, window=cfg.sliding_window, **_attn_kw(cfg))
+    x = constrain(x + h, ("batch", "seq", None))
+    hin = constrain(rms_norm(x, p["ln2"], cfg.norm_eps),
+                    ("batch", "act_seq", None))
+    h, router_logits = _ffn(p, hin, cfg)
     aux = (_zero(x) if router_logits is None
            else _load_balance_loss(router_logits, cfg))
-    return x + h, aux
+    return constrain(x + h, ("batch", "seq", None)), aux
 
 
 def _load_balance_loss(router_logits, cfg: ModelConfig):
     """Switch-style aux loss: E * sum_e f_e * p_e."""
+    if isinstance(router_logits, DTensor):
+        return _load_balance_loss_laid(router_logits, cfg)
     probs = torch.softmax(router_logits, dim=-1)  # (T, E)
     top = torch.argmax(probs, dim=-1)
     f = F.one_hot(top, cfg.n_experts).float().mean(0)
     pbar = probs.mean(0)
+    return cfg.n_experts * torch.sum(f * pbar)
+
+
+def _load_balance_loss_laid(router_logits, cfg: ModelConfig):
+    """:func:`_load_balance_loss` of (B, S, E) DTensor logits: each rank
+    counts its tokens' top choices and sums their probabilities (partial
+    sums over the mesh dimensions that shard the tokens), then the means
+    are taken whole on every rank."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = router_logits.device_mesh
+    rows = tuple(p if p.is_shard() and p.dim < 2 else Replicate()
+                 for p in router_logits.placements)
+    router_logits = router_logits.redistribute(mesh, rows)
+    sums = tuple(Partial() if p.is_shard() else Replicate() for p in rows)
+
+    def counts(lg):
+        probs = torch.softmax(lg, dim=-1).reshape(-1, cfg.n_experts)
+        top = torch.argmax(probs, dim=-1)
+        return (F.one_hot(top, cfg.n_experts).float().sum(0),
+                probs.sum(0))
+
+    f, p = local_map(counts, out_placements=(sums, sums), in_placements=None,
+                     in_grad_placements=(rows,))(router_logits)
+    n = router_logits.shape[0] * router_logits.shape[1]
+    whole = [Replicate()] * mesh.ndim
+    f = f.redistribute(mesh, whole) / n
+    pbar = p.redistribute(mesh, whole) / n
     return cfg.n_experts * torch.sum(f * pbar)
 
 
@@ -170,20 +214,44 @@ def _scan_blocks(block_fn, stacked, x, remat: bool = False):
 
 # ===================================================================== top level
 def init_params(cfg: ModelConfig, generator: torch.Generator | None = None,
-                device=None):
+                device=None, mesh=None):
     """The reference's parameter tree for ``cfg``, drawn from ``generator``
     (default: a generator on ``device`` seeded with 0).
 
     Each leaf has the reference's shape, dtype, distribution and scale;
     random leaves are drawn in f32 and cast.  Their bits are not
     ``jax.random``'s.  On ``device="meta"`` the leaves carry shapes and
-    dtypes only.
+    dtypes only.  Given a ``DeviceMesh``, every rank draws the same leaves
+    (the one-device bits) one at a time and keeps its shard, laid by
+    :func:`param_logical` (``dist.distribute_leaf``): a tree of DTensors.
     """
     dev = resolve_device(device)
     if generator is None and dev.type != "meta":
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
-    init = Init(generator, dev)
+    if is_rank_mesh(mesh):
+        # the leaves' draw order, from a pass on meta, names each leaf's
+        # logical axes before it is drawn
+        order = []
+        meta = _init_tree(cfg, Init(None, "meta", place=lambda t: (
+            order.append(t), t)[1]))
+        axes = {id(t): ax for t, ax in zip(_leaves(meta),
+                                           _leaves(param_logical(cfg)))}
+        todo = iter([axes[id(t)] for t in order])
+        return _init_tree(cfg, Init(generator, dev, place=lambda t: (
+            distribute_leaf(t, next(todo), mesh))))
+    return _init_tree(cfg, Init(generator, dev))
+
+
+def _leaves(tree) -> list:
+    """The leaves of a dict tree, keys sorted (a logical-axes tuple is a
+    leaf)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    return [tree]
+
+
+def _init_tree(cfg: ModelConfig, init: Init):
     dt = _dt(cfg.param_dtype)
     d = cfg.d_model
     p = {
@@ -286,7 +354,8 @@ def forward(params, cfg: ModelConfig, batch, *,
     position.  Returns (logits (B,S,V) or (B,1,V), aux_loss).
     """
     fam = cfg.family
-    x = params["embed"].to(_dt(cfg.compute_dtype))[batch["tokens"]]
+    x = _embed(params, cfg, batch["tokens"])
+    x = constrain(x, ("batch", "seq", None))
 
     if fam in ("dense", "moe"):
         x, aux = _scan_blocks(lambda p, h: dense_block(p, h, cfg),
@@ -301,7 +370,8 @@ def forward(params, cfg: ModelConfig, batch, *,
         x, aux = _scan_blocks(lambda p, h: _dec_block(p, h, mem, cfg),
                               params["dec_blocks"], x, cfg.remat)
     elif fam == "vlm":
-        x, aux = _vlm_forward(params, x, batch["img"].to(x.dtype), cfg)
+        img = constrain(batch["img"].to(x.dtype), ("batch", "img", None))
+        x, aux = _vlm_forward(params, x, img, cfg)
     else:
         raise ValueError(fam)
 
@@ -310,9 +380,18 @@ def forward(params, cfg: ModelConfig, batch, *,
     return _unembed(params, x, cfg), aux
 
 
+def _embed(params, cfg: ModelConfig, tokens):
+    """The token rows of the embedding, in the compute dtype."""
+    w = params["embed"].to(_dt(cfg.compute_dtype))
+    if isinstance(w, DTensor):
+        return embed_sharded(w, tokens)
+    return w[tokens]
+
+
 def _unembed(params, x, cfg: ModelConfig):
     x = rms_norm(x, params["ln_f"], cfg.norm_eps)
-    return torch.einsum("bsd,dv->bsv", x, params["unembed"].to(x.dtype))
+    logits = einsum("bsd,dv->bsv", x, params["unembed"].to(x.dtype))
+    return constrain(logits, ("batch", "seq", "vocab"))
 
 
 def _rwkv_block(p, x, cfg: ModelConfig):
@@ -321,14 +400,14 @@ def _rwkv_block(p, x, cfg: ModelConfig):
                                   n_heads=cfg.n_heads, chunk=cfg.ssm_chunk)
     x = x + ssm_mod.rwkv6_channelmix(p["tm"],
                                      rms_norm(x, p["ln2"], cfg.norm_eps))
-    return x, _zero(x)
+    return constrain(x, ("batch", "seq", None)), _zero(x)
 
 
 def _mamba_block(p, x, cfg: ModelConfig):
     h = ssm_mod.mamba2(p["m"], rms_norm(x, p["ln"], cfg.norm_eps),
                        expand=cfg.ssm_expand, n_heads=cfg.n_ssm_heads,
                        state=cfg.ssm_state, chunk=cfg.ssm_chunk)
-    return x + h, _zero(x)
+    return constrain(x + h, ("batch", "seq", None)), _zero(x)
 
 
 def _trailing(cfg: ModelConfig) -> int:
@@ -353,7 +432,7 @@ def _enc_block(p, x, cfg: ModelConfig):
                           causal=False, **_attn_kw(cfg))
     x = x + h
     x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.activation)
-    return x, _zero(x)
+    return constrain(x, ("batch", "kv_seq", None)), _zero(x)
 
 
 def _dec_block(p, x, mem, cfg: ModelConfig):
@@ -364,7 +443,7 @@ def _dec_block(p, x, mem, cfg: ModelConfig):
                            memory=mem, **_attn_kw(cfg))
     x = x + hx
     x = x + mlp(p["mlp"], rms_norm(x, p["ln2"], cfg.norm_eps), cfg.activation)
-    return x, _zero(x)
+    return constrain(x, ("batch", "seq", None)), _zero(x)
 
 
 def _vlm_forward(params, x, img, cfg: ModelConfig):
@@ -376,7 +455,8 @@ def _vlm_forward(params, x, img, cfg: ModelConfig):
         hx, _ = attn.attention(cp["xattn"], rms_norm(x, cp["lnx"],
                                                      cfg.norm_eps),
                                memory=img, **_attn_kw(cfg))
-        x = x + torch.tanh(cp["xgate"]).to(x.dtype) * hx
+        x = constrain(x + torch.tanh(cp["xgate"]).to(x.dtype) * hx,
+                      ("batch", "seq", None))
     return x, _zero(x)
 
 
@@ -453,7 +533,7 @@ def decode_step(params, cfg: ModelConfig, state, token, pos):
     the new state).  The state passed in is not written."""
     fam = cfg.family
     pos = int(pos)
-    x = params["embed"].to(_dt(cfg.compute_dtype))[token]
+    x = constrain(_embed(params, cfg, token), ("batch", None, None))
     akw = _attn_kw(cfg)
 
     def attn_block_decode(p, x, cache):
@@ -537,7 +617,7 @@ def decode_step(params, cfg: ModelConfig, state, token, pos):
     elif fam == "vlm":
         every = cfg.cross_attn_every
         groups = cfg.n_layers // every
-        sck, scv = (t.reshape(groups, every - 1, *t.shape[1:])
+        sck, scv = (reshape(t, groups, every - 1, *t.shape[1:])
                     for t in state["self_kv"])
         cck, ccv = state["cross_self_kv"]
         xk, xv = state["cross_kv"]
@@ -556,8 +636,8 @@ def decode_step(params, cfg: ModelConfig, state, token, pos):
             cross.append(c2)
         sck, scv = _stack(selfs)
         state = {
-            "self_kv": (sck.reshape(-1, *sck.shape[2:]),
-                        scv.reshape(-1, *scv.shape[2:])),
+            "self_kv": (reshape(sck, -1, *sck.shape[2:]),
+                        reshape(scv, -1, *scv.shape[2:])),
             "cross_self_kv": _stack(cross),
             "cross_kv": (xk, xv),
         }
@@ -588,6 +668,7 @@ def seed_decode_state(params, cfg: ModelConfig, state, memory):
 
 def encode_memory(params, cfg: ModelConfig, frames):
     """Run the encoder stack (encdec prefill side): frames -> memory."""
+    frames = constrain(frames, ("batch", "kv_seq", None))
     mem, _ = _scan_blocks(lambda p, h: _enc_block(p, h, cfg),
                           params["enc_blocks"], frames, cfg.remat)
     return rms_norm(mem, params["ln_enc"], cfg.norm_eps)
@@ -602,4 +683,17 @@ def loss_fn(params, cfg: ModelConfig, batch, aux_weight: float = 0.01):
     mask = torch.ones(labels.shape, dtype=torch.float32,
                       device=labels.device)
     mask[:, -1] = 0.0
-    return cross_entropy_loss(logits, labels, mask) + aux_weight * aux
+    ce = cross_entropy_loss(logits, labels, mask)
+    if isinstance(ce, DTensor):
+        # both terms whole on every rank before the sum (a partial
+        # scalar's backward does not take the broadcast from a sum)
+        ce, aux = (_replicated(t, ce.device_mesh) for t in (ce, aux))
+    return ce + aux_weight * aux
+
+
+def _replicated(t, mesh):
+    from torch.distributed.tensor import Replicate
+
+    if not isinstance(t, DTensor):
+        return t
+    return t.redistribute(mesh, [Replicate()] * mesh.ndim)

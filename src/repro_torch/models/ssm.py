@@ -19,8 +19,10 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from .layers import Init, init_linear, rms_norm
+from ..dist import constrain, reshape
+from .layers import Init, dense, init_linear, rms_norm
 
 __all__ = [
     "init_mamba2",
@@ -92,7 +94,7 @@ def mamba2_logical():
 
 
 def _mamba_split(params, x, d_in: int, state: int, h: int):
-    zxbcdt = x @ params["in_proj"].to(x.dtype)
+    zxbcdt = dense(x, params["in_proj"])
     return torch.split(zxbcdt, [d_in, d_in, state, state, h], dim=-1)
 
 
@@ -110,18 +112,34 @@ def _causal_conv(xbc, w, b):
 def mamba2(params, x, *, expand: int, n_heads: int, state: int, chunk: int):
     """x (B, L, d) -> (B, L, d); L must be a multiple of ``chunk``."""
     bsz, L, d_model = x.shape
-    nc = _chunks(L, chunk, "mamba2")
+    _chunks(L, chunk, "mamba2")
     d_in, h, p, conv_dim = _mamba_dims(d_model, expand, n_heads, state)
     z, xc, B, C, dt = _mamba_split(params, x, d_in, state, h)
     xbc = _causal_conv(torch.cat([xc, B, C], -1), params["conv_w"],
                        params["conv_b"])
     xc, B, C = torch.split(xbc, [d_in, state, state], dim=-1)
-    xh = xc.reshape(bsz, L, h, p).float()
+    xh = reshape(xc, bsz, L, h, p).float()
     Bh = B.float()  # (B, L, N): one group, shared across heads
     Ch = C.float()
     dt = _softplus(dt.float() + params["dt_bias"][None, None, :])  # (B,L,H)
     a = -torch.exp(params["A_log"])  # (H,)
 
+    if isinstance(xh, DTensor):
+        y = _mamba_core_laid(xh, Bh, Ch, dt, a, params["D"], chunk)
+    else:
+        y = _mamba_core(xh, Bh, Ch, dt, a, params["D"], chunk)
+    y = reshape(y, bsz, L, d_in).to(x.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), params["norm"])
+    y = constrain(y, ("batch", "act_seq", "ff"))
+    return dense(y, params["out_proj"])
+
+
+def _mamba_core(xh, Bh, Ch, dt, a, D, chunk: int):
+    """The chunked SSD scan: xh (B,L,H,P), Bh/Ch (B,L,N), dt (B,L,H), a
+    and D (H,) -> y (B,L,H,P), all f32."""
+    bsz, L, h, p = xh.shape
+    state = Bh.shape[-1]
+    nc = L // chunk
     c = chunk
     xh = xh.reshape(bsz, nc, c, h, p)
     Bh = Bh.reshape(bsz, nc, c, state)
@@ -134,7 +152,7 @@ def mamba2(params, x, *, expand: int, n_heads: int, state: int, chunk: int):
     cb = torch.einsum("bnts,bnus->bntu", Ch, Bh)  # (B,nc,c,c)
     dec = torch.exp(torch.clamp(
         ell[:, :, :, None, :] - ell[:, :, None, :, :], -60.0, 0.0))
-    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device))
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=xh.device))
     m = cb[..., None] * dec * tri[None, None, :, :, None]  # (B,nc,t,s,H)
     xdt = xh * dt[..., None]  # (B,nc,c,H,P)
     y_intra = torch.einsum("bntsh,bnshp->bnthp", m, xdt)
@@ -144,7 +162,7 @@ def mamba2(params, x, *, expand: int, n_heads: int, state: int, chunk: int):
     s_chunk = torch.einsum("bnsh,bnsv,bnshp->bnhvp", dec_end, Bh, xdt)
     lam_chunk = torch.exp(torch.clamp(ell[:, :, -1, :], -60.0, 0.0))
 
-    hprev = torch.zeros((bsz, h, state, p), dtype=f32, device=x.device)
+    hprev = torch.zeros((bsz, h, state, p), dtype=f32, device=xh.device)
     starts = []
     for n in range(nc):  # the state at each chunk's start
         starts.append(hprev)
@@ -156,10 +174,56 @@ def mamba2(params, x, *, expand: int, n_heads: int, state: int, chunk: int):
     dec_in = torch.exp(torch.clamp(ell, -60.0, 0.0))  # (B,nc,c,H)
     y_inter = torch.einsum("bntv,bnhvp,bnth->bnthp", Ch, h_starts, dec_in)
 
-    y = y_intra + y_inter + xh * params["D"][None, None, None, :, None]
-    y = y.reshape(bsz, L, d_in).to(x.dtype)
-    y = rms_norm(y * F.silu(z.float()).to(x.dtype), params["norm"])
-    return y @ params["out_proj"].to(x.dtype)
+    y = y_intra + y_inter + xh * D[None, None, None, :, None]
+    return y
+
+
+def _heads_layout(t, hdim: int, n_heads: int):
+    """Placements of ``t`` that keep each rank on whole heads: its batch
+    shard (dimension 0) and a heads shard at ``hdim`` where the heads
+    divide evenly; the rest replicated."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh, n, out = t.device_mesh, 1, []
+    for i, q in enumerate(t.placements):
+        if q.is_shard(0):
+            out.append(Shard(0))
+        elif q.is_shard(hdim) and n_heads % (n * mesh.size(i)) == 0:
+            n *= mesh.size(i)
+            out.append(Shard(hdim))
+        else:
+            out.append(Replicate())
+    return tuple(out)
+
+
+def _per(pl, hdim: int, batch, heads, other):
+    """Placements for an input of a heads-laid region: ``batch`` where
+    ``pl`` shards the batch, ``heads`` where it shards the heads (at
+    ``hdim``), ``other`` elsewhere."""
+    return tuple(batch if q.is_shard(0) else heads if q.is_shard(hdim)
+                 else other for q in pl)
+
+
+def _mamba_core_laid(xh, Bh, Ch, dt, a, D, chunk: int):
+    """:func:`_mamba_core` on DTensors, each rank on its own batch rows and
+    whole heads (the reference leaves the scan's einsums to GSPMD)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xh.device_mesh
+    pl = _heads_layout(xh, 2, xh.shape[2])
+    shared = _per(pl, 2, Shard(0), Replicate(), Replicate())
+    vec = _per(pl, 2, Replicate(), Shard(0), Replicate())
+    xh, dt = (t.redistribute(mesh, pl) for t in (xh, dt))
+    Bh, Ch = (t.redistribute(mesh, shared) for t in (Bh, Ch))
+    a, D = (t.redistribute(mesh, vec) for t in (a, D))
+    g_shared = _per(pl, 2, Shard(0), Partial(), Replicate())
+    g_vec = _per(pl, 2, Partial(), Shard(0), Replicate())
+    return local_map(
+        lambda *t: _mamba_core(*t, chunk), out_placements=(pl,),
+        in_placements=None,
+        in_grad_placements=(pl, g_shared, g_shared, pl, g_vec, g_vec))(
+            xh, Bh, Ch, dt, a, D)
 
 
 def init_mamba2_state(batch: int, d_model: int, expand: int, n_heads: int,
@@ -183,7 +247,7 @@ def mamba2_decode(params, x, st, *, expand: int, n_heads: int, state: int):
     conv_out = F.silu((win * w[None, :, :]).sum(dim=1)
                       + params["conv_b"][None, :].to(x.dtype))  # (B,Cdim)
     xc1, B1, C1 = torch.split(conv_out, [d_in, state, state], dim=-1)
-    xh = xc1.reshape(bsz, h, p).float()
+    xh = reshape(xc1, bsz, h, p).float()
     dt1 = _softplus(dt[:, 0].float() + params["dt_bias"][None, :])  # (B,H)
     a = -torch.exp(params["A_log"])
     lam = torch.exp(dt1 * a[None, :])  # (B,H)
@@ -191,9 +255,9 @@ def mamba2_decode(params, x, st, *, expand: int, n_heads: int, state: int):
     hnew = hstate * lam[:, :, None, None] + outer
     y = torch.einsum("bv,bhvp->bhp", C1.float(), hnew) + (
         xh * params["D"][None, :, None])
-    y = y.reshape(bsz, 1, d_in).to(x.dtype)
+    y = reshape(y, bsz, 1, d_in).to(x.dtype)
     y = rms_norm(y * F.silu(z.float()).to(x.dtype), params["norm"])
-    out = y @ params["out_proj"].to(x.dtype)
+    out = dense(y, params["out_proj"])
     return out, (hnew, win[:, 1:])
 
 
@@ -254,13 +318,14 @@ def _rwkv_proj(params, x, xx):
         m = mix[i][None, None, :].to(x.dtype)
         return x + (xx - x) * m
 
-    r = mixed(0) @ params["wr"].to(x.dtype)
-    k = mixed(1) @ params["wk"].to(x.dtype)
-    v = mixed(2) @ params["wv"].to(x.dtype)
-    g = F.silu(mixed(3) @ params["wg"].to(x.dtype))
+    r = dense(mixed(0), params["wr"])
+    k = dense(mixed(1), params["wk"])
+    v = dense(mixed(2), params["wv"])
+    g = F.silu(dense(mixed(3), params["wg"]))
     # the data-dependent decay (the Finch contribution): exp(-exp(w0 + lora))
     xw = mixed(4).float()
-    lora = torch.tanh(xw @ params["w_lora_a"]) @ params["w_lora_b"]
+    lora = dense(torch.tanh(dense(xw, params["w_lora_a"])),
+                 params["w_lora_b"])
     logw = -torch.exp(torch.clamp(params["w0"][None, None, :] + lora,
                                   -20.0, 8.0))
     return r, k, v, g, logw  # logw = log(decay) in (-inf, 0)
@@ -273,13 +338,13 @@ def _group_norm(y, eps: float):
     return (y - mu) * torch.rsqrt(var + eps)
 
 
-def rwkv6_timemix(params, x, *, n_heads: int, chunk: int,
-                  norm_eps: float = 1e-5):
-    """RWKV6 time mixing, chunked: x (B, L, d) -> (B, L, d)."""
-    bsz, L, d = x.shape
-    nc = _chunks(L, chunk, "rwkv6_timemix")
-    hp = d // n_heads
-    r, k, v, g, logw = _rwkv_proj(params, x, _shift(x))
+def _rwkv_core(r, k, v, logw, u, hp: int, chunk: int, norm_eps: float):
+    """The chunked RWKV6 time mix of r, k, v (B,L,d) and the log decay
+    (B,L,d, f32) with the bonus u (H,P) -> the per-head group-normed
+    output (B,L,d) in f32, before ``ln_x``."""
+    bsz, L, d = r.shape
+    n_heads = d // hp
+    nc = L // chunk
     c = chunk
 
     def heads(t):
@@ -296,12 +361,12 @@ def rwkv6_timemix(params, x, *, n_heads: int, chunk: int,
     r_dec = r * torch.exp(torch.clamp(ell_prev, -60.0, 0.0))
     att = torch.einsum("bnthp,bnshp->bnhts", r_dec,
                        k * torch.exp(torch.clamp(-ell, 0.0, 60.0)))
-    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=x.device),
+    tri = torch.tril(torch.ones((c, c), dtype=torch.bool, device=r.device),
                      diagonal=-1)
     att = att * tri[None, None, None, :, :]
     y = torch.einsum("bnhts,bnshp->bnthp", att, v)
     bonus = torch.einsum("bnthp,bnthp->bnth", r,
-                         k * params["u"][None, None, None, :, :])
+                         k * u[None, None, None, :, :])
     y = y + bonus[..., None] * v
 
     # inter-chunk state: S (B,H,P,P) [key dim, value dim]
@@ -309,7 +374,7 @@ def rwkv6_timemix(params, x, *, n_heads: int, chunk: int,
     s_chunk = torch.einsum("bnshp,bnshv->bnhpv", k * dec_end, v)
     lam_chunk = torch.exp(torch.clamp(ell[:, :, -1, :, :], -60.0, 0.0))
 
-    sprev = torch.zeros((bsz, n_heads, hp, hp), dtype=f32, device=x.device)
+    sprev = torch.zeros((bsz, n_heads, hp, hp), dtype=f32, device=r.device)
     starts = []
     for n in range(nc):
         starts.append(sprev)
@@ -318,10 +383,41 @@ def rwkv6_timemix(params, x, *, n_heads: int, chunk: int,
     y_inter = torch.einsum("bnthp,bnhpv->bnthv", r_dec, s_starts)
     y = (y + y_inter).reshape(bsz, L, n_heads, hp)
     # group norm per head (ln_x), gate, output projection
-    y = _group_norm(y, norm_eps).reshape(bsz, L, d) * (
-        params["ln_x"][None, None, :])
+    return _group_norm(y, norm_eps).reshape(bsz, L, d)
+
+
+def _rwkv_core_laid(r, k, v, logw, u, hp: int, chunk: int, norm_eps: float):
+    """:func:`_rwkv_core` on DTensors, each rank on its own batch rows and
+    whole heads (the reference leaves the scan's einsums to GSPMD)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = r.device_mesh
+    pl = _heads_layout(r, 2, r.shape[2] // hp)
+    vec = _per(pl, 2, Replicate(), Shard(0), Replicate())
+    r, k, v, logw = (t.redistribute(mesh, pl) for t in (r, k, v, logw))
+    u = u.redistribute(mesh, vec)
+    g_vec = _per(pl, 2, Partial(), Shard(0), Replicate())
+    return local_map(
+        lambda *t: _rwkv_core(*t, hp, chunk, norm_eps), out_placements=(pl,),
+        in_placements=None, in_grad_placements=(pl, pl, pl, pl, g_vec))(
+            r, k, v, logw, u)
+
+
+def rwkv6_timemix(params, x, *, n_heads: int, chunk: int,
+                  norm_eps: float = 1e-5):
+    """RWKV6 time mixing, chunked: x (B, L, d) -> (B, L, d)."""
+    bsz, L, d = x.shape
+    _chunks(L, chunk, "rwkv6_timemix")
+    hp = d // n_heads
+    r, k, v, g, logw = _rwkv_proj(params, x, _shift(x))
+    if isinstance(r, DTensor):
+        y = _rwkv_core_laid(r, k, v, logw, params["u"], hp, chunk, norm_eps)
+    else:
+        y = _rwkv_core(r, k, v, logw, params["u"], hp, chunk, norm_eps)
+    y = y * params["ln_x"][None, None, :]
     y = y.to(x.dtype) * g
-    return y @ params["wo"].to(x.dtype)
+    return dense(y, params["wo"])
 
 
 def rwkv6_channelmix(params, x):
@@ -329,9 +425,9 @@ def rwkv6_channelmix(params, x):
     mix = params["mix_c"]
     xk = x + (xx - x) * mix[0][None, None, :].to(x.dtype)
     xr = x + (xx - x) * mix[1][None, None, :].to(x.dtype)
-    kk = torch.square(torch.relu(xk @ params["ck"].to(x.dtype)))
-    return torch.sigmoid(xr @ params["cr"].to(x.dtype)) * (
-        kk @ params["cv"].to(x.dtype))
+    kk = torch.square(torch.relu(dense(xk, params["ck"])))
+    kk = constrain(kk, ("batch", "act_seq", "ff"))
+    return torch.sigmoid(dense(xr, params["cr"])) * dense(kk, params["cv"])
 
 
 def init_rwkv6_state(batch: int, d: int, n_heads: int, dtype, device=None):
@@ -343,6 +439,39 @@ def init_rwkv6_state(batch: int, d: int, n_heads: int, dtype, device=None):
     )
 
 
+def _rwkv_step(r, k, v, logw, S, u, hp: int, norm_eps: float):
+    """One RWKV6 step of r, k, v and the log decay (B,1,d) on the state S
+    (B,H,P,P): (the group-normed output (B,1,d) in f32, the new S)."""
+    bsz, _, d = r.shape
+    n_heads = d // hp
+    r1 = r[:, 0].reshape(bsz, n_heads, hp).float()
+    k1 = k[:, 0].reshape(bsz, n_heads, hp).float()
+    v1 = v[:, 0].reshape(bsz, n_heads, hp).float()
+    w1 = torch.exp(logw[:, 0].reshape(bsz, n_heads, hp))  # decay in (0,1)
+    kv = torch.einsum("bhp,bhv->bhpv", k1, v1)
+    y = torch.einsum("bhp,bhpv->bhv", r1, S + u[None, :, :, None] * kv)
+    S_new = S * w1[..., None] + kv
+    return _group_norm(y, norm_eps).reshape(bsz, 1, d), S_new
+
+
+def _rwkv_step_laid(r, k, v, logw, S, u, hp: int, norm_eps: float):
+    """:func:`_rwkv_step` on DTensors, each rank on its own batch rows and
+    whole heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = r.device_mesh
+    pl = _heads_layout(r, 2, r.shape[2] // hp)
+    state = tuple(Shard(0) if q.is_shard(0) else Shard(1) if q.is_shard(2)
+                  else Replicate() for q in pl)
+    vec = _per(pl, 2, Replicate(), Shard(0), Replicate())
+    r, k, v, logw = (t.redistribute(mesh, pl) for t in (r, k, v, logw))
+    return local_map(
+        lambda *t: _rwkv_step(*t, hp, norm_eps), out_placements=(pl, state),
+        in_placements=None)(r, k, v, logw, S.redistribute(mesh, state),
+                            u.redistribute(mesh, vec))
+
+
 def rwkv6_timemix_decode(params, x, st, *, n_heads: int,
                          norm_eps: float = 1e-5):
     """One-token step: x (B, 1, d); st = (shift, S, cshift) -> (y, new_st)."""
@@ -350,18 +479,14 @@ def rwkv6_timemix_decode(params, x, st, *, n_heads: int,
     hp = d // n_heads
     shift, S, cshift = st
     r, k, v, g, logw = _rwkv_proj(params, x, shift[:, None, :])
-    r1 = r[:, 0].reshape(bsz, n_heads, hp).float()
-    k1 = k[:, 0].reshape(bsz, n_heads, hp).float()
-    v1 = v[:, 0].reshape(bsz, n_heads, hp).float()
-    w1 = torch.exp(logw[:, 0].reshape(bsz, n_heads, hp))  # decay in (0,1)
-    kv = torch.einsum("bhp,bhv->bhpv", k1, v1)
-    y = torch.einsum("bhp,bhpv->bhv", r1,
-                     S + params["u"][None, :, :, None] * kv)
-    S_new = S * w1[..., None] + kv
-    y = _group_norm(y, norm_eps).reshape(bsz, 1, d) * (
-        params["ln_x"][None, None, :])
+    if isinstance(r, DTensor):
+        y, S_new = _rwkv_step_laid(r, k, v, logw, S, params["u"], hp,
+                                   norm_eps)
+    else:
+        y, S_new = _rwkv_step(r, k, v, logw, S, params["u"], hp, norm_eps)
+    y = y * params["ln_x"][None, None, :]
     y = y.to(x.dtype) * g
-    out = y @ params["wo"].to(x.dtype)
+    out = dense(y, params["wo"])
     return out, (x[:, 0, :], S_new, cshift)
 
 
@@ -370,7 +495,6 @@ def rwkv6_channelmix_decode(params, x, cshift):
     mix = params["mix_c"]
     xk = x + (xx - x) * mix[0][None, None, :].to(x.dtype)
     xr = x + (xx - x) * mix[1][None, None, :].to(x.dtype)
-    kk = torch.square(torch.relu(xk @ params["ck"].to(x.dtype)))
-    out = torch.sigmoid(xr @ params["cr"].to(x.dtype)) * (
-        kk @ params["cv"].to(x.dtype))
+    kk = torch.square(torch.relu(dense(xk, params["ck"])))
+    out = torch.sigmoid(dense(xr, params["cr"])) * dense(kk, params["cv"])
     return out, x[:, 0, :]

@@ -20,6 +20,7 @@ import shutil
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "restore_latest",
            "latest_step"]
@@ -57,6 +58,13 @@ def _from_numpy(arr: np.ndarray, like, device) -> torch.Tensor:
     else:
         t = torch.from_numpy(np.array(arr))
     dtype = like.dtype if torch.is_tensor(like) else t.dtype
+    if isinstance(like, DTensor):
+        # a laid leaf: the whole leaf read, this rank's shard kept
+        from ..dist import lay
+
+        local = like.to_local()
+        return lay(t.to(dtype).to(device or local.device), like.placements,
+                   like.device_mesh)
     dev = device if device is not None else (
         like.device if torch.is_tensor(like) else "cpu")
     return t.to(dtype).to(dev)
@@ -93,7 +101,8 @@ def latest_step(directory: str) -> int | None:
 
 def restore_checkpoint(directory: str, step: int, like_tree, device=None):
     """Restore into the structure and dtypes of ``like_tree``, each leaf on
-    ``device`` (default: the like leaf's device)."""
+    ``device`` (default: the like leaf's device); a DTensor like leaf
+    keeps this rank's shard of the whole leaf, laid as it is."""
     path = os.path.join(directory, f"step_{step:08d}", "arrays.npz")
     with np.load(path) as data:
         def walk(tree, path):

@@ -25,6 +25,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..runtime import fma, sqrt
 
@@ -89,12 +90,13 @@ def _slices(t: torch.Tensor):
 
 
 def init_opt(params):
-    first = tree_leaves(params)[0]
+    """Zero moments in f32 of the parameters' shapes (a DTensor leaf's
+    moments take its layout) and an int32 step, a plain scalar on every
+    rank."""
+    first = _local(tree_leaves(params)[0])
     return {
-        "m": tree_map(lambda p: torch.zeros(p.shape, dtype=f32,
-                                            device=p.device), params),
-        "v": tree_map(lambda p: torch.zeros(p.shape, dtype=f32,
-                                            device=p.device), params),
+        "m": tree_map(lambda p: torch.zeros_like(p, dtype=f32), params),
+        "v": tree_map(lambda p: torch.zeros_like(p, dtype=f32), params),
         "step": torch.zeros((), dtype=torch.int32, device=first.device),
     }
 
@@ -102,12 +104,47 @@ def init_opt(params):
 def global_norm(tree):
     """sqrt of the sum of squares over the leaves, each leaf's sum in f32
     (slice by slice, :func:`_slices`), the leaves added in the reference's
-    order."""
+    order.  Over DTensor leaves: :func:`_laid_norm`."""
+    leaves = tree_leaves(tree)
+    if any(isinstance(leaf, DTensor) for leaf in leaves):
+        return _laid_norm(leaves)
     total = None
-    for leaf in tree_leaves(tree):
+    for leaf in leaves:
         for s in _slices(leaf):
             sq = torch.sum(torch.square(s.float()))
             total = sq if total is None else total + sq
+    return sqrt(total)
+
+
+def _laid_norm(leaves):
+    """The global norm of DTensor leaves: each rank sums the squares of
+    its shard of each leaf (slice by slice), counting a leaf that is
+    replicated over a mesh dimension only at coordinate 0 there; one
+    partial-sum reduction over the mesh gives every rank the same
+    per-leaf sums, which are added in the reference's order.  A plain
+    tensor on every rank."""
+    from torch.distributed.tensor import Partial
+
+    mesh = next(x for x in leaves if isinstance(x, DTensor)).device_mesh
+    coord = mesh.get_coordinate()
+    sums = []
+    for leaf in leaves:
+        local, own = leaf, all(c == 0 for c in coord)
+        if isinstance(leaf, DTensor):
+            local = leaf.to_local()
+            own = all(p.is_shard() or c == 0
+                      for p, c in zip(leaf.placements, coord))
+        total = torch.zeros((), dtype=f32, device=local.device)
+        if own:
+            for s in _slices(local):
+                total = total + torch.sum(torch.square(s.float()))
+        sums.append(total)
+    per_leaf = DTensor.from_local(torch.stack(sums), mesh,
+                                  [Partial()] * mesh.ndim,
+                                  run_check=False).full_tensor()
+    total = per_leaf[0]
+    for x in per_leaf[1:]:
+        total = total + x
     return sqrt(total)
 
 
@@ -135,6 +172,10 @@ def _schedule(cfg: OptConfig, step):
     return warm * torch.tensor(cfg.lr, dtype=f32, device=step.device)
 
 
+def _local(t):
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def adamw_step_(params, grads, opt, cfg: OptConfig, scale=None):
     """One AdamW step written into ``params`` and ``opt``'s tensors (grads
     multiplied by ``scale`` first when given, as the clip does); returns
@@ -152,8 +193,13 @@ def adamw_step_(params, grads, opt, cfg: OptConfig, scale=None):
     bc1 = 1 - b1 ** sf
     bc2 = 1 - b2 ** sf
     neg_lr = -lr
+    if isinstance(scale, DTensor):
+        scale = scale.full_tensor()
     for p, g, m, v in zip(tree_leaves(params), tree_leaves(grads),
                           tree_leaves(opt["m"]), tree_leaves(opt["v"])):
+        # DTensor leaves of one layout: the update runs on this rank's
+        # shards, element for element the one-device arithmetic
+        p, g, m, v = (_local(t) for t in (p, g, m, v))
         for ps, gs, ms, vs in zip(_slices(p), _slices(g), _slices(m),
                                   _slices(v)):
             g32 = gs.float()

@@ -8,11 +8,19 @@ values into the ``params`` and ``opt`` tensors it is given and returns them:
 at full width a second copy of the state would not fit beside the first.
 
 - ``make_train_step(cfg, opt_cfg, accum, mesh=None)``: on one device, or,
-  given a rank mesh whose ``data`` dimension has more than one rank, each
-  rank takes its contiguous shard of the batch rows and the ranks' f32
-  gradients and losses are gathered and averaged in rank order on every
-  rank (what the reference's GSPMD step computes on a ``(data, 1)`` mesh),
-  so every rank takes the same optimizer step.
+  given a rank mesh whose ``data`` dimension has more than one rank and
+  whose ``model`` dimension has one, each rank takes its contiguous shard
+  of the batch rows and the ranks' f32 gradients and losses are gathered
+  and averaged in rank order on every rank (what the reference's GSPMD
+  step computes on a ``(data, 1)`` mesh), so every rank takes the same
+  optimizer step.  With a ``model`` dimension above 1 the step is laid by
+  the rule tables (tensor parallelism, ``--data D --model M``): the
+  parameters and optimizer state are DTensors laid by the rule tables
+  (``init_params(..., mesh=)``, ``dist.distribute_tree``; ``embed`` on
+  ``data`` too, FSDP), the batch
+  by ``launch.specs``' input layout, DTensor issues the collectives, the
+  global norm sums each leaf's shard once over the mesh, and AdamW runs
+  on each rank's shards with the clip inside, as on one device.
 - ``make_train_step_crosspod``: each rank of the ``pod`` dimension takes
   its pod's rows of axis 0, and the gradients cross the pods through
   ``train/compression.py`` (int8 with error feedback, or f32).  On a
@@ -25,9 +33,13 @@ the parameters' dtype, as the reference's do.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
+from ..dist import current_rules, is_rank_mesh, lay, use_rules
 from ..models import loss_fn
 from .compression import (crosspod_mean, crosspod_mean_int8, int8_mean,
                           int8_mean_pods, pods_mean, rank_mean)
@@ -46,9 +58,17 @@ def _value_and_grad(params, cfg: ModelConfig, batch):
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     # a leaf the forward never reads (the hybrid's one trailing block when
     # none trail) has a zero gradient, as in the reference
-    grads = [torch.zeros_like(p) if g is None else g
+    grads = [torch.zeros_like(p) if g is None else _as_param(g, p)
              for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)
+
+
+def _as_param(g, p):
+    """A DTensor gradient laid as its parameter (a partial sum reduced, a
+    replicated leaf's shards taken); plain ones as they are."""
+    if isinstance(g, DTensor) and g.placements != p.placements:
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
 
 
 def grads_and_loss(params, cfg: ModelConfig, batch, accum: int = 1):
@@ -62,8 +82,7 @@ def grads_and_loss(params, cfg: ModelConfig, batch, accum: int = 1):
 
     first = tree_leaves(params)[0]
     loss_acc = torch.zeros((), dtype=f32, device=first.device)
-    g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=f32,
-                                           device=p.device), params)
+    g_acc = tree_map(lambda p: torch.zeros_like(p, dtype=f32), params)
     for i in range(accum):
         loss, grads = _value_and_grad(params, cfg, micro(i))
         loss_acc = loss_acc + loss
@@ -98,10 +117,45 @@ def _dim(mesh, name: str) -> tuple[int, int, object]:
     return size, mesh.get_coordinate()[i], mesh.get_group(name)
 
 
-def _check_model_axis(mesh):
-    if _dim(mesh, "model")[0] > 1:
-        raise ValueError("a 'model' mesh dimension above 1 is tensor "
-                         "parallelism, not ported yet (ROADMAP A13c)")
+def laid(mesh) -> bool:
+    """Whether a step on ``mesh`` is laid by the rule tables: a rank mesh
+    with a ``model`` dimension above 1."""
+    return is_rank_mesh(mesh) and _dim(mesh, "model")[0] > 1
+
+
+def lay_batch(batch, mesh):
+    """The whole batch, which every rank holds, laid by ``launch.specs``'
+    input layout (each rank keeps its shard; DTensors pass through)."""
+    from ..launch.specs import INPUT_LOGICAL
+
+    lr = current_rules()
+    return {k: x if isinstance(x, DTensor) else lay(
+        x, lr.placements(INPUT_LOGICAL[k], tuple(x.shape)), mesh)
+        for k, x in batch.items()}
+
+
+def _scalar(t) -> torch.Tensor:
+    """A replicated or partial DTensor scalar as a plain tensor, the same
+    on every rank."""
+    return t.full_tensor() if isinstance(t, DTensor) else t
+
+
+def _laid_step(cfg, opt_cfg, accum, mesh, overrides):
+    """The train step laid by the rule tables over ``mesh``'s ranks."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    def step(params, opt, batch):
+        bound = current_rules() is not None and current_rules().mesh == mesh
+        with (contextlib.nullcontext() if bound
+              else use_rules(mesh, overrides)), implicit_replication():
+            loss, grads = grads_and_loss(params, cfg, lay_batch(batch, mesh),
+                                         accum)
+            params, opt, gnorm = _clip_and_update(params, opt, grads,
+                                                  opt_cfg)
+            loss = _scalar(loss)
+        return params, opt, {"loss": loss, "grad_norm": gnorm}
+
+    return step
 
 
 def _data_parallel(params, cfg, batch, accum, mesh):
@@ -123,11 +177,16 @@ def _clip_and_update(params, opt, grads, opt_cfg: OptConfig):
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig, accum: int = 1,
-                    mesh=None):
+                    mesh=None, overrides=None):
     """(params, opt, batch) -> (params, opt, metrics), updating in place.
     ``mesh``: a rank mesh (``launch.mesh.make_local_mesh`` under a process
-    group) whose ``data`` ranks share the batch; None on one device."""
-    _check_model_axis(mesh)
+    group) whose ``data`` ranks share the batch; None on one device.  With
+    a ``model`` dimension above 1 the parameters and optimizer state are
+    laid trees (``init_params(..., mesh=)``, ``dist.distribute_tree``) and
+    ``overrides`` rebind the
+    rule table where no scope is bound to ``mesh`` already."""
+    if laid(mesh):
+        return _laid_step(cfg, opt_cfg, accum, mesh, overrides)
 
     def step(params, opt, batch):
         loss, grads = _data_parallel(params, cfg, batch, accum, mesh)
@@ -146,8 +205,12 @@ def make_train_step_crosspod(cfg: ModelConfig, opt_cfg: OptConfig, mesh, *,
     the whole batch, of which each pod takes its rows of axis 0 and, within
     the pod, each ``data`` rank its shard.  State gains ``err``
     (``init_error_feedback``) when compressing: on a rank mesh each rank's
-    own tree, on a logical mesh a list of one tree a pod."""
-    _check_model_axis(mesh)
+    own tree, on a logical mesh a list of one tree a pod.  The pods' ranks
+    each hold the whole model: a ``model`` dimension above 1 raises."""
+    if _dim(mesh, "model")[0] > 1:
+        raise ValueError("make_train_step_crosspod: the exchange runs on "
+                         "whole gradient leaves; lay a model dimension "
+                         "above 1 with make_train_step")
     names = tuple(getattr(mesh, "mesh_dim_names", ()) or ())
     if "pod" in names and not hasattr(mesh, "get_group"):
         return _logical_crosspod(cfg, opt_cfg, mesh.shape[names.index("pod")],

@@ -44,7 +44,45 @@ def test_port_imports_no_jax_and_no_reference():
     assert {"repro_torch.train", *(f"repro_torch.train.{m}" for m in (
         "optimizer", "step", "checkpoint", "compression")),
         "repro_torch.data.lm", "repro_torch.launch.train"} <= expected
+    assert {"repro_torch.dist.layout", *(f"repro_torch.launch.{m}" for m in (
+        "specs", "dryrun", "hlo_stats"))} <= expected
     assert leaked == "[]", leaked
+
+
+def _public_names(path: Path) -> set:
+    """A module's ``__all__``, else its top-level public functions and
+    upper-case constants, read from its source (importing the reference's
+    ``launch/dryrun.py`` would set ``XLA_FLAGS`` in this process)."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                getattr(t, "id", None) == "__all__" for t in node.targets):
+            return {e.value for e in node.value.elts}
+    names = {n.name for n in tree.body
+             if isinstance(n, ast.FunctionDef) and not n.name.startswith("_")}
+    names |= {t.id for n in tree.body if isinstance(n, ast.Assign)
+              for t in n.targets if getattr(t, "id", "").isupper()
+              and not t.id.startswith("_")}
+    return names
+
+
+@pytest.mark.parametrize("module", ["specs", "hlo_stats", "dryrun", "mesh"])
+def test_launch_names_match_reference(module):
+    """The reference's public names of ``repro.launch.{specs, hlo_stats,
+    dryrun, mesh}`` and ``repro.dist`` exist in the port's counterparts
+    (``specs._DECODE_LOGICAL`` and ``_state_tail`` too)."""
+    port = importlib.import_module(f"repro_torch.launch.{module}")
+    want = _public_names(ROOT / "src" / "repro" / "launch" / f"{module}.py")
+    assert want and want <= set(dir(port)), want - set(dir(port))
+    if module == "specs":
+        assert {"_DECODE_LOGICAL", "_state_tail"} <= set(dir(port))
+    import repro_torch.dist as tdist
+
+    ref_dist = _public_names(ROOT / "src" / "repro" / "dist" /
+                             "__init__.py") - {"shard_map_compat"}
+    assert ref_dist <= set(tdist.__all__), ref_dist - set(tdist.__all__)
 
 
 def test_public_names_match_reference():

@@ -518,8 +518,10 @@ def test_serve_lm_smoke_runs_on_cpu(arch, capsys):
 
 
 def test_serve_lm_refuses_a_mesh():
+    """``--data 2`` or ``--model 2`` without a process group of 2 ranks
+    raises, naming the launcher that makes one."""
     for flag in ("--data", "--model"):
-        with pytest.raises(ValueError, match="A13c"):
+        with pytest.raises(ValueError, match="torch.distributed.run"):
             serve_main(["lm", "--smoke", "--device", "cpu", flag, "2"])
 
 

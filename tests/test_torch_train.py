@@ -587,7 +587,7 @@ def test_launcher_metrics_and_refusals(tmp_path, capsys):
     assert summary["random_leaves_moved"] == summary["random_leaves"] == 9
     assert summary["peak_bytes"] is None
     assert "[train] done" in capsys.readouterr().out
-    with pytest.raises(ValueError, match="A13c"):
+    with pytest.raises(ValueError, match="torch.distributed.run"):
         tlaunch.main(argv + ["--model", "2"])
     with pytest.raises(ValueError, match="torch.distributed.run"):
         tlaunch.main(argv + ["--data", "2"])
