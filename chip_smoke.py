@@ -9,7 +9,9 @@ Run from the repository root on a machine with a CUDA card:
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. card: ``nvidia-smi`` name and power limit;
-2. build: every CUDA source of the port, ``nvcc`` runs in parallel;
+2. build: every CUDA source of the port, ``nvcc`` runs in parallel on the
+   host while phases 17 and 18 (the LM harness, which reaches no kernel)
+   run on the card; phase 3 and the rest follow in order once it ends;
 3. fma: ``torch.addcmul`` (the port's spelling of a fused multiply-add) held
    against an exact round-to-odd emulation on the card;
 4. kernel: ``fused_scan_merge``, fp32 and ``precision="mixed"``, on the card
@@ -81,7 +83,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``fused_merge`` twice a tick on the ranks whose query shard owns rows;
    then the ``knn`` driver under ``python -m torch.distributed.run
    --nproc-per-node 1`` on NCCL (``--plan hybrid``); then a four-tenant
-   ``KnnServer`` on ``object_sharded`` 4 at 50,000 objects (the build, a
+   ``KnnServer`` on ``object_sharded`` 4 at 12,500 objects (the build, a
    pure-cache tick, a stab, an epoch clear), logically and then one replica
    on each of 4 gloo ranks (``--rank-server``), every rank's tenant rows
    and tick counters equal to the logical server's, and the ``knn`` driver
@@ -172,7 +174,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``MESH_BF16_TOL``; (d)
    ``python -m repro_torch.launch.dryrun --arch yi_34b --shape train_4k``
    on the host (a fake process group of 256 ranks, no device), beside
-   them.
+   them; (e) the int8 cross-pod step laid on ``model``
+   (:func:`mesh_xpod`): h2o_danube_3_4b at full width cut to 2 layers,
+   float32, on a (2, 1, 2) mesh of 4 gloo ranks, each pod's state laid
+   on its (1, 2) mesh, against the same steps on (2, 1, 1) (2 ranks, run
+   after it): loss and grad norm within ``XPOD_RTOL``, the error feedback
+   within one of pod 0's scales an element, every leaf moved, each
+   rank's leaves on ``model`` halved.
 
 Launch counts are zeroed just before each path (each tick, in the single
 and server paths) and read just after, on the path's own session only.  The
@@ -185,8 +193,10 @@ import argparse
 import json
 import os
 import platform
+import shutil
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1703,10 +1713,9 @@ def _free_port() -> int:
         return sock.getsockname()[1]
 
 
-def _spawn_ranks(argv: list, world: int, what: str) -> list:
+def _start_ranks(argv: list, world: int) -> list:
     """``world`` processes of ``argv`` with the environment
-    ``torch.distributed.run`` gives its ranks; every one must exit 0 within
-    the time limit.  Returns each rank's output."""
+    ``torch.distributed.run`` gives its ranks."""
     port = str(_free_port())
     procs = []
     for r in range(world):
@@ -1717,7 +1726,7 @@ def _spawn_ranks(argv: list, world: int, what: str) -> list:
         procs.append(subprocess.Popen(argv, env=penv, cwd=ROOT,
                                       stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
-    return _join(procs, what)
+    return procs
 
 
 def _join(procs, what: str) -> list:
@@ -1750,6 +1759,7 @@ def rank_path(label: str, n: int, ref_dir: str) -> int:
 
     dev, backend = init_from_env("cuda")
     rank = dist.get_rank()
+    _wait_for(Path(ref_dir) / f"{label}.go")  # started up during phase 9
     first, plan_kw = OBJECT_PATHS[label]
     spec = ServiceSpec(backend="fused_bucket", **plan_kw)
     pos, steps = _object_steps(n, first, 0, spec.side)
@@ -1832,17 +1842,32 @@ def rank_path(label: str, n: int, ref_dir: str) -> int:
     return 0
 
 
-def distributed(n: int, kept: dict, ticks: dict, card: str) -> dict:
-    """Phase 9's paths (a) and (b) laid onto gloo ranks that share the one
-    card, one grid cell per rank, each rank held against phase 9's records
-    (``kept``, ``ticks``) bit for bit.  Returns each kernel's launches
-    summed over the ranks."""
-    import shutil
+def start_distributed(n: int) -> tuple:
+    """:func:`distributed`'s ranks, started during phase 9: each starts up
+    and waits for its path's go.  Returns (their directory, {path: its
+    ranks})."""
     import tempfile
 
+    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    procs = {}
+    for label in ("a", "b"):
+        shape = OBJECT_PATHS[label][1]["mesh_shape"]
+        world = shape if isinstance(shape, int) else shape[0] * shape[1]
+        procs[label] = _start_ranks(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--rank-path",
+             label, "--n-objects", str(n), "--ref-dir", ref_dir], world)
+    return ref_dir, procs
+
+
+def distributed(n: int, kept: dict, ticks: dict, card: str,
+                started: tuple) -> dict:
+    """Phase 9's paths (a) and (b) laid onto gloo ranks that share the one
+    card, one grid cell per rank (:func:`start_distributed`'s), each rank
+    held against phase 9's records (``kept``, ``ticks``) bit for bit.
+    Returns each kernel's launches summed over the ranks."""
     totals = {"B1": 0, "B2": 0, "B3": 0}
     torch.cuda.empty_cache()  # the ranks share the card with this process
-    ref_dir = tempfile.mkdtemp(prefix="chip_smoke_ranks_")
+    ref_dir, procs = started
     try:
         for label in ("a", "b"):
             for t, (lists, rec) in enumerate(zip(kept[label], ticks[label])):
@@ -1856,13 +1881,10 @@ def distributed(n: int, kept: dict, ticks: dict, card: str) -> dict:
                          candidates=np.float32(rec["candidates"]),
                          maintenance=rec["maintenance"],
                          rebuilt=rec["rebuilt"])
-            _, plan_kw = OBJECT_PATHS[label]
-            shape = plan_kw["mesh_shape"]
-            world = shape if isinstance(shape, int) else shape[0] * shape[1]
+            world = len(procs[label])
             t0 = time.perf_counter()
-            _spawn_ranks([sys.executable, str(ROOT / "chip_smoke.py"),
-                          "--rank-path", label, "--n-objects", str(n),
-                          "--ref-dir", ref_dir], world, f"path {label} ranks")
+            (Path(ref_dir) / f"{label}.go").write_text("")
+            _join(procs[label], f"path {label} ranks")
             reports = [json.loads((Path(ref_dir) / f"{label}_rank{r}.json")
                        .read_text()) for r in range(world)]
             for rep in reports:
@@ -1883,6 +1905,7 @@ def distributed(n: int, kept: dict, ticks: dict, card: str) -> dict:
                         "counters, qcost_next, object bounds, decisions)",
                 "card": card}), flush=True)
     finally:
+        _stop([p for ranks in procs.values() for p in ranks])
         shutil.rmtree(ref_dir, ignore_errors=True)
     return totals
 
@@ -1912,9 +1935,8 @@ def driver_ranks(n: int, card: str):
 
 
 # the server on ranks: objects, plan, and the ranks' world; host-bound, at
-# 50,000 objects like this script's other object-axis sessions, so that the
-# whole run keeps inside its time limit
-RANK_SERVER_N = 50_000
+# 12,500 objects, so that the whole run keeps inside its time limit
+RANK_SERVER_N = 12_500
 RANK_SERVER_PLAN = dict(plan="object_sharded", mesh_shape=4,
                         merge="fused_multi")
 RANK_SERVER_WORLD = 4
@@ -2006,6 +2028,7 @@ def rank_server(n: int, ref_dir: str) -> int:
 
     dev, backend = init_from_env("cuda")
     rank = dist.get_rank()
+    _wait_for(Path(ref_dir) / "server.go")  # started up beside the logical
     gather_s = [0.0]
     all_gather = dist.all_gather
 
@@ -2042,37 +2065,40 @@ def server_ranks(n: int, card: str) -> dict:
     logical-shard server run here first; then the ``knn`` driver with four
     tenants under ``torch.distributed.run`` on as many ranks.  Returns the
     B1 and B2 launches summed over the ranks."""
-    import shutil
     import tempfile
 
     dev = torch.device("cuda")
     torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    logical = server_ticks(dev, n)
-    logical_s = time.perf_counter() - t0
-    dup = min(65_536, len(range(1, n, 4)))  # tenant 0's duplicate rows
-    for t, tk in enumerate(logical):
-        exp = {0: (n, dup, 0), 1: (0, 0, n + dup), 3: (n, dup, 0)}.get(t)
-        got = (tk["computed"], tk["dedup_hits"], tk["cache_hits"])
-        if (exp is not None and got != exp) or (
-                t == 2 and not 0 < tk["computed"] == tk["evicted"] < n) or (
-                t == 3 and tk["epoch"] != logical[2]["epoch"] + 1) or (
-                tk["submitted"] != (t != 1)):
-            raise AssertionError(f"logical server tick {t}: {tk}")
-    torch.cuda.empty_cache()
     ref_dir = tempfile.mkdtemp(prefix="chip_smoke_server_")
+    # the ranks start up while the logical server runs, and wait for it
+    procs = _start_ranks([sys.executable, str(ROOT / "chip_smoke.py"),
+                          "--rank-server", "--n-objects", str(n),
+                          "--ref-dir", ref_dir], RANK_SERVER_WORLD)
     totals = {"B1": 0, "B2": 0}
     try:
+        t0 = time.perf_counter()
+        logical = server_ticks(dev, n)
+        logical_s = time.perf_counter() - t0
+        dup = min(65_536, len(range(1, n, 4)))  # tenant 0's duplicate rows
+        for t, tk in enumerate(logical):
+            exp = {0: (n, dup, 0), 1: (0, 0, n + dup), 3: (n, dup, 0)}.get(t)
+            got = (tk["computed"], tk["dedup_hits"], tk["cache_hits"])
+            if (exp is not None and got != exp) or (
+                    t == 2 and not 0 < tk["computed"] == tk["evicted"] < n
+            ) or (t == 3 and tk["epoch"] != logical[2]["epoch"] + 1) or (
+                    tk["submitted"] != (t != 1)):
+                raise AssertionError(f"logical server tick {t}: {tk}")
+        torch.cuda.empty_cache()
         (Path(ref_dir) / "server_logical.json").write_text(
             json.dumps(logical))
         t0 = time.perf_counter()
-        _spawn_ranks([sys.executable, str(ROOT / "chip_smoke.py"),
-                      "--rank-server", "--n-objects", str(n), "--ref-dir",
-                      ref_dir], RANK_SERVER_WORLD, "server ranks")
+        (Path(ref_dir) / "server.go").write_text("")
+        _join(procs, "server ranks")
         ranks_s = time.perf_counter() - t0
         reports = [json.loads((Path(ref_dir) / f"server_rank{r}.json")
                    .read_text()) for r in range(RANK_SERVER_WORLD)]
     finally:
+        _stop(procs)
         shutil.rmtree(ref_dir, ignore_errors=True)
     for rep in reports:
         for tk in rep["ticks"]:
@@ -3890,7 +3916,8 @@ def _gloo_cuda_probe(dev) -> dict:
 
 
 def rank_mesh(ref_dir: str) -> int:
-    """One of 2 gloo ranks sharing the card (:func:`mesh_phase`): the
+    """One of 2 gloo ranks sharing the card (:func:`mesh_phase`), started
+    up beside the last one-rank run and waiting for its end: the
     collectives probe, then (a) ``launch.train --model 2`` in float32, (b)
     in bf16, (c) ``serve lm --model 2``, each in this process group, their
     records into ``ref_dir``."""
@@ -3906,6 +3933,7 @@ def rank_mesh(ref_dir: str) -> int:
 
     dev, backend = init_from_env("cuda")
     torch.set_float32_matmul_precision("highest")
+    _wait_for(Path(ref_dir) / "mesh.go")
     probe = _gloo_cuda_probe(dev)
     if dist.get_rank() == 0:
         (Path(ref_dir) / "gloo.json").write_text(json.dumps(
@@ -3964,10 +3992,49 @@ def _greedy_agreement(got, want, margins, tol: float,
 
 def mesh_phase(dev, card: str):
     """The LM harness laid over a ``(data, model)`` mesh (no kernel; see
-    the module docstring, item 19): the one-rank runs first, each in a
-    process of its own that frees the card, then one
-    ``torch.distributed.run`` of 2 gloo ranks (:func:`rank_mesh`), the dry
-    run on the host beside them.  A ``mesh`` line each."""
+    the module docstring, item 19): (a) to (d) (:func:`_mesh_runs`), with
+    (e)'s ranks starting up beside (a) to (c)'s, then (e)
+    (:func:`mesh_xpod`).  A ``mesh`` line each."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as d:
+        procs = {}
+        try:
+            _mesh_runs(dev, card, lambda: procs.update(_xpod_launch(d)))
+            mesh_xpod(card, d, procs)
+        finally:
+            _stop(procs.values())
+
+
+def _stop(procs):
+    """End the processes still running (after a failure: the rest have
+    been joined), each launcher given the time to end its ranks."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+            try:
+                p.communicate(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.communicate()
+
+
+def _wait_for(path: Path):
+    """Wait for ``path`` to exist: a rank started up ahead of its turn."""
+    deadline = time.monotonic() + RANK_RUN_TIMEOUT_S
+    while not path.exists():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"no {path.name} within "
+                                 f"{RANK_RUN_TIMEOUT_S} s")
+        time.sleep(0.05)
+
+
+def _mesh_runs(dev, card: str, before_ranks):
+    """(a) to (d): the one-rank runs first, each in a process of its own
+    that frees the card, then one ``torch.distributed.run`` of 2 gloo
+    ranks (:func:`rank_mesh`, started up beside the last one-rank run;
+    ``before_ranks()`` is called just before it starts), the dry run on
+    the host beside them.  A ``mesh`` line each."""
     import tempfile
 
     torch.cuda.empty_cache()
@@ -3988,19 +4055,30 @@ def mesh_phase(dev, card: str):
                  *MESH_SERVE_F32, "--tokens-out", f"{d}/serve32_one.npz"]],
                [[sys.executable, "-m", "repro_torch.launch.serve",
                  *MESH_SERVE, "--tokens-out", f"{d}/serve_one.npz"]]]
-        for group in one:
-            _join([subprocess.Popen(argv, env=env, cwd=ROOT,
-                                    stdout=subprocess.PIPE,
-                                    stderr=subprocess.STDOUT, text=True)
-                   for argv in group], "mesh one rank")
-        t_one = time.perf_counter() - t0
-        _join([subprocess.Popen(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone",
-             "--nproc-per-node", "2", str(ROOT / "chip_smoke.py"),
-             "--rank-mesh", "--ref-dir", d],
-            env=dict(os.environ, OMP_NUM_THREADS="1"), cwd=ROOT,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)],
-            "mesh ranks")
+        ranks = []
+        try:
+            for g, group in enumerate(one):
+                if g == len(one) - 1:
+                    # the ranks start up beside the last one-rank run and
+                    # wait for its end
+                    before_ranks()
+                    ranks.append(subprocess.Popen(
+                        [sys.executable, "-m", "torch.distributed.run",
+                         "--standalone", "--nproc-per-node", "2",
+                         str(ROOT / "chip_smoke.py"), "--rank-mesh",
+                         "--ref-dir", d],
+                        env=dict(os.environ, OMP_NUM_THREADS="1"), cwd=ROOT,
+                        stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                        text=True))
+                _join([subprocess.Popen(argv, env=env, cwd=ROOT,
+                                        stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True)
+                       for argv in group], "mesh one rank")
+            t_one = time.perf_counter() - t0
+            (Path(d) / "mesh.go").write_text("")
+            _join(ranks, "mesh ranks")
+        finally:
+            _stop(ranks)
         t_ranks = time.perf_counter() - t0 - t_one
         dry_log = _join([dry], "mesh dry run")[0]
         gloo = json.loads((Path(d) / "gloo.json").read_text())
@@ -4101,6 +4179,227 @@ def mesh_phase(dev, card: str):
         "seconds": time.perf_counter() - t0, "card": card}), flush=True)
 
 
+# (e) the int8 cross-pod step laid on model: h2o_danube_3_4b at its
+# published widths, cut to 2 of 24 layers, float32, batch 8 x 128
+XPOD_ARCH, XPOD_LAYERS, XPOD_BATCH, XPOD_SEQ = "h2o_danube_3_4b", 2, 8, 128
+XPOD_STEPS = 3
+XPOD_RTOL = 2e-5
+
+
+def _xpod_config():
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(XPOD_ARCH), n_layers=XPOD_LAYERS,
+                               param_dtype="float32",
+                               compute_dtype="float32")
+
+
+def rank_xpod(ref_dir: str, model: int) -> int:
+    """One rank of :func:`mesh_xpod`'s ``(2, 1, model)`` mesh, gloo ranks
+    sharing the card under ``torch.distributed.run``: ``XPOD_STEPS`` int8
+    cross-pod steps from seeded weights (laid on the pod's mesh with
+    ``model`` 2) on a seeded batch.  Rank 0 records each step's loss, grad
+    norm and seconds; every rank its peak, local bytes, the int8 bytes it
+    gathers a step, and (``model`` 2) the leaves laid on ``model`` and
+    split.  After step 1, ``model`` 2's pod-0 ranks save their shards of
+    the error feedback; ``model`` 1's rank 0 holds its own against them on
+    the card, each element within one of pod 0's scales (from its first
+    gradient)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch.distributed as dist
+
+    from repro_torch.dist import local_bytes
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.mesh import (init_from_env, make_local_mesh,
+                                         pod_mesh)
+    from repro_torch.models import init_params
+    from repro_torch.train import (OptConfig, grads_and_loss,
+                                   init_error_feedback,
+                                   make_train_step_crosspod)
+    from repro_torch.train.optimizer import tree_leaves
+
+    marks = {"start": time.time()}
+    dev, _ = init_from_env("cuda")
+    torch.set_float32_matmul_precision("highest")
+    rank, ref = dist.get_rank(), Path(ref_dir)
+    marks["group"] = time.time()
+    # started up beside earlier work; (2, 1, 2) runs at the go, (2, 1, 1)
+    # after it
+    _wait_for(ref / ("xpod.go" if model > 1 else "xpod2.done"))
+    marks["go"] = time.time()
+    cfg = _xpod_config()
+    mesh = make_local_mesh(data=1, model=model, pod=2,
+                           device_type=dev.type)
+    sub = pod_mesh(mesh) if model > 1 else None
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         device=dev, mesh=sub)
+    batch = {k: torch.tensor(v, device=dev) for k, v in _train_batch(
+        cfg, XPOD_BATCH, XPOD_SEQ, 0).items()}
+    scales = None
+    if model == 1 and rank == 0:  # pod 0's first gradient's scales
+        g0 = grads_and_loss(params, cfg, {k: v[: XPOD_BATCH // 2]
+                                          for k, v in batch.items()})[1]
+        scales = [(torch.max(torch.abs(g.float())) + 1e-12) / 127
+                  for g in tree_leaves(g0)]
+        del g0
+    opt = _init_opt(params)
+    err = init_error_feedback(params)
+    before = launch._checksums(params)
+    marks["init"] = time.time()
+    step = make_train_step_crosspod(cfg, OptConfig(lr=1e-3, warmup_steps=5),
+                                    mesh, compress=True)
+    rows = []
+    for i in range(XPOD_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        params, opt, err, m = step(params, opt, err, batch)
+        torch.cuda.synchronize(dev)
+        rows.append({"loss": float(m["loss"]), "grad_norm":
+                     float(m["grad_norm"]), "s": time.perf_counter() - t0})
+        if i == 0:
+            marks["step1"] = time.time()
+            _xpod_err(err, ref, rank, model, scales)
+            marks["err"] = time.time()
+    marks["steps"] = time.time()
+    moved = launch._moved(before, launch._checksums(params), True)
+    leaves = tree_leaves(params)
+    local = sum(launch._local(p).numel() for p in leaves)
+    record = {"rank": rank, "peak_bytes": torch.cuda.max_memory_allocated(
+                  dev),
+              "local_bytes": local_bytes({"params": params, "opt": opt,
+                                          "err": err}),
+              "local_params": local,
+              # each leaf's int8 shard and f32 scale from both pods
+              "gathered_bytes_per_step": 2 * (local + 4 * len(leaves)),
+              "leaves": len(leaves), "leaves_moved": sum(moved),
+              "params": sum(p.numel() for p in leaves)}
+    if sub is not None:
+        record["model_leaves"], record["model_leaves_split"] = (
+            launch._model_split(params, sub))
+    if rank == 0:
+        record["steps"] = rows
+    marks["end"] = time.time()
+    record["marks"] = marks
+    (ref / f"xpod{model}_r{rank}.json").write_text(json.dumps(record))
+    dist.destroy_process_group()
+    return 0
+
+
+def _xpod_err(err, ref: Path, rank: int, model: int, scales):
+    """After step 1: ``model`` 2's pod-0 ranks save their shards of the
+    error feedback (and the dimension each is split on); ``model`` 1's rank
+    0 holds its whole leaves against them leaf by leaf on the card."""
+    from repro_torch.train.optimizer import tree_leaves
+
+    leaves = tree_leaves(err)
+    if model > 1:
+        if rank < model:  # pod 0: ranks (0, 0, m)
+            i = leaves[0].device_mesh.mesh_dim_names.index("model")
+            torch.save([(e.to_local().cpu(), e.placements[i].dim
+                         if e.placements[i].is_shard() else None)
+                         for e in leaves], ref / f"xpod_err_r{rank}.pt")
+        return
+    if rank != 0:
+        return
+    shards = [torch.load(ref / f"xpod_err_r{m}.pt") for m in range(2)]
+    worst, flips = 0.0, 0
+    for i, (e, scale) in enumerate(zip(leaves, scales)):
+        parts, dim = [s[i][0] for s in shards], shards[0][i][1]
+        laid_e = (parts[0] if dim is None else torch.cat(parts, dim)).to(
+            e.device)
+        d = torch.abs(laid_e - e)
+        worst = max(worst, float(torch.max(d / scale)))
+        flips += int(torch.sum(d > scale / 2))
+    (ref / "xpod_err.json").write_text(json.dumps(
+        {"max_err_over_scale": worst, "flips": flips,
+         "elements": sum(e.numel() for e in leaves)}))
+
+
+def _xpod_launch(d: str) -> dict:
+    """:func:`mesh_xpod`'s two ``torch.distributed.run`` launches, started
+    together ahead of it: their ranks start up and wait for its go."""
+    return {model: subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc-per-node", str(world), str(ROOT / "chip_smoke.py"),
+         "--rank-xpod", str(model), "--ref-dir", d],
+        env=dict(os.environ, OMP_NUM_THREADS="1"), cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for model, world in ((2, 4), (1, 2))}
+
+
+def mesh_xpod(card: str, d: str, procs: dict):
+    """(e) The int8 cross-pod step laid on ``model``
+    (``make_train_step_crosspod`` on a ``(2, 1, 2)`` rank mesh, 4 gloo
+    ranks sharing the card, each pod's state laid on its ``(1, 2)`` mesh)
+    at full width, then the same steps on ``(2, 1, 1)`` (2 ranks, the
+    whole model a pod), the launches of :func:`_xpod_launch` in ``d``, one
+    after the other: loss and grad norm per step within ``XPOD_RTOL``, the
+    error feedback after step 1 within one of pod 0's scales an element,
+    every leaf moved, each rank's leaves laid on ``model`` at half their
+    elements.  A ``mesh`` line."""
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (Path(d) / "xpod.go").write_text("")
+    _join([procs[2]], "mesh xpod (2, 1, 2)")
+    (Path(d) / "xpod2.done").write_text("")
+    _join([procs[1]], "mesh xpod (2, 1, 1)")
+    runs = {model: [json.loads((Path(d) / f"xpod{model}_r{r}.json")
+                               .read_text()) for r in range(world)]
+            for model, world in ((2, 4), (1, 2))}
+    errs = json.loads((Path(d) / "xpod_err.json").read_text())
+    # rank 0's seconds from its go to each mark (its start-up before it)
+    timeline = {model: {k: v - runs[model][0]["marks"]["go"]
+                        for k, v in runs[model][0]["marks"].items()}
+                for model in runs}
+    laid, whole = runs[2], runs[1]
+    worst = 0.0
+    for a, b in zip(laid[0]["steps"], whole[0]["steps"]):
+        for key in ("loss", "grad_norm"):
+            if not (np.isfinite(a[key]) and np.isfinite(b[key])):
+                raise AssertionError(f"mesh xpod: {key} {a[key]}, {b[key]}")
+            rel = abs(a[key] / b[key] - 1)
+            worst = max(worst, rel)
+            if not rel <= XPOD_RTOL:
+                raise AssertionError(f"mesh xpod: {key} {a[key]} on (2, 1, "
+                                     f"2) against {b[key]} on (2, 1, 1)")
+    if not errs["max_err_over_scale"] <= 1 + 1e-5:
+        raise AssertionError(f"mesh xpod: error feedback off by "
+                             f"{errs['max_err_over_scale']} scales")
+    for r in laid + whole:
+        if r["leaves_moved"] != r["leaves"]:
+            raise AssertionError(f"mesh xpod: rank {r['rank']} moved "
+                                 f"{r['leaves_moved']} of {r['leaves']}")
+    for r in laid:
+        if not 0 < r["model_leaves_split"] == r["model_leaves"]:
+            raise AssertionError(f"mesh xpod: rank {r['rank']}: "
+                                 f"{r['model_leaves_split']} of "
+                                 f"{r['model_leaves']} model leaves halved")
+    print("mesh " + json.dumps({
+        "run": "(e) make_train_step_crosspod int8 on (2, 1, 2), 4 gloo "
+               "ranks, against (2, 1, 1), 2 ranks",
+        "arch": XPOD_ARCH, "layers": XPOD_LAYERS, "dtype": "float32",
+        "batch": XPOD_BATCH, "seq": XPOD_SEQ, "params": laid[0]["params"],
+        "loss": [x["loss"] for x in laid[0]["steps"]],
+        "grad_norm": [x["grad_norm"] for x in laid[0]["steps"]],
+        "max_rel_err": worst, "rtol": XPOD_RTOL, **errs,
+        "model_leaves": laid[0]["model_leaves"],
+        "s_per_step": [x["s"] for x in laid[0]["steps"]],
+        "whole_s_per_step": [x["s"] for x in whole[0]["steps"]],
+        "local_params_ranks": [r["local_params"] for r in laid],
+        "whole_local_params_ranks": [r["local_params"] for r in whole],
+        "peak_bytes_ranks": [r["peak_bytes"] for r in laid],
+        "whole_peak_bytes_ranks": [r["peak_bytes"] for r in whole],
+        "gathered_int8_bytes_per_step_ranks": [
+            r["gathered_bytes_per_step"] for r in laid],
+        "whole_gathered_int8_bytes_per_step_ranks": [
+            r["gathered_bytes_per_step"] for r in whole],
+        "timeline": timeline[2], "whole_timeline": timeline[1],
+        "seconds": time.perf_counter() - t0, "card": card}), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--n-objects", type=int, default=1_000_000)
@@ -4118,6 +4417,8 @@ def main() -> int:
                     help=argparse.SUPPRESS)
     ap.add_argument("--rank-mesh", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--rank-xpod", type=int, choices=(1, 2),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--only-mesh", action="store_true",
                     help="run only the mesh phase (no kernel is built or "
                          "checked; no kernels line)")
@@ -4134,6 +4435,8 @@ def main() -> int:
         return rank_train(args.ref_dir)
     if args.rank_mesh:
         return rank_mesh(args.ref_dir)
+    if args.rank_xpod:
+        return rank_xpod(args.ref_dir, args.rank_xpod)
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels import build
 
@@ -4145,12 +4448,22 @@ def main() -> int:
         mesh_phase(dev, card)
         return 0
     t0 = time.perf_counter()
-    build.build_all(verbose=args.ptxas)
-    print(f"build: {len(build.SOURCES)} source(s) in "
-          f"{time.perf_counter() - t0:.1f} s")
+    built = {}
+
+    def build_kernels():
+        try:
+            build.build_all(verbose=args.ptxas)
+        except Exception as e:  # raised again below, in the main thread
+            built["error"] = e
+        built["s"] = time.perf_counter() - t0
+
+    # nvcc builds on the host while the LM harness, which reaches no
+    # kernel, runs on the card
+    builder = threading.Thread(target=build_kernels)
+    builder.start()
     # seconds per phase, printed before the kernels' line: where the run's
     # time limit goes
-    phases = {"build": time.perf_counter() - t0}
+    phases = {}
     clock = [time.perf_counter()]
 
     def lap(name):
@@ -4158,6 +4471,18 @@ def main() -> int:
         phases[name] = now - clock[0]
         clock[0] = now
 
+    lm_phase(dev, card)
+    lap("lm")
+    train_phase(dev, card)
+    lap("train")
+    torch.cuda.empty_cache()
+    builder.join()
+    if "error" in built:
+        raise built["error"]
+    print(f"build: {len(build.SOURCES)} source(s) in {built['s']:.1f} s, "
+          "beside the lm and train phases")
+    phases["build"] = built["s"]
+    lap("build_wait")
     check_fma(dev)
     b1 = {}
     for q in (8192, 123 * (512 if args.short_api else 8192)):
@@ -4177,16 +4502,25 @@ def main() -> int:
     rec_mixed["launches"] = total["fused_scan_merge_mixed"]
     kept = {"a": [], "b": []}
     counts_a, ticks_a = object_path(dev, n, "a", seed=0, keep=kept["a"])
-    counts_b, ticks_b = object_path(dev, n, "b", seed=0, keep=kept["b"])
-    for label, counts, kernel in (("a", counts_a, "merge_topk_multi"),
-                                  ("b", counts_b, "merge_topk_lists")):
-        for name in ("fused_scan_merge", kernel):
-            if counts[name] < 1:
-                raise AssertionError(f"path {label}: {name} never launched")
-    rec_multi["launches"] = counts_a["merge_topk_multi"]
-    rec_lists["launches"] = counts_b["merge_topk_lists"]
-    lap("object_axis")
-    ranks = distributed(n, kept, {"a": ticks_a, "b": ticks_b}, card)
+    # the ranks of the distributed phase start up during path (b)
+    started = start_distributed(n)
+    try:
+        counts_b, ticks_b = object_path(dev, n, "b", seed=0, keep=kept["b"])
+        for label, counts, kernel in (("a", counts_a, "merge_topk_multi"),
+                                      ("b", counts_b, "merge_topk_lists")):
+            for name in ("fused_scan_merge", kernel):
+                if counts[name] < 1:
+                    raise AssertionError(f"path {label}: {name} never "
+                                         "launched")
+        rec_multi["launches"] = counts_a["merge_topk_multi"]
+        rec_lists["launches"] = counts_b["merge_topk_lists"]
+        lap("object_axis")
+    except BaseException:
+        _stop([p for ranks in started[1].values() for p in ranks])
+        shutil.rmtree(started[0], ignore_errors=True)
+        raise
+    ranks = distributed(n, kept, {"a": ticks_a, "b": ticks_b}, card,
+                        started)
     del kept
     for r, name in ((rec, "B1"), (rec_multi, "B2"), (rec_lists, "B3")):
         r["distributed_launches"] = ranks[name]
@@ -4215,10 +4549,6 @@ def main() -> int:
     for r in (rec, rec_mixed, rec_multi, rec_lists):
         r["properties_launches"] = prop_launches[r["name"]]
     lap("properties")
-    lm_phase(dev, card)
-    lap("lm")
-    train_phase(dev, card)
-    lap("train")
     mesh_phase(dev, card)
     lap("mesh")
     narrow = ("topk_select", "bucket_kselect", "pairwise_dist")
@@ -4231,6 +4561,7 @@ def main() -> int:
         if r["name"] in prop_shapes:
             r["properties_shapes"] = prop_shapes[r["name"]]
         r["card"] = card
+    phases["total"] = time.perf_counter() - t0
     print("phases " + json.dumps(phases))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

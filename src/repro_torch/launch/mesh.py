@@ -33,6 +33,7 @@ __all__ = [
     "LogicalMesh",
     "make_production_mesh",
     "make_local_mesh",
+    "pod_mesh",
     "make_query_mesh",
     "make_object_mesh",
     "make_spatial_mesh",
@@ -107,6 +108,16 @@ def make_local_mesh(data: int = 1, model: int = 1, pod: int = 1,
         return _mesh((pod, data, model), ("pod", "data", "model"),
                      device_type)
     return _mesh((data, model), ("data", "model"), device_type)
+
+
+def pod_mesh(mesh):
+    """The ``(data, model)`` mesh of this rank's pod: ``mesh["data",
+    "model"]`` of a ``("pod", "data", "model")`` rank mesh (the ranks that
+    share this rank's ``pod`` coordinate), the mesh itself where it has no
+    ``pod`` dimension."""
+    if "pod" not in (getattr(mesh, "mesh_dim_names", None) or ()):
+        return mesh
+    return mesh["data", "model"]
 
 
 def make_query_mesh(num_devices: int | None = None):

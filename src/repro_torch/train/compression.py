@@ -7,6 +7,15 @@ to int8 with a per-leaf amax scale, the int8 payload and the f32 scale go by
 in rank order.  No float reduction runs in flight, so every rank holds the
 same bits.
 
+A leaf laid over a pod's ``(data, model)`` ranks (a DTensor, the cross-pod
+step with a ``model`` dimension above 1) is exchanged shard by shard: its
+scale is the leaf's amax, the max of the shards' maxima over the pod's
+ranks (exact in any order), each rank quantizes, keeps its residual and
+dequantizes its own shard, and the rank at ``(p, d, m)`` gathers from every
+``(p', d, m)``.  The means and the new errors come back laid as the
+gradients, so no rank holds a whole leaf, and each element's bits are those
+of the whole-leaf exchange.
+
 The arithmetic is the one XLA's CPU program gives the reference (read from
 its compiled text): the scale is ``amax * f32(1/127)`` (a division by a
 constant becomes a multiply by its reciprocal), the residual is
@@ -17,6 +26,7 @@ from __future__ import annotations
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor import DTensor
 
 from ..runtime import fma
 from .optimizer import _recip, tree_leaves, tree_map, tree_unflatten
@@ -27,13 +37,17 @@ f32 = torch.float32
 
 
 def init_error_feedback(params):
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=f32,
-                                          device=p.device), params)
+    """f32 zeros of the parameters' shapes; a DTensor parameter's laid as
+    it is (each rank holds its shard)."""
+    return tree_map(lambda p: torch.zeros_like(p, dtype=f32), params)
 
 
-def _quantize(g):
-    amax = torch.max(torch.abs(g)) + torch.tensor(1e-12, dtype=f32,
-                                                  device=g.device)
+def _quantize(g, amax=None):
+    """(int8 payload, f32 scale) of ``g``; ``amax``: the leaf's max of
+    ``|g|`` where ``g`` is one shard of it."""
+    if amax is None:
+        amax = torch.max(torch.abs(g))
+    amax = amax + torch.tensor(1e-12, dtype=f32, device=g.device)
     scale = amax * _recip(127, g.device)
     q = torch.clamp(torch.round(g / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -47,8 +61,18 @@ def _gather(t: torch.Tensor, group) -> list:
 
 def rank_mean(t: torch.Tensor, group=None) -> torch.Tensor:
     """The mean of ``t`` over the group's ranks, each rank's f32 copy
-    gathered and summed in rank order on every rank, times ``f32(1/n)``."""
+    gathered and summed in rank order on every rank, times ``f32(1/n)``.
+    A DTensor's shards are averaged, and the mean laid as ``t``."""
+    if isinstance(t, DTensor):
+        return _laid_as(rank_mean(t.to_local(), group), t)
     return pods_mean(_exchange(group)(t.float()))
+
+
+def _laid_as(local: torch.Tensor, ref: DTensor) -> DTensor:
+    """This rank's shard ``local`` as a DTensor laid as ``ref``."""
+    return DTensor.from_local(local, ref.device_mesh, ref.placements,
+                              run_check=False, shape=ref.shape,
+                              stride=ref.stride())
 
 
 def _exchange(group):
@@ -65,11 +89,12 @@ def crosspod_mean_int8(grads, err, group=None):
     return int8_mean(grads, err, _exchange(group))
 
 
-def _residual(g, e):
-    """(q, scale, new err) of one pod's leaf: int8 payload, f32 scale and
-    the residual carried forward."""
+def _residual(g, e, amax=None):
+    """(q, scale, new err) of one pod's leaf (or of its shard, with the
+    leaf's ``amax``): int8 payload, f32 scale and the residual carried
+    forward."""
     g = g.float() + e
-    q, scale = _quantize(g)
+    q, scale = _quantize(g, amax)
     return q, scale.reshape(1), fma(-q.float(), scale, g)
 
 
@@ -83,12 +108,38 @@ def _dequant_mean(qs, ss):
 
 def int8_mean(grads, err, gather):
     """:func:`crosspod_mean_int8` over ``gather`` (a value -> the list of
-    every pod's value, in rank order)."""
+    every pod's value, in rank order).  DTensor leaves: on their shards
+    (:func:`_laid_int8_mean`)."""
+    if isinstance(tree_leaves(grads)[0], DTensor):
+        return _laid_int8_mean(grads, err, gather)
     means, errs = [], []
     for g, e in zip(tree_leaves(grads), tree_leaves(err)):
         q, scale, new_e = _residual(g, e)
         errs.append(new_e)
         means.append(_dequant_mean(gather(q), gather(scale)))  # int8, f32
+    return tree_unflatten(grads, means), tree_unflatten(err, errs)
+
+
+def _laid_int8_mean(grads, err, gather):
+    """:func:`int8_mean` of DTensor leaves laid on one pod's ranks, each
+    rank on its shards: the leaves' amaxes (of ``g + e``) in one max
+    reduction over the pod's mesh, then each shard quantized with its
+    leaf's scale, its residual kept and the pods' shards gathered and
+    dequantized."""
+    gs, es = tree_leaves(grads), tree_leaves(err)
+    amax = torch.stack([torch.max(torch.abs(g.to_local().float()
+                                            + e.to_local()))
+                        for g, e in zip(gs, es)])
+    mesh = gs[0].device_mesh
+    for i in range(mesh.ndim):
+        if mesh.size(i) > 1:
+            dist.all_reduce(amax, op=dist.ReduceOp.MAX,
+                            group=mesh.get_group(i))
+    means, errs = [], []
+    for i, (g, e) in enumerate(zip(gs, es)):
+        q, scale, new_e = _residual(g.to_local(), e.to_local(), amax[i])
+        errs.append(_laid_as(new_e, g))
+        means.append(_laid_as(_dequant_mean(gather(q), gather(scale)), g))
     return tree_unflatten(grads, means), tree_unflatten(err, errs)
 
 

@@ -23,7 +23,12 @@ at full width a second copy of the state would not fit beside the first.
   on each rank's shards with the clip inside, as on one device.
 - ``make_train_step_crosspod``: each rank of the ``pod`` dimension takes
   its pod's rows of axis 0, and the gradients cross the pods through
-  ``train/compression.py`` (int8 with error feedback, or f32).  On a
+  ``train/compression.py`` (int8 with error feedback, or f32).  Within a
+  pod the step is ``make_train_step``'s over the pod's ``(data, model)``
+  ranks: data-parallel with a ``model`` dimension of 1, laid by the rule
+  tables on the pod's mesh ``mesh["data", "model"]`` above 1 (the
+  reference's pod-manual ``shard_map`` with ``data`` and ``model`` left
+  to GSPMD), the exchange then running on each rank's shards.  On a
   logical mesh (no process group) the pods run one after another in this
   process, with the ranks' arithmetic.
 
@@ -40,6 +45,7 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ModelConfig
 from ..dist import current_rules, is_rank_mesh, lay, use_rules
+from ..launch.mesh import pod_mesh
 from ..models import loss_fn
 from .compression import (crosspod_mean, crosspod_mean_int8, int8_mean,
                           int8_mean_pods, pods_mean, rank_mean)
@@ -205,21 +211,37 @@ def make_train_step_crosspod(cfg: ModelConfig, opt_cfg: OptConfig, mesh, *,
     the whole batch, of which each pod takes its rows of axis 0 and, within
     the pod, each ``data`` rank its shard.  State gains ``err``
     (``init_error_feedback``) when compressing: on a rank mesh each rank's
-    own tree, on a logical mesh a list of one tree a pod.  The pods' ranks
-    each hold the whole model: a ``model`` dimension above 1 raises."""
-    if _dim(mesh, "model")[0] > 1:
-        raise ValueError("make_train_step_crosspod: the exchange runs on "
-                         "whole gradient leaves; lay a model dimension "
-                         "above 1 with make_train_step")
+    own tree, on a logical mesh a list of one tree a pod.  With a ``model``
+    dimension above 1 the parameters, optimizer state and ``err`` are laid
+    trees on the pod's mesh ``launch.mesh.pod_mesh(mesh)``
+    (``init_params(..., mesh=pod_mesh(mesh))``), one replica a pod, and
+    the exchange runs on each rank's shards."""
     names = tuple(getattr(mesh, "mesh_dim_names", ()) or ())
     if "pod" in names and not hasattr(mesh, "get_group"):
         return _logical_crosspod(cfg, opt_cfg, mesh.shape[names.index("pod")],
                                  compress, accum)
     npod, pod, group = _dim(mesh, "pod")
+    if laid(mesh):
+        sub = pod_mesh(mesh)
+
+        def pod_grads(params, batch):
+            from torch.distributed.tensor.experimental import \
+                implicit_replication
+
+            _check_laid(params, sub)
+            # the batch's rows on the pod's data ranks, as the reference
+            # rebinds them inside its pod-manual region
+            with use_rules(sub, {"batch": "data"}), implicit_replication():
+                loss, grads = grads_and_loss(params, cfg,
+                                             lay_batch(batch, sub), accum)
+                return _scalar(loss), grads
+    else:
+        def pod_grads(params, batch):
+            return _data_parallel(params, cfg, batch, accum, mesh)
 
     def step(params, opt, err, batch):
         rows = _rows(batch, npod, pod) if npod > 1 else batch
-        loss, grads = _data_parallel(params, cfg, rows, accum, mesh)
+        loss, grads = pod_grads(params, rows)
         if npod > 1:
             if compress:
                 grads, err = crosspod_mean_int8(grads, err, group)
@@ -234,6 +256,17 @@ def make_train_step_crosspod(cfg: ModelConfig, opt_cfg: OptConfig, mesh, *,
         return params, opt, err, {"loss": loss, "grad_norm": gnorm}
 
     return step
+
+
+def _check_laid(params, sub):
+    """Refuse parameters that are not laid on the pod's mesh ``sub``."""
+    for p in tree_leaves(params):
+        if not isinstance(p, DTensor) or p.device_mesh != sub:
+            raise ValueError(
+                "make_train_step_crosspod with a model dimension above 1 "
+                "takes parameters laid on the pod's mesh (init_params(..., "
+                f"mesh=pod_mesh(mesh))), got a leaf on "
+                f"{getattr(p, 'device_mesh', 'no mesh')}")
 
 
 def _logical_crosspod(cfg, opt_cfg, npod: int, compress: bool, accum: int):
