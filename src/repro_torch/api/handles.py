@@ -7,7 +7,8 @@ apply in tick order) and then copies to the host what the spec's ``collect``
 mode asks for: the ``(Q, k)`` lists under ``"full"``, only the sink's
 aggregates and the shard counters under ``"stats"``, nothing under
 ``"none"``.  ``TickResult.collect_s`` is the copy time that call paid, taken
-after the device work has drained.
+after the device work has drained.  With :mod:`repro_torch.tracing` on,
+``TickResult.trace`` holds the tick's spans and counters.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.ticks import TickResult
 
 __all__ = ["QueryHandle", "TickHandle"]
@@ -35,9 +37,9 @@ class TickHandle:
 
     def __init__(self, session, tick: int, nn_idx, nn_dist, aux,
                  should_rebuild, nq: int, qids: np.ndarray, owner: np.ndarray,
-                 t0: float, submit_s: float, compile_s: float,
-                 rebuilt_pre: bool, collect: str = "full", agg=None,
-                 maintenance: str = "rebuild"):
+                 t0: float, compile_s: float, rebuilt_pre: bool,
+                 collect: str = "full", agg=None,
+                 maintenance: str = "rebuild", trace=None):
         self._session = session
         self.tick = tick
         self._nn_idx = nn_idx
@@ -50,10 +52,10 @@ class TickHandle:
         self._qids = qids
         self._owner = owner
         self._t0 = t0
-        self.submit_s = submit_s
         self.compile_s = compile_s
         self._rebuilt_pre = rebuilt_pre
         self._maintenance = maintenance
+        self._trace = trace  # the tick's tracing record, None tracing off
         self._event = None
         if nn_idx.is_cuda:
             self._event = torch.cuda.Event()
@@ -93,7 +95,8 @@ class TickHandle:
         return self
 
     def _tick_result(self, nn_idx, nn_dist, shard_cand, shard_it,
-                     collect_s: float = 0.0, aggregates=None) -> TickResult:
+                     collect_s: float = 0.0, aggregates=None,
+                     trace=None) -> TickResult:
         return TickResult(
             tick=self.tick,
             nn_idx=nn_idx,
@@ -109,6 +112,7 @@ class TickHandle:
             collect_s=collect_s,
             aggregates=aggregates,
             maintenance=self._maintenance,
+            trace=trace,
         )
 
     def result(self, materialize: bool = True) -> TickResult:
@@ -139,25 +143,31 @@ class TickHandle:
                 )
             return self._result_dev
         if self._collect == "none":
-            self._result = self._tick_result(None, None, None, None)
+            self._result = self._tick_result(
+                None, None, None, None, trace=tracing.finish(self._trace))
         else:
             # drain the device work outside the timed window: collect_s is
-            # the copy alone
+            # the copy alone, the span result.collect on the host's clock
             self.block_until_ready()
-            tc = time.perf_counter()
-            shard_cand = self._aux.shard_candidates.cpu().numpy()
-            shard_it = self._aux.shard_iterations.cpu().numpy()
-            if self._collect == "stats":
-                agg = type(self._agg)(*(t.cpu().numpy() for t in self._agg))
-                self._result = self._tick_result(
-                    None, None, shard_cand, shard_it,
-                    collect_s=time.perf_counter() - tc, aggregates=agg)
-            else:
-                nn_idx = self._nn_idx[:nq].cpu().numpy()
-                nn_dist = self._nn_dist[:nq].cpu().numpy()
-                self._result = self._tick_result(
-                    nn_idx, nn_dist, shard_cand, shard_it,
-                    collect_s=time.perf_counter() - tc)
+            with tracing.into(self._trace):
+                tracing.count("host.syncs")
+                with tracing.span("result.collect", device=True):
+                    tc = time.perf_counter()
+                    shard_cand = self._aux.shard_candidates.cpu().numpy()
+                    shard_it = self._aux.shard_iterations.cpu().numpy()
+                    if self._collect == "stats":
+                        copied = [t.cpu().numpy() for t in self._agg]
+                        agg, lists = type(self._agg)(*copied), (None, None)
+                    else:
+                        agg = None
+                        copied = lists = (self._nn_idx[:nq].cpu().numpy(),
+                                          self._nn_dist[:nq].cpu().numpy())
+                    collect_s = time.perf_counter() - tc
+                # each copy to the host blocks
+                tracing.count("host.syncs", 2 + len(copied))
+            self._result = self._tick_result(
+                *lists, shard_cand, shard_it, collect_s=collect_s,
+                aggregates=agg, trace=tracing.finish(self._trace))
         # release the device tensors
         self._nn_idx = self._nn_dist = self._aux = self._should_rebuild = None
         self._agg = None

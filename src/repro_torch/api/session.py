@@ -27,6 +27,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from .. import tracing
 from ..core.executor import resolve_executor
 from ..core.pipeline import default_max_nav
 from ..core.plan import pad_capacity, pad_queries, resolve_plan
@@ -227,8 +228,9 @@ class KnnSession:
         positions = np.asarray(positions, np.float32)
         if positions.ndim != 2 or positions.shape[1] != 2:
             raise ValueError(f"positions must be (N, 2), got {positions.shape}")
-        self._positions = torch.tensor(positions, dtype=torch.float32,
-                                       device=self.device)
+        with tracing.span("hand_in.objects"):
+            self._positions = torch.tensor(positions, dtype=torch.float32,
+                                           device=self.device)
         self._positions_dirty = True
         self._reset_pending()  # the delta is unknown: a full refresh follows
 
@@ -241,6 +243,10 @@ class KnnSession:
         set, each with its position as of the last refresh (the first touch
         since then wins).
         """
+        with tracing.span("hand_in.objects"):
+            self._update_objects(ids, positions)
+
+    def _update_objects(self, ids, positions):
         if self._positions is None:
             raise RuntimeError("update_objects before ingest_objects: the "
                                "session has no object state to update")
@@ -341,7 +347,8 @@ class KnnSession:
 
     def update_queries(self, handle: QueryHandle, qpos):
         """Move a registered group: same row count, new positions."""
-        self._registry.update(handle, qpos)
+        with tracing.span("hand_in.queries"):
+            self._registry.update(handle, qpos)
 
     def drop_queries(self, handle: QueryHandle):
         """Remove a group; its rows stop being served from the next submit."""
@@ -437,22 +444,23 @@ class KnnSession:
         incremental spec is spliced in first (``reindex_objects_delta``),
         then the same; anything else takes the full ``build_index``.
         """
-        if self._index is not None and not self._positions_dirty:
-            self._index = rebuild_zmap(self._index)
-        elif self._index is not None and self._in_budget():
-            ids_dev, old_dev = self._assemble_delta()
-            self._index = rebuild_zmap(reindex_objects_delta(
-                self._index, self._positions, ids_dev, old_dev))
-        else:
-            self._index = build_index(
-                self._positions,
-                torch.tensor(self.spec.origin, dtype=torch.float32,
-                             device=self.device),
-                torch.tensor(self.spec.side, dtype=torch.float32,
-                             device=self.device),
-                l_max=self.spec.l_max,
-                th_quad=self.spec.th_quad,
-            )
+        with tracing.span("refresh.build", device=True):
+            if self._index is not None and not self._positions_dirty:
+                self._index = rebuild_zmap(self._index)
+            elif self._index is not None and self._in_budget():
+                ids_dev, old_dev = self._assemble_delta()
+                self._index = rebuild_zmap(reindex_objects_delta(
+                    self._index, self._positions, ids_dev, old_dev))
+            else:
+                self._index = build_index(
+                    self._positions,
+                    torch.tensor(self.spec.origin, dtype=torch.float32,
+                                 device=self.device),
+                    torch.tensor(self.spec.side, dtype=torch.float32,
+                                 device=self.device),
+                    l_max=self.spec.l_max,
+                    th_quad=self.spec.th_quad,
+                )
         self._work_at_build = None  # set at the next tick's finalize
         # the boundaries index Morton ranks of the previous partition
         self._obj_bounds = None
@@ -461,13 +469,17 @@ class KnnSession:
 
     def _finalize_one(self, h: TickHandle):
         """Read the tick's two bookkeeping scalars and apply the drift policy."""
-        h._work = float(h._aux.stats.candidates)
-        h._iterations = int(h._aux.stats.iterations)
-        if self._work_at_build is None:
-            self._work_at_build = h._work
-        elif bool(h._should_rebuild):
-            self._build()
-            h._rebuilt_post = True
+        with tracing.into(h._trace), tracing.span("result.finalize"):
+            h._work = float(h._aux.stats.candidates)
+            h._iterations = int(h._aux.stats.iterations)
+            tracing.count("host.syncs", 2)
+            if self._work_at_build is None:
+                self._work_at_build = h._work
+            else:
+                tracing.count("host.syncs")
+                if bool(h._should_rebuild):
+                    self._build()
+                    h._rebuilt_post = True
         h._finalized = True
 
     def _finalize_through(self, target: TickHandle | None = None):
@@ -491,6 +503,11 @@ class KnnSession:
         if self._registry.nq == 0:
             raise RuntimeError("submit with an empty query registry: "
                                "register_queries first")
+        rec = tracing.open_tick(self.device)
+        with tracing.into(rec), tracing.span("submit"):
+            return self._submit(rec)
+
+    def _submit(self, rec) -> TickHandle:
         self._finalize_through()
         t0 = time.perf_counter()
         built0 = build_seconds()
@@ -498,17 +515,19 @@ class KnnSession:
         if self._index is None:
             self._build()
             rebuilt_pre = True
-        if self._registry.rows_changed:
-            # both are row-aligned with the padded registry batch
-            self._qcost = None
-            self._sink_state = None
-            self._registry.rows_changed = False
-        qpos_dev, qid_dev, nq, qids, owner = self._registry.staged()
-        qcost_dev = self._qcost
-        if qcost_dev is None or qcost_dev.shape[0] != qpos_dev.shape[0]:
-            qcost_dev = torch.zeros((qpos_dev.shape[0],), dtype=torch.float32,
-                                    device=self.device)
-        qweight_dev = self._staged_qweight(nq, int(qpos_dev.shape[0]))
+        with tracing.span("submit.stage"):
+            if self._registry.rows_changed:
+                # both are row-aligned with the padded registry batch
+                self._qcost = None
+                self._sink_state = None
+                self._registry.rows_changed = False
+            qpos_dev, qid_dev, nq, qids, owner = self._registry.staged()
+            qcost_dev = self._qcost
+            if qcost_dev is None or qcost_dev.shape[0] != qpos_dev.shape[0]:
+                qcost_dev = torch.zeros((qpos_dev.shape[0],),
+                                        dtype=torch.float32,
+                                        device=self.device)
+            qweight_dev = self._staged_qweight(nq, int(qpos_dev.shape[0]))
         spec = self.spec
         # the maintenance decision, on the host: a clean buffer skips; a
         # known in-budget delta under an incremental spec splices; anything
@@ -522,12 +541,13 @@ class KnnSession:
             delta_ids, delta_old_pos = self._assemble_delta()
             # one shard past churn_budget x its owned rows defers the tick
             # (one bool read back; the earlier ticks are finalized already)
-            if self.plan.object_axis_size > 1 and bool(
-                    shard_churn_over_budget(
+            if self.plan.object_axis_size > 1:
+                tracing.count("host.syncs")
+                if bool(shard_churn_over_budget(
                         self._index, delta_ids, self.plan.object_axis_size,
                         spec.churn_budget, self._obj_bounds)):
-                mode = "rebuild"
-                delta_ids = delta_old_pos = None
+                    mode = "rebuild"
+                    delta_ids = delta_old_pos = None
         else:
             mode = "rebuild"
         work = np.inf if self._work_at_build is None else self._work_at_build
@@ -569,7 +589,6 @@ class KnnSession:
             self._sink_state, agg = self._sink.update(
                 self._sink_state, nn_idx, nn_dist, self._index,
                 self._obj_bounds, nq)
-        submit_s = time.perf_counter() - t0
         h = TickHandle(
             session=self,
             tick=self._tick,
@@ -581,7 +600,6 @@ class KnnSession:
             qids=qids,
             owner=owner,
             t0=t0,
-            submit_s=submit_s,
             # the port's counterpart of a first-shape compile: the seconds
             # this submit spent building kernels (0 once built, and on the
             # CPU)
@@ -590,6 +608,7 @@ class KnnSession:
             collect=spec.collect,
             agg=agg,
             maintenance=mode,
+            trace=rec,
         )
         self._tick += 1
         self._pending.append(h)

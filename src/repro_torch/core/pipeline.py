@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import tracing
 from ..runtime import sqrt
 from . import morton
 from .executor import QueryExecutor, resolve_executor
@@ -141,8 +142,17 @@ def _knn_sorted_impl(
 
     Returns ``(best_i, best_d2, stats, cand_q)`` where ``stats`` holds (C,)
     per-chunk counters: each chunk's own trip count, its f32 sum of
-    ``cand_q``, and its scheduled leaf scans.
+    ``cand_q``, and its scheduled leaf scans.  Traced as the span ``sweep``;
+    each pass of the loop as ``sweep.pass``, whose two blocking reads of the
+    live rows are ``sweep.sync``.
     """
+    with tracing.span("sweep", device=True):
+        return _sweep(index, qpos, qid, k, window, max_nav, max_iters,
+                      executor, n_chunks)
+
+
+def _sweep(index, qpos, qid, k, window, max_nav, max_iters, executor,
+           n_chunks):
     dev = qpos.device
     nq = qpos.shape[0]
     if nq % n_chunks:
@@ -179,62 +189,77 @@ def _knn_sorted_impl(
     levels = torch.arange(1, l_max + 1, dtype=i32, device=dev)
 
     while True:
-        live = scanning | act_l | act_r
-        chunk_on = live.view(n_chunks, chunk).any(dim=1) & (it_c < max_iters)
-        rows = torch.nonzero(
-            live & chunk_on.repeat_interleave(chunk)
-        ).squeeze(1)
-        if rows.numel() == 0:
-            break
-        it_c += chunk_on.to(i32)
+        with tracing.span("sweep.pass"):
+            live = scanning | act_l | act_r
+            chunk_on = (live.view(n_chunks, chunk).any(dim=1)
+                        & (it_c < max_iters))
+            with tracing.span("sweep.sync"):
+                rows = torch.nonzero(
+                    live & chunk_on.repeat_interleave(chunk)
+                ).squeeze(1)
+            tracing.count("host.syncs")
+            if rows.numel() == 0:
+                break
+            tracing.count("sweep.passes")
+            tracing.count("sweep.rows", rows.numel())
+            it_c += chunk_on.to(i32)
 
-        # ---------------- SCAN: one window of W candidates per scanning row
-        g_qpos = qpos[rows]
-        g_scan = scanning[rows]
-        g_s, g_e, g_off = s_cur[rows], e_cur[rows], off[rows]
-        idx = g_s[:, None] + g_off[:, None] + warange[None, :]
-        in_window = g_scan[:, None] & (idx < g_e[:, None])
-        idxc = idx.clamp(0, n_obj - 1)
-        cpos = index.pos[idxc]  # (R, W, 2)
-        cids = index.ids[idxc]
-        # negative ids are sentinels (-2: external queries)
-        valid = in_window & (cids != qid[rows][:, None]) & (cids >= 0)
-        g_bd, g_bi = executor.scan_merge(
-            g_qpos, cpos, cids, valid, best_d[rows], best_i[rows], k=k
-        )
-        best_d[rows] = g_bd
-        best_i[rows] = g_bi
-        kth2 = g_bd[:, k - 1]
+            # ------------ SCAN: one window of W candidates per scanning row
+            with tracing.span("sweep.scan"):
+                g_qpos = qpos[rows]
+                g_scan = scanning[rows]
+                g_s, g_e, g_off = s_cur[rows], e_cur[rows], off[rows]
+                idx = g_s[:, None] + g_off[:, None] + warange[None, :]
+                in_window = g_scan[:, None] & (idx < g_e[:, None])
+                idxc = idx.clamp(0, n_obj - 1)
+                cpos = index.pos[idxc]  # (R, W, 2)
+                cids = index.ids[idxc]
+                # negative ids are sentinels (-2: external queries)
+                valid = in_window & (cids != qid[rows][:, None]) & (cids >= 0)
+                g_bd, g_bi = executor.scan_merge(
+                    g_qpos, cpos, cids, valid, best_d[rows], best_i[rows], k=k
+                )
+                best_d[rows] = g_bd
+                best_i[rows] = g_bi
+                kth2 = g_bd[:, k - 1]
 
-        off2 = g_off + window
-        leaf_done = g_s + off2 >= g_e
-        g_scan_n = g_scan & ~leaf_done
-        g_off = torch.where(g_scan_n, off2, g_off)
-        cand_q[rows] = cand_q[rows] + in_window.sum(dim=1).to(torch.float32)
+                off2 = g_off + window
+                leaf_done = g_s + off2 >= g_e
+                g_scan_n = g_scan & ~leaf_done
+                g_off = torch.where(g_scan_n, off2, g_off)
+                cand_q[rows] = (cand_q[rows]
+                                + in_window.sum(dim=1).to(torch.float32))
 
-        # ---------------- NAV: bounded frontier advance for idle active rows
-        g_al, g_ar = act_l[rows], act_r[rows]
-        nav = ~g_scan_n & (g_al | g_ar)
-        found_any = torch.zeros_like(nav)
-        sub = torch.nonzero(nav).squeeze(1)
-        if sub.numel():
-            nrows = rows[sub]
-            (n_cl, n_cr, n_al, n_ar, n_nr, n_s, n_e, n_found) = _navigate(
-                index, g_qpos[sub, 0], g_qpos[sub, 1], kth2[sub],
-                cl[nrows], cr[nrows], g_al[sub], g_ar[sub], next_right[nrows],
-                g_s[sub], g_e[sub], max_nav, levels,
-            )
-            cl[nrows], cr[nrows] = n_cl, n_cr
-            act_l[nrows], act_r[nrows] = n_al, n_ar
-            next_right[nrows] = n_nr
-            g_s[sub], g_e[sub] = n_s, n_e
-            found_any[sub] = n_found
+            # ------------ NAV: bounded frontier advance for idle active rows
+            g_al, g_ar = act_l[rows], act_r[rows]
+            nav = ~g_scan_n & (g_al | g_ar)
+            found_any = torch.zeros_like(nav)
+            with tracing.span("sweep.sync"):
+                sub = torch.nonzero(nav).squeeze(1)
+            tracing.count("host.syncs")
+            if sub.numel():
+                tracing.count("sweep.nav_rows", sub.numel())
+                nrows = rows[sub]
+                with tracing.span("sweep.nav"):
+                    (n_cl, n_cr, n_al, n_ar, n_nr, n_s, n_e,
+                     n_found) = _navigate(
+                        index, g_qpos[sub, 0], g_qpos[sub, 1], kth2[sub],
+                        cl[nrows], cr[nrows], g_al[sub], g_ar[sub],
+                        next_right[nrows], g_s[sub], g_e[sub], max_nav,
+                        levels,
+                    )
+                cl[nrows], cr[nrows] = n_cl, n_cr
+                act_l[nrows], act_r[nrows] = n_al, n_ar
+                next_right[nrows] = n_nr
+                g_s[sub], g_e[sub] = n_s, n_e
+                found_any[sub] = n_found
 
-        scanning[rows] = g_scan_n | found_any
-        off[rows] = torch.where(found_any, 0, g_off).to(i32)
-        s_cur[rows], e_cur[rows] = g_s, g_e
-        leaves_c.index_add_(0, torch.div(rows, chunk, rounding_mode="floor"),
-                            found_any.to(i32))
+            scanning[rows] = g_scan_n | found_any
+            off[rows] = torch.where(found_any, 0, g_off).to(i32)
+            s_cur[rows], e_cur[rows] = g_s, g_e
+            leaves_c.index_add_(
+                0, torch.div(rows, chunk, rounding_mode="floor"),
+                found_any.to(i32))
 
     stats = KnnStats(
         iterations=it_c,

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import tracing
 from ..kernels.ops import get_merge_backend, tree_merge_lists
 from ..launch.mesh import (LogicalMesh, default_hybrid_shape,
                            make_object_mesh, make_query_mesh,
@@ -292,6 +293,7 @@ def _query_bounds(partitioner, index, qpos_s, order, qcost, qweight, *,
         cost_s = cost_s * qweight[order]
     bounds = partitioner.query_boundaries(
         cost_s.view(n_chunks, chunk).sum(dim=1), num_shards)
+    tracing.count("host.syncs")
     return bounds.tolist()
 
 
@@ -343,21 +345,26 @@ class SinglePlan(ExecutionPlan):
             max_iters, executor, qweight=None, maintenance="rebuild"):
         del qweight, maintenance  # no split axis, no local trees
         _check_rows(self, qpos.shape[0], chunk)
-        order, inv = _sort_unsort(index, qpos)
+        with tracing.span("plan.sort", device=True):
+            order, inv = _sort_unsort(index, qpos)
+            qpos_s, qid_s = qpos[order], qid[order]
         idx_s, d2_s, stats, cq_s = _chunked_sweep(
-            index, qpos[order], qid[order], k=k, window=window, chunk=chunk,
+            index, qpos_s, qid_s, k=k, window=window, chunk=chunk,
             max_nav=max_nav, max_iters=max_iters, executor=executor,
         )
-        qcost_next = _ema_next(qcost[order], cq_s, _EMA_ALPHA_DEFAULT)[inv]
-        aux = PlanAux(
-            stats=stats,
-            shard_candidates=stats.candidates.reshape(1),
-            shard_iterations=stats.iterations.reshape(1),
-            qcost_next=qcost_next,
-            object_bounds=torch.tensor([0, index.n_objects], dtype=torch.int32,
-                                       device=qpos.device),
-        )
-        return idx_s[inv], sqrt(d2_s[inv]), aux
+        with tracing.span("plan.unsort", device=True):
+            qcost_next = _ema_next(qcost[order], cq_s,
+                                   _EMA_ALPHA_DEFAULT)[inv]
+            aux = PlanAux(
+                stats=stats,
+                shard_candidates=stats.candidates.reshape(1),
+                shard_iterations=stats.iterations.reshape(1),
+                qcost_next=qcost_next,
+                object_bounds=torch.tensor([0, index.n_objects],
+                                           dtype=torch.int32,
+                                           device=qpos.device),
+            )
+            return idx_s[inv], sqrt(d2_s[inv]), aux
 
     def describe(self) -> str:
         return "plan=single shards=1 devices=1"
@@ -437,6 +444,7 @@ def _grid_run(index, qpos, qid, qcost, qweight, *, qd, od, mesh,
     else:
         capo = partitioner.object_capacity(index.n_objects, od)
         bo_t = partitioner.object_boundaries(_object_row_costs(index), od)
+        tracing.count("host.syncs")
         bo = bo_t.tolist()
         opos, oids, ocodes = _pad_object_tail(index, capo)
         locals_ = {

@@ -17,6 +17,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .. import tracing
 from ..kernels.ops import merge_backend_names
 from .balance import partitioner_names
 from .executor import QueryExecutor, available_backends, available_precisions
@@ -154,6 +155,8 @@ class TickResult:
     # None under "full" and "none"
     aggregates: object | None = None
     maintenance: str = "rebuild"  # how this tick's step refreshed the index
+    # the tick's spans and counters (repro_torch.tracing); None tracing off
+    trace: tracing.TickTrace | None = None
 
     @property
     def kth_dist(self):
@@ -199,10 +202,12 @@ def _tick_step(index, positions, qpos, qid, qcost, work_at_build,
         raise ValueError("delta_ids (and delta_old_pos) go with "
                          "maintenance='incremental' only")
     if maintenance == "rebuild":
-        index = reindex_objects(index, positions)
+        with tracing.span("refresh", device=True):
+            index = reindex_objects(index, positions)
     elif maintenance == "incremental":
-        index = reindex_objects_delta(index, positions, delta_ids,
-                                      delta_old_pos)
+        with tracing.span("refresh", device=True):
+            index = reindex_objects_delta(index, positions, delta_ids,
+                                          delta_old_pos)
     elif maintenance != "skip":
         raise ValueError(f"unknown step maintenance mode {maintenance!r}")
     nn_idx, nn_dist, aux = plan.run(
