@@ -32,6 +32,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    k = 512 on :func:`kernel_inputs`' bands; B2 at R = 8, k = 128 and B3 at
    ka = kb = k = 384 (both the wide merge) with NaN, -inf, -0, negative and
    unsorted-list bands; each bitwise against its plain version and timed;
+   then the navigation kernel (:func:`nav_phase`) on the 1M sweep's own
+   inputs of its first pass and of a middle pass, and on
+   :func:`nav_inputs`' edge bands at 1M rows, each bitwise against the
+   plain loop on all eight outputs and timed beside its bound and it;
 7. kernel API path (:func:`kernel_api_path`): ``pairwise_dist_op``,
    ``topk_select_op`` and ``bucket_kselect_op`` at the S2 / S3 studies'
    sizes, each bitwise against its kernel's plain version on the card
@@ -535,6 +539,115 @@ def window_inputs(q: int, c: int, dev, seed: int = 0, side: float = 22_500.0,
             torch.tensor(valid, device=dev))
 
 
+def nav_index(family: str, n: int, l_max: int, dev, seed: int = 0,
+              side: float = 22_500.0, th_quad: int = 16,
+              origin=(0.0, 0.0), partition: str | None = None):
+    """The quadtree over ``n`` objects of a workload family on ``dev``: a
+    clustered family leaves empty leaves beside full ones at ``l_max``.
+    With ``partition``, the leaf levels are those of that family's world
+    (a stale partition, as between drift rebuilds): blocks above a leaf
+    may then be empty."""
+    import dataclasses
+
+    from repro_torch.core.quadtree import build_index
+    from repro_torch.data import make_workload
+
+    def build(fam):
+        pts = make_workload(n, fam, seed=seed, side=side).positions()
+        pts = pts.astype(np.float32) + np.float32(origin)
+        return build_index(torch.tensor(pts, device=dev), origin, side,
+                           l_max=l_max, th_quad=th_quad)
+
+    index = build(family)
+    if partition is not None:
+        index = dataclasses.replace(index,
+                                    leaf_level=build(partition).leaf_level)
+    return index
+
+
+NAV_BANDS = 16
+
+
+def nav_inputs(index, n: int, dev, seed: int = 0):
+    """``nav_walk``'s ten row inputs for ``n`` rows (a multiple of
+    :data:`NAV_BANDS`) against ``index``: qx, qy, kth2, cl, cr, act_l,
+    act_r, next_right, s, e.
+
+    Bands of n // 16 rows: 0 as the sweep leaves them (cursors at a leaf's
+    two ends, both directions active, k-th distances from a fine cell's
+    width to the domain's); 1 the same, going right, with kth2 exactly the
+    squared distance to the leaf right of the cursor (a tie, which `<=`
+    scans); 2 cursors anywhere in [0, 4^l_max]; 3 cl = 0;
+    4 cr = 4^l_max; 5 both; 6 the left side inactive; 7 the right side; 8
+    both (already done); 9 kth2 = inf (the first leaf with objects is
+    found); 10 kth2 = 0; 11 kth2 NaN; 12 qx NaN; 13 qx -inf and qy +inf;
+    14 queries outside the domain; 15 cursors on aligned block boundaries
+    of every level, half of them cr = 0 and cl = 4^l_max (a quarter with
+    the query a side's length left of the domain)."""
+    if n % NAV_BANDS:
+        raise ValueError(f"nav_inputs: {n} rows is not a multiple of "
+                         f"{NAV_BANDS}")
+    g = np.random.default_rng(seed)
+    l_max = index.l_max
+    n_fine = 4**l_max
+    side = float(index.side)
+    ox, oy = index.origin.tolist()
+    leaf_level = index.leaf_level.cpu().numpy()
+    qx = (ox + g.uniform(0, side, n)).astype(np.float32)
+    qy = (oy + g.uniform(0, side, n)).astype(np.float32)
+    kth = 10 ** g.uniform(np.log10(side / 2**l_max / 4), np.log10(side), n)
+    kth2 = np.square(kth.astype(np.float32))
+    fine = g.integers(0, n_fine, n)
+    shift = 2 * (l_max - leaf_level[fine].astype(np.int64))
+    cl = (fine >> shift) << shift
+    cr = cl + (1 << shift)
+    act_l = np.ones(n, bool)
+    act_r = np.ones(n, bool)
+    next_right = g.random(n) < 0.5
+    n_obj = index.n_objects
+    s = g.integers(0, n_obj + 1, n)
+    e = g.integers(0, n_obj + 1, n)
+    b = n // NAV_BANDS
+    band = lambda i: slice(i * b, (i + 1) * b)
+    cl[band(2)] = g.integers(0, n_fine + 1, b)
+    cr[band(2)] = g.integers(0, n_fine + 1, b)
+    cl[band(3)] = 0
+    cr[band(4)] = n_fine
+    cl[band(5)] = 0
+    cr[band(5)] = n_fine
+    act_l[band(6)] = False
+    act_r[band(7)] = False
+    act_l[band(8)] = act_r[band(8)] = False
+    kth2[band(9)] = np.inf
+    kth2[band(10)] = 0.0
+    kth2[band(11)] = np.nan
+    qx[band(12)] = np.nan
+    qx[band(13)] = -np.inf
+    qy[band(13)] = np.inf
+    qx[band(14)] = ox + g.uniform(-side, 2 * side, b)
+    qy[band(14)] = oy + np.where(g.random(b) < 0.5, -1.0, 2.0) * g.uniform(
+        side, 2 * side, b)
+    a = g.integers(0, l_max + 1, (2, b))
+    cl[band(15)] = g.integers(0, (n_fine >> (2 * a[0])) + 1) << (2 * a[0])
+    cr[band(15)] = g.integers(0, (n_fine >> (2 * a[1])) + 1) << (2 * a[1])
+    cr[15 * b:15 * b + b // 2] = 0
+    cl[15 * b:15 * b + b // 2] = n_fine
+    qx[15 * b:15 * b + b // 4] = ox - side  # the whole domain may be far
+    next_right[band(1)] = True
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    flag = lambda v: torch.tensor(v, dtype=torch.bool, device=dev)
+    rows = [f32(qx), f32(qy), f32(kth2), i32(cl), i32(cr), flag(act_l),
+            flag(act_r), flag(next_right), i32(s), i32(e)]
+    from repro_torch.core.morton import point_to_block_dist2
+
+    key = rows[4][band(1)].clamp(0, n_fine - 1)
+    rows[2][band(1)] = point_to_block_dist2(
+        rows[0][band(1)], rows[1][band(1)], key,
+        l_max - index.leaf_level[key], index.origin, index.side, l_max)
+    return tuple(rows)
+
+
 def same_values(a: torch.Tensor, b: torch.Tensor) -> bool:
     """``torch.equal`` with NaN equal to NaN: equal shapes and types, and
     per element the same value (so -0 equals +0, as ``torch.equal`` has
@@ -944,6 +1057,78 @@ def wide_kernel_phase(dev, q_b1=8192, q_merge=65536):
               f"{plain_ms:.3f} ms, two-sort {library_ms:.3f} ms, bound "
               f"{recs[name]['bound_ms']:.4f} ms by {recs[name]['bound_by']})")
         del out, ref, two
+    return recs
+
+
+NAV_ROW_BYTES = 31 + 20  # a navigating row's state read and written
+
+
+def nav_phase(dev, n: int = 1_000_000, seed: int = 0):
+    """``nav_walk`` on the navigation inputs of a 1M uniform sweep (the
+    benchmark cell's world and spec: side 22,500, l_max 8, th_quad 192,
+    k = 32, window 256, max_nav 20), recorded pass by pass: the first pass's
+    rows and the pass nearest 470,000 rows, each bitwise against
+    ``nav_walk_ref`` on all eight outputs and timed beside its byte bound
+    and the plain loop; then :func:`nav_inputs`' edge bands at 1M rows
+    (l_max 8, a gaussian world on a uniform partition).  One record a
+    shape; ``launches`` is filled in from the single path."""
+    from repro_torch.core import pipeline as tp
+    from repro_torch.core.quadtree import build_index
+    from repro_torch.data import make_workload
+    from repro_torch.kernels import nav_walk as nw
+
+    side, l_max, k, window = 22_500.0, 8, 32, 256
+    pts = make_workload(n, "uniform", seed=seed, side=side).positions()
+    index = build_index(torch.tensor(pts, device=dev), (0.0, 0.0), side,
+                        l_max=l_max, th_quad=192)
+    steps = tp.default_max_nav(l_max)
+    passes = []
+
+    def record(index_, *args):
+        passes.append(tuple(a.clone() for a in args[:-1]))
+        return nw.nav_walk(index_, *args)
+
+    tp.nav_walk = record
+    try:
+        tp.knn_query_batch(index, pts, np.arange(n, dtype=np.int32), k=k,
+                           window=window, backend="fused_bucket")
+    finally:
+        tp.nav_walk = nw.nav_walk
+    torch.cuda.synchronize()
+    sizes = [p[0].shape[0] for p in passes]
+    middle = min(range(1, len(passes)), key=lambda i: abs(sizes[i] - 470_000))
+    shapes = [("first pass", index, passes[0]),
+              (f"pass {middle + 1}", index, passes[middle])]
+    edge_index = nav_index("gaussian", n, l_max, dev, seed=seed,
+                           partition="uniform")
+    shapes.append(("edge bands", edge_index,
+                   nav_inputs(edge_index, n - n % NAV_BANDS, dev, seed=seed)))
+    recs = []
+    for label, idx, args in shapes:
+        got = nw.nav_walk(idx, *args, steps)
+        want = nw.nav_walk_ref(idx, *args, steps)
+        torch.cuda.synchronize()
+        for name, g, w in zip(("cl", "cr", "act_l", "act_r", "next_right",
+                               "s", "e", "found"), got, want):
+            if not torch.equal(g, w):
+                raise AssertionError(f"nav_walk ({label}): {name} differs "
+                                     f"from the plain loop on "
+                                     f"{int((g != w).sum())} rows")
+        rows = args[0].shape[0]
+        ms = time_ms(lambda: nw.nav_walk(idx, *args, steps), reps=50)
+        plain_ms = time_ms(lambda: nw.nav_walk_ref(idx, *args, steps),
+                           reps=3, warmup=1)
+        found = int(got[7].sum())
+        recs.append(_record(
+            "nav_walk", "nav_walk.cu",
+            "none (the nav_body / try_level fori_loops, "
+            "src/repro/core/pipeline.py:281 and :158)", None, ms, plain_ms,
+            rows * NAV_ROW_BYTES, 0, None, shape=label, rows=rows,
+            found=found, l_max=l_max, max_nav=steps))
+        print(f"nav_walk {label}: {rows} rows, {found} found, kernel "
+              f"{ms:.4f} ms (bound {recs[-1]['bound_ms']:.4f} ms), plain "
+              f"loop {plain_ms:.2f} ms, bitwise")
+    print(json.dumps({"nav_passes": sizes}))
     return recs
 
 
@@ -4491,15 +4676,21 @@ def main() -> int:
     rec, rec_mixed = b1["fused_scan_merge"], b1["fused_scan_merge_mixed"]
     rec_multi, rec_lists = merge_kernel_phase(dev)
     wide = wide_kernel_phase(dev)
+    nav = nav_phase(dev)
     lap("kernels")
     api = kernel_api_path(dev, full=not args.short_api)
     n = args.n_objects
     baseline_check(dev, n)
     lap("kernel_api")
+    from repro_torch.kernels import nav_walk as nw
+
+    nav_before = nw.nav_walk.launches
     total, _ = main_path(dev, n)
     lap("single")
     rec["launches"] = total["fused_scan_merge"]
     rec_mixed["launches"] = total["fused_scan_merge_mixed"]
+    for r in nav:
+        r["launches"] = nw.nav_walk.launches - nav_before
     kept = {"a": [], "b": []}
     counts_a, ticks_a = object_path(dev, n, "a", seed=0, keep=kept["a"])
     # the ranks of the distributed phase start up during path (b)
@@ -4553,7 +4744,7 @@ def main() -> int:
     lap("mesh")
     narrow = ("topk_select", "bucket_kselect", "pairwise_dist")
     records = [rec, rec_mixed, rec_multi, rec_lists,
-               *(api[name] for name in narrow), *wide.values(),
+               *(api[name] for name in narrow), *wide.values(), *nav,
                *(r for name, r in api.items() if name not in narrow)]
     for r in records:
         if not r["launches"] or r["launches"] < 1:

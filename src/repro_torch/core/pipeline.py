@@ -4,7 +4,7 @@ Counterpart of ``repro/core/pipeline.py``.  All queries advance in lockstep;
 per iteration each query either SCANs one W-wide window of candidates from its
 current leaf (gather -> the executor's merge) or NAVigates the virtual full
 quadtree with up to ``max_nav`` aligned-block jumps that skip empty or pruned
-blocks.
+blocks (``kernels/nav_walk.py``: one CUDA kernel launch a pass on the card).
 
 The reference's ``lax.while_loop`` is a Python loop that reads back, once per
 iteration, which query rows are still live.  The sweep works on those rows
@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from .. import tracing
+from ..kernels.nav_walk import nav_walk
 from ..runtime import sqrt
 from . import morton
 from .executor import QueryExecutor, resolve_executor
@@ -41,90 +42,6 @@ class KnnStats(NamedTuple):
     iterations: torch.Tensor  # i32 outer-loop trips (per chunk, or summed)
     candidates: torch.Tensor  # f32 candidate object slots scanned
     leaves_visited: torch.Tensor  # i32 scheduled leaf scans (incl. own leaf)
-
-
-def _nav_step(index: QuadtreeIndex, qx, qy, kth2, cursor, run, dir_r, levels):
-    """One navigation step; ``dir_r`` is a per-query bool (True = rightwards).
-
-    Returns (found, s, e, new_cursor, exhausted) as the reference does.  The
-    reference's rolled loop over jump levels ``a = 1..l_max`` is evaluated for
-    all levels at once on a (Q, l_max) tensor: the largest admissible level
-    wins, and ``a0`` when none is.
-    """
-    l_max = index.l_max
-    n_fine = 4**l_max
-
-    exhausted = torch.where(dir_r, cursor >= n_fine, cursor <= 0)
-    cprobe = torch.where(dir_r, cursor, cursor - 1).clamp(0, n_fine - 1)
-
-    lvl = index.leaf_level[cprobe]
-    a0 = l_max - lvl
-    span0 = torch.bitwise_left_shift(torch.ones_like(a0), 2 * a0)
-    leaf_key = torch.where(dir_r, cprobe, (cprobe >> (2 * a0)) << (2 * a0))
-    s = index.starts[leaf_key.clamp(0, n_fine - 1)]
-    e = index.starts[(leaf_key + span0).clamp(0, n_fine)]
-    cnt = e - s
-    leaf_d2 = morton.point_to_block_dist2(
-        qx, qy, leaf_key, a0, index.origin, index.side, l_max
-    )
-    # `<=`: leaves exactly at the k-th distance are scanned (canonical ties)
-    found = run & ~exhausted & (cnt > 0) & (leaf_d2 <= kth2)
-
-    # far/empty aligned-block skip, all candidate levels at once: (Q, L)
-    pyr_n = index.pyramid.shape[0]
-    ai = levels[None, :]
-    blk = torch.bitwise_left_shift(torch.ones_like(ai), 2 * ai)
-    cur = cursor[:, None]
-    right = dir_r[:, None]
-    code = torch.where(right, cur, cur - blk)
-    in_dom = torch.where(right, cur + blk <= n_fine, cur - blk >= 0)
-    pidx = torch.where(right, cur >> (2 * ai), (cur >> (2 * ai)) - 1)
-    lvl_off = (torch.bitwise_left_shift(torch.ones_like(ai), 2 * (l_max - ai))
-               - 1) // 3
-    empty = index.pyramid[(lvl_off + pidx).clamp(0, pyr_n - 1)] == 0
-    far = morton.point_to_block_dist2(
-        qx[:, None], qy[:, None], code, ai, index.origin, index.side, l_max
-    ) > kth2[:, None]  # strict: blocks AT the k-th distance still get scanned
-    aligned = (cur & (blk - 1)) == 0
-    ok = aligned & in_dom & (ai >= a0[:, None]) & (empty | far)
-    best_a = torch.where(ok, ai, a0[:, None]).amax(dim=1)
-    jump = torch.bitwise_left_shift(torch.ones_like(best_a), 2 * best_a)
-
-    step = torch.where(found, span0, jump)
-    new_cursor = torch.where(
-        run & ~exhausted,
-        torch.where(dir_r, cursor + step, cursor - step),
-        cursor,
-    )
-    return found, s, e, new_cursor, run & exhausted
-
-
-def _navigate(index, qx, qy, kth2, cl, cr, act_l, act_r, next_right, s_cur,
-              e_cur, max_nav, levels):
-    """The bounded frontier advance of the rows that navigate this iteration."""
-    found_any = torch.zeros_like(act_l)
-    for _ in range(max_nav):
-        pending = ~found_any & (act_l | act_r)
-        # no row pending: the remaining steps change nothing.  Read on the
-        # CPU only, where it costs no device synchronisation.
-        if pending.device.type == "cpu" and not pending.any():
-            break
-        go_right = act_r & (next_right | ~act_l)
-        run = pending & (go_right | act_l)
-        cursor = torch.where(go_right, cr, cl)
-        f, s_f, e_f, cur2, ex = _nav_step(
-            index, qx, qy, kth2, cursor, run, go_right, levels
-        )
-        cr = torch.where(run & go_right, cur2, cr)
-        cl = torch.where(run & ~go_right, cur2, cl)
-        act_r = act_r & ~(ex & go_right)
-        act_l = act_l & ~(ex & ~go_right)
-        s_cur = torch.where(f, s_f, s_cur)
-        e_cur = torch.where(f, e_f, e_cur)
-        # alternate directions while both remain active (paper Sec. 4.2.2)
-        next_right = torch.where(f, ~go_right, next_right)
-        found_any = found_any | f
-    return cl, cr, act_l, act_r, next_right, s_cur, e_cur, found_any
 
 
 def _knn_sorted_impl(
@@ -186,7 +103,6 @@ def _sweep(index, qpos, qid, k, window, max_nav, max_iters, executor,
     leaves_c = scanning.view(n_chunks, chunk).sum(dim=1, dtype=i32)
 
     warange = torch.arange(window, dtype=i32, device=dev)
-    levels = torch.arange(1, l_max + 1, dtype=i32, device=dev)
 
     while True:
         with tracing.span("sweep.pass"):
@@ -242,11 +158,10 @@ def _sweep(index, qpos, qid, k, window, max_nav, max_iters, executor,
                 nrows = rows[sub]
                 with tracing.span("sweep.nav"):
                     (n_cl, n_cr, n_al, n_ar, n_nr, n_s, n_e,
-                     n_found) = _navigate(
+                     n_found) = nav_walk(
                         index, g_qpos[sub, 0], g_qpos[sub, 1], kth2[sub],
                         cl[nrows], cr[nrows], g_al[sub], g_ar[sub],
                         next_right[nrows], g_s[sub], g_e[sub], max_nav,
-                        levels,
                     )
                 cl[nrows], cr[nrows] = n_cl, n_cr
                 act_l[nrows], act_r[nrows] = n_al, n_ar

@@ -30,7 +30,7 @@ __all__ = ["SOURCES", "NVCC_FLAGS", "build_dir", "library_path", "build_all",
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("fused_scan.cu", "merge_topk.cu", "pairwise_dist.cu",
-           "topk_select.cu", "bucket_kselect.cu")
+           "topk_select.cu", "bucket_kselect.cu", "nav_walk.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",

@@ -14,6 +14,7 @@ import torch
 from repro_torch.kernels import bucket_kselect as tbk
 from repro_torch.kernels import fused_scan as tfs
 from repro_torch.kernels import merge_topk as tmt
+from repro_torch.kernels import nav_walk as tnw
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import pairwise_dist as tpd
 from repro_torch.kernels import topk_select as ttk
@@ -23,8 +24,8 @@ from repro_torch.runtime import fma
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from chip_smoke import (_guarantee, edge_window, kernel_inputs,  # noqa: E402
-                        merge_inputs, odd_rows, same_values, topk_inputs,
-                        window_inputs, worst_rows)
+                        merge_inputs, nav_index, nav_inputs, odd_rows,
+                        same_values, topk_inputs, window_inputs, worst_rows)
 
 
 @pytest.fixture
@@ -763,3 +764,87 @@ def test_property_draws_on_the_card(cuda):
         assert cells == 10, (name, cells)
     torch.cuda.synchronize()
     assert all(fn.launches > b for fn, b in zip(counters, before))
+
+
+# (family, its partition's family or None, l_max, side, origin), as the CPU
+# restatement's worlds in test_torch_nav_walk.py
+_NAV_WORLDS = [
+    ("uniform", None, 3, 1000.3, (-7.3, 3.1)),
+    ("gaussian", "uniform", 3, 1000.3, (-7.3, 3.1)),
+    ("uniform", None, 8, 22_500.0, (0.0, 0.0)),
+    ("gaussian", None, 8, 22_500.0, (0.0, 0.0)),
+    ("gaussian", "uniform", 8, 22_500.0, (0.0, 0.0)),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("max_nav", [1, 2, None])
+@pytest.mark.parametrize("family,partition,l_max,side,origin", _NAV_WORLDS)
+def test_nav_walk_kernel_matches_plain(cuda, family, partition, l_max, side,
+                                       origin, max_nav):
+    """The navigation kernel equals its plain version bit for bit on all
+    eight outputs, on every band of ``chip_smoke.nav_inputs``: NaN and
+    infinite coordinates, kth2 inf, 0, NaN and tied, cursors at 0 and
+    4^l_max, one or both directions inactive, empty and full leaves, a
+    stale partition; one launch a call."""
+    from repro_torch.core.pipeline import default_max_nav
+
+    index = nav_index(family, 20_000, l_max, cuda, seed=l_max, side=side,
+                      origin=origin, partition=partition)
+    args = nav_inputs(index, 4096, cuda, seed=l_max)
+    steps = default_max_nav(l_max) if max_nav is None else max_nav
+    before = tnw.nav_walk.launches
+    got = tnw.nav_walk(index, *args, steps)
+    want = tnw.nav_walk_ref(index, *args, steps)
+    torch.cuda.synchronize()
+    assert tnw.nav_walk.launches == before + 1
+    names = ("cl", "cr", "act_l", "act_r", "next_right", "s", "e", "found")
+    for name, g, w in zip(names, got, want):
+        assert torch.equal(g, w), (name, int((g != w).sum()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["uniform", "gaussian"])
+def test_sweep_with_nav_kernel_equals_cpu_sweep(cuda, family):
+    """A whole sorted sweep over 49,152 objects on the card (B1 and the
+    navigation kernel) equals the plain sweep on the CPU: the lists, bit for
+    bit, ``KnnStats`` and the per-query candidates, and every counter of
+    the sweep; the card's launches one a pass that navigates."""
+    from repro_torch import tracing
+    from repro_torch.core import pipeline as tp
+    from repro_torch.core.executor import resolve_executor
+    from repro_torch.core.quadtree import build_index
+    from repro_torch.data import make_workload
+
+    n, k, window, l_max = 6 * 8192, 32, 256, 8
+    pts = make_workload(n, family, seed=5, side=22_500.0).positions()
+    runs = {}
+    for dev in (torch.device("cpu"), cuda):
+        index = build_index(torch.tensor(pts, device=dev), (0.0, 0.0),
+                            22_500.0, l_max=l_max, th_quad=192)
+        qpos = torch.tensor(pts, device=dev)
+        qid = torch.arange(n, dtype=torch.int32, device=dev)
+        order, _ = tp._sort_unsort(index, qpos)
+        before = tnw.nav_walk.launches
+        tracing.enable()
+        try:
+            rec = tracing.open_tick(dev)
+            with tracing.into(rec):
+                out = tp._knn_sorted_impl(
+                    index, qpos[order], qid[order], k, window,
+                    tp.default_max_nav(l_max), 100_000,
+                    resolve_executor("fused_bucket"), n_chunks=n // 8192)
+            trace = tracing.finish(rec)
+        finally:
+            tracing.disable()
+        runs[dev.type] = ([t.cpu() for t in (out[0], out[1], out[3])],
+                          [t.cpu() for t in out[2]], trace.counters,
+                          tnw.nav_walk.launches - before)
+    (lists_c, stats_c, cnt_c, launched_c) = runs["cpu"]
+    (lists_g, stats_g, cnt_g, launched_g) = runs["cuda"]
+    for a, b in zip(lists_c + stats_c, lists_g + stats_g):
+        assert torch.equal(a, b)
+    nav = cnt_g.pop("sweep.nav_launches")
+    assert cnt_c == cnt_g
+    assert "sweep.nav_launches" not in cnt_c and launched_c == 0
+    assert nav == launched_g and 1 <= nav <= cnt_g["sweep.passes"]
