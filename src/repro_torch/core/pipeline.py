@@ -61,7 +61,9 @@ def _knn_sorted_impl(
     per-chunk counters: each chunk's own trip count, its f32 sum of
     ``cand_q``, and its scheduled leaf scans.  Traced as the span ``sweep``;
     each pass of the loop as ``sweep.pass``, whose two blocking reads of the
-    live rows are ``sweep.sync``.
+    live rows are ``sweep.sync`` and whose window scan, timed on the device
+    too, is ``sweep.scan``.  A pass with fewer live rows than one chunk (the
+    lockstep's tail) counts ``sweep.tail_passes``.
     """
     with tracing.span("sweep", device=True):
         return _sweep(index, qpos, qid, k, window, max_nav, max_iters,
@@ -118,10 +120,11 @@ def _sweep(index, qpos, qid, k, window, max_nav, max_iters, executor,
                 break
             tracing.count("sweep.passes")
             tracing.count("sweep.rows", rows.numel())
+            tracing.count("sweep.tail_passes", int(rows.numel() < chunk))
             it_c += chunk_on.to(i32)
 
             # ------------ SCAN: one window of W candidates per scanning row
-            with tracing.span("sweep.scan"):
+            with tracing.span("sweep.scan", device=True):
                 g_qpos = qpos[rows]
                 g_scan = scanning[rows]
                 g_s, g_e, g_off = s_cur[rows], e_cur[rows], off[rows]

@@ -40,7 +40,7 @@ PARENTS = {
     "result.finalize": None,
     "result.collect": None,
 }
-DEVICE_SPANS = ("refresh", "plan.sort", "sweep", "plan.unsort",
+DEVICE_SPANS = ("refresh", "plan.sort", "sweep", "sweep.scan", "plan.unsort",
                 "result.collect")
 
 
@@ -248,6 +248,111 @@ def test_tracing_changes_no_bit(dist, maintenance):
         assert a.rebuilt == b.rebuilt
 
 
+def _recording(monkeypatch):
+    """Every ``tracing.count`` call, in order, still counted."""
+    calls = []
+    real = tracing.count
+
+    def count(name, n=1):
+        calls.append((name, n))
+        real(name, n)
+
+    monkeypatch.setattr(tracing, "count", count)
+    return calls
+
+
+def test_tail_passes_count_the_passes_with_fewer_live_rows_than_a_chunk(
+        traced, monkeypatch):
+    """One ``sweep.tail_passes`` count a pass, 1 where the pass's live rows
+    (its ``sweep.rows``) are fewer than one chunk; a skewed world's sweep
+    has passes of both kinds."""
+    calls = _recording(monkeypatch)
+    results = _ticks(KnnSession(_spec(), device="cpu"), _world("gaussian"), 2)
+    live = [n for name, n in calls if name == "sweep.rows"]
+    tail = [n for name, n in calls if name == "sweep.tail_passes"]
+    assert len(live) == len(tail)
+    for res in results:  # the ticks' passes, in submit order
+        counters = res.trace.counters
+        passes = counters["sweep.passes"]
+        mine, live = live[:passes], live[passes:]
+        assert tail[:passes] == [int(n < 256) for n in mine]
+        tail = tail[passes:]
+        assert counters["sweep.tail_passes"] == sum(n < 256 for n in mine)
+        assert 0 < counters["sweep.tail_passes"] < passes
+    assert live == tail == []
+
+
+def test_off_the_sweep_counts_no_tail_and_times_no_scan(monkeypatch):
+    assert not tracing.enabled()
+    calls = _recording(monkeypatch)
+    totals = tracing.totals()
+    counted = dict(totals.counters)
+    monkeypatch.setattr(torch.cuda, "Event", lambda *a, **kw: pytest.fail(
+        "a CUDA event was made with tracing off"))
+    results = _ticks(KnnSession(_spec(), device="cpu"), _world("gaussian"), 1)
+    assert all(r.trace is None for r in results)
+    # the sweep makes its calls; each returns at the switch, recording nothing
+    assert any(name == "sweep.tail_passes" for name, _ in calls)
+    assert tracing.totals() is totals and totals.counters == counted
+    assert tracing.span("sweep.scan", device=True) is tracing.span("sweep")
+
+
+def test_scan_span_is_timed_inside_the_sweep_on_the_cpu(traced):
+    """On the CPU a device span's extent is its host duration: the scan's,
+    summed over the passes, lies inside the sweep's."""
+    _, t1 = _ticks(KnnSession(_spec(), device="cpu"), _world("gaussian"), 1)
+    spans = t1.trace.spans
+    scan, sweep = spans["sweep.scan"], spans["sweep"]
+    assert scan.device_ms == pytest.approx(scan.host_ms)
+    assert 0 < scan.device_ms <= sweep.device_ms
+    assert scan.n == t1.trace.counters["sweep.passes"]
+
+
+# each tick's lists (digest of the ids and distance bits), trips, candidate
+# sum and sweep counters, as the sweep gave them before it counted its tail
+# passes and timed its scan on the device (build tick, then two moves)
+BEFORE = {
+    "uniform": [
+        ("c23027d6b59c84b2", 48, 221198.0, {
+            "host.syncs": 24, "sweep.nav_rows": 2347, "sweep.passes": 8,
+            "sweep.rows": 4694}),
+        ("f286a80892d044d6", 48, 221381.0, {
+            "host.syncs": 25, "sweep.nav_rows": 2351, "sweep.passes": 8,
+            "sweep.rows": 4702}),
+        ("ebc5777f44fd25cb", 48, 220463.0, {
+            "host.syncs": 25, "sweep.nav_rows": 2343, "sweep.passes": 8,
+            "sweep.rows": 4686})],
+    "gaussian": [
+        ("214546e4b9fa68b6", 39, 196654.0, {
+            "host.syncs": 28, "sweep.nav_rows": 1831, "sweep.passes": 10,
+            "sweep.rows": 3704}),
+        ("76066fe463d4054f", 40, 197322.0, {
+            "host.syncs": 29, "sweep.nav_rows": 1842, "sweep.passes": 10,
+            "sweep.rows": 3720}),
+        ("4651acc39420e246", 40, 198606.0, {
+            "host.syncs": 29, "sweep.nav_rows": 1869, "sweep.passes": 10,
+            "sweep.rows": 3761})],
+}
+
+
+@pytest.mark.parametrize("dist", sorted(BEFORE))
+def test_sweep_outputs_and_counters_are_those_from_before(traced, dist):
+    import hashlib
+
+    session = KnnSession(_spec(), device="cpu")
+    world = make_workload(N, dist, seed=3, side=SIDE)
+    got = []
+    for res in _ticks(session, world, 2):
+        digest = hashlib.sha256(
+            np.ascontiguousarray(res.nn_idx).tobytes()
+            + np.ascontiguousarray(res.nn_dist).view(np.uint32).tobytes())
+        counters = {n: c for n, c in res.trace.counters.items()
+                    if n != "sweep.tail_passes"}
+        got.append((digest.hexdigest()[:16], res.iterations, res.candidates,
+                    counters))
+    assert got == BEFORE[dist]
+
+
 class _FakeEvent:
     made = 0
 
@@ -326,6 +431,33 @@ def test_device_spans_time_a_tick_on_the_card(cuda):
     spans = res.trace.spans
     for name in DEVICE_SPANS:
         assert spans[name].device_ms > 0, name
-    # the device spans lie inside the tick, one after another
-    assert sum(spans[n].device_ms for n in DEVICE_SPANS) <= 1e3 * res.wall_s
+    # the device spans lie inside the tick, one after another (the scan's
+    # inside the sweep's)
+    assert sum(spans[n].device_ms for n in DEVICE_SPANS
+               if PARENTS[n] != "sweep.pass") <= 1e3 * res.wall_s
     assert res.trace.counters["sweep.passes"] == launches
+
+
+@pytest.mark.gpu
+def test_scan_span_times_the_card_within_the_sweep(cuda):
+    """A skewed tick on the card: the scan's device extent, summed over its
+    passes, is above zero and inside the sweep's; the tail passes are some
+    of the passes."""
+    spec = ServiceSpec(k=32, chunk=8192, side=SIDE, backend="fused_bucket")
+    pos = make_workload(100_000, "gaussian", seed=5, side=SIDE).positions()
+    qid = np.arange(pos.shape[0], dtype=np.int32)
+    tracing.enable()
+    try:
+        session = KnnSession(spec, device=cuda)
+        session.ingest_objects(pos)
+        h = session.register_queries(pos, qid)
+        session.submit().result()
+        session.ingest_objects(pos)
+        session.update_queries(h, pos)
+        res = session.submit().result()
+    finally:
+        tracing.disable()
+    spans, counters = res.trace.spans, res.trace.counters
+    assert spans["sweep.scan"].n == counters["sweep.passes"]
+    assert 0 < spans["sweep.scan"].device_ms <= spans["sweep"].device_ms
+    assert 0 < counters["sweep.tail_passes"] <= counters["sweep.passes"]
