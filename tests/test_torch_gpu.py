@@ -848,3 +848,114 @@ def test_sweep_with_nav_kernel_equals_cpu_sweep(cuda, family):
     assert cnt_c == cnt_g
     assert "sweep.nav_launches" not in cnt_c and launched_c == 0
     assert nav == launched_g and 1 <= nav <= cnt_g["sweep.passes"]
+
+
+def _collect_session(cuda, family, collect):
+    """A 49,152-object session on the card and a function that moves its
+    world and submits a tick."""
+    import numpy as np
+
+    from repro_torch.api import KnnSession, ServiceSpec
+    from repro_torch.data import make_workload
+
+    n, side = 6 * 8192, 22_500.0
+    session = KnnSession(ServiceSpec(k=32, side=side, backend="fused_bucket",
+                                     collect=collect), device=cuda)
+    world = make_workload(n, family, seed=11, side=side)
+    pos = world.positions()
+    session.ingest_objects(pos)
+    handle = session.register_queries(pos, np.arange(n, dtype=np.int32))
+    state = {"built": False}
+
+    def submit():
+        if state["built"]:
+            world.advance()
+            moved = world.positions()
+            session.ingest_objects(moved)
+            session.update_queries(handle, moved)
+        state["built"] = True
+        return session.submit()
+
+    return n, submit
+
+
+def _bytes(a):
+    import numpy as np
+
+    return np.asarray(a).dtype, np.asarray(a).shape, np.asarray(a).tobytes()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("collect", ["full", "stats"])
+@pytest.mark.parametrize("family", ["uniform", "gaussian"])
+def test_pinned_collect_equals_the_device_lists(cuda, family, collect):
+    """``result()`` hands out, bit for bit, the ``.cpu()`` of the tick's
+    device tensors taken first through ``result(materialize=False)``: the
+    lists under ``"full"`` ((n, 32) int32 and float32), the sink's
+    aggregates under ``"stats"``, the shard counters in both; each array
+    lies in pinned host memory."""
+    n, submit = _collect_session(cuda, family, collect)
+    for _ in range(3):
+        h = submit()
+        dev = h.result(materialize=False)
+        want = [dev.shard_candidates, dev.shard_iterations]
+        if collect == "full":
+            want += [dev.nn_idx, dev.nn_dist]
+        else:
+            want += list(dev.aggregates)
+        want = [t.cpu().numpy() for t in want]
+        res = h.result()
+        got = [res.shard_candidates, res.shard_iterations]
+        if collect == "full":
+            got += [res.nn_idx, res.nn_dist]
+            assert res.nn_idx.shape == res.nn_dist.shape == (n, 32)
+            assert (res.nn_idx.dtype.name, res.nn_dist.dtype.name) == (
+                "int32", "float32")
+        else:
+            assert res.nn_idx is None
+            got += list(res.aggregates)
+        assert [_bytes(a) for a in got] == [_bytes(w) for w in want]
+        assert all(torch.from_numpy(a).is_pinned() for a in got)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["uniform", "gaussian"])
+def test_a_held_result_keeps_its_bytes_over_later_ticks(cuda, family):
+    """The blocks of a result the caller holds are never handed to a later
+    tick: after 3 more ticks (their results dropped, their blocks reused)
+    its lists are the bytes they were."""
+    _, submit = _collect_session(cuda, family, "full")
+    submit().result()
+    held = submit().result()
+    kept = [_bytes(a) for a in (held.nn_idx, held.nn_dist,
+                                held.shard_candidates)]
+    later = [submit().result().nn_idx.tobytes() for _ in range(3)]
+    assert [_bytes(a) for a in (held.nn_idx, held.nn_dist,
+                                held.shard_candidates)] == kept
+    assert all(b != kept[0][2] for b in later)  # the world moved
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["uniform", "gaussian"])
+def test_pinned_blocks_are_reused_and_collect_waits_once(cuda, family):
+    """As the benchmark holds them (the previous result while the next is
+    made), the copy makes no pinned block from the third tick on; it pins 4
+    tensors a tick under ``"full"`` and blocks twice, the drain and the
+    one wait: ``host.syncs`` is the sweep's 2 a pass and its last, the
+    finalize's 3 and those 2."""
+    from repro_torch import tracing
+
+    _, submit = _collect_session(cuda, family, "full")
+    tracing.enable()
+    try:
+        res, counters = None, []
+        for _ in range(6):
+            res = submit().result()
+            counters.append(res.trace.counters)
+    finally:
+        tracing.disable()
+    assert [c["collect.host_allocs"] for c in counters[2:]] == [0] * 4
+    assert sum(c["collect.host_allocs"] for c in counters[:2]) <= 8
+    assert all(c["collect.pinned"] == 4 for c in counters)
+    for c in counters[1:]:  # the build tick reads no drift bool
+        assert c["host.syncs"] == 2 * c["sweep.passes"] + 1 + 3 + 2
